@@ -1,11 +1,15 @@
 """Command-line renderer of the port.
 
-Renders N progressive frames of a preset scene with the fused engine and
-writes a PNG (plus optional linear PFM and film checkpoint).
+Renders N progressive frames of a preset scene, or of a PLY mesh in the
+JAX package's showcase scene, and writes a PNG (plus optional linear PFM
+and film checkpoint).  ``--engine auto`` picks wavefront_fused for a scene
+of more than 512 triangles and fused otherwise, as the JAX CLI does on a
+TPU.
 
 Usage:
     python -m parallelraytracing_tpu_torch.cli --scene random_balls_large \
         --width 1920 --height 1080 --frames 16 --out balls.png
+    python -m parallelraytracing_tpu_torch.cli --ply mesh.ply --frames 16
     python -m parallelraytracing_tpu_torch.cli --device cpu --scene cornell \
         --width 64 --height 64 --frames 4
 """
@@ -16,8 +20,8 @@ import argparse
 import sys
 import time
 
-#: engines of this port; "auto" picks fused
-ENGINE_CHOICES = ("auto", "fused")
+#: engines of this port; "auto" picks by the scene's triangle count
+ENGINE_CHOICES = ("auto", "fused", "wavefront_fused")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -27,8 +31,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--scene", default="random_balls_large",
                    help="preset name (default, light_test, material_test, "
                         "cornell, random_balls_{small,medium,large})")
+    p.add_argument("--ply", default=None,
+                   help="render a PLY mesh (the showcase scene) instead of "
+                        "a preset")
     p.add_argument("--engine", default="auto",
-                   help="auto | fused (the engines this port has)")
+                   help="auto (wavefront_fused above 512 triangles, else "
+                        "fused, as the JAX CLI picks) | fused | "
+                        "wavefront_fused.  On an H100 wavefront_fused is "
+                        "the slower engine on meshes: its default schedule "
+                        "is the TPU's, not yet re-tuned for the GPU")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernel path) or cpu (the "
                         "plain PyTorch version, slow)")
@@ -65,13 +76,13 @@ def main(argv=None) -> int:
     if args.engine not in ENGINE_CHOICES:
         raise ValueError(f"engine {args.engine!r} is not in this port; "
                          f"it has: {', '.join(ENGINE_CHOICES)}")
-    engine = "fused"
 
     import numpy as np
     import torch
 
     from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig, Scene,
                                               ScenePreset, create_renderer)
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import TRI_HEAVY
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -85,11 +96,20 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth, samples_per_frame=args.spp,
                        jitter=not args.no_jitter, seed=args.seed)
-    scene = Scene(ScenePreset(args.scene))
-    eye = np.asarray(args.eye if args.eye is not None else (5.0, 5.0, 8.0),
-                     np.float64)  # the reference's startup camera
+    if args.ply:
+        from parallelraytracing_tpu_torch.core.scene import ply_showcase_scene
+        scene, default_eye, default_look = ply_showcase_scene(args.ply)
+    else:
+        scene = Scene(ScenePreset(args.scene))
+        default_eye = (5.0, 5.0, 8.0)  # the reference's startup camera
+        default_look = (0.0, 0.0, 0.0)
+    engine = args.engine
+    if engine == "auto":
+        engine = "wavefront_fused" if len(scene._tri) > TRI_HEAVY else "fused"
+    eye = np.asarray(args.eye if args.eye is not None else default_eye,
+                     np.float64)
     look = np.asarray(args.look_at if args.look_at is not None
-                      else (0.0, 0.0, 0.0), np.float64)
+                      else default_look, np.float64)
     cam = Camera(eye, look - eye, float(args.width), float(args.height), 100.0)
 
     if args.resume:
@@ -106,8 +126,9 @@ def main(argv=None) -> int:
     renderer.init(film, scene, cam, cfg)
     renderer._frame_index = start_frame
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"scene={args.scene} engine={engine} {args.width}x{args.height} "
-          f"depth={cfg.max_depth} prims={scene.num_primitives} "
+    print(f"scene={args.ply or args.scene} engine={engine} "
+          f"{args.width}x{args.height} depth={cfg.max_depth} "
+          f"prims={scene.num_primitives} "
           f"device={device} ({name})")
 
     t_all = time.perf_counter()

@@ -37,9 +37,12 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
 
 
 def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
-                      device) -> SceneTables:
+                      device, bb=((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+                      ) -> SceneTables:
     """SceneTables on `device` from packed host tables (either package's
-    ``pack_scene_tables``) and the sky 3-tuple."""
+    ``pack_scene_tables``), the sky 3-tuple and the scene box ``bb`` =
+    ((lo), (1 / extent)) of the sort key (the JAX engine tables' ``bb``;
+    it only orders the wavefront queue, never changes an image)."""
     def dev(a):
         return torch.from_numpy(
             np.array(a, dtype=np.float32, order="C")).to(device)
@@ -49,4 +52,5 @@ def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
         sph=dev(sph), quad=dev(quad), tri=dev(tri), sph_cl=dev(sph_cl),
         quad_cl=dev(quad_cl), tri_cl=dev(tri_cl), mats=dev(mats),
         sky=tuple(float(s) for s in np.asarray(sky, np.float32)),
-        tri_live=bool(np.any(tri[0:3] != 0.0)))
+        tri_live=bool(np.any(tri[0:3] != 0.0)),
+        bb=tuple(tuple(float(x) for x in v) for v in bb))

@@ -10,8 +10,9 @@ roughness, ior, emission}.
 
 The seven reference presets are replicated, including the mt19937(1337)
 layout of the RANDOM_BALLS variants, so ``build()`` gives the same arrays
-as the JAX package.  Sky models, textures, meshes and instances are not in
-this port yet and raise ``NotImplementedError`` naming their ROADMAP item.
+as the JAX package; ``add_mesh`` and ``ply_showcase_scene`` give its mesh
+scenes.  Sky models, textures and instances are not in this port yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -145,11 +146,6 @@ class Scene:
         raise NotImplementedError(
             f"Scene.add_textured_lambertian: {_SCENE_EXTENSIONS}")
 
-    def add_mesh(self, *args, **kw) -> None:
-        raise NotImplementedError(
-            "Scene.add_mesh: ROADMAP Queue 1 item 2 (mesh.py) and item 8 "
-            "(mesh path)")
-
     def add_mesh_instances(self, *args, **kw) -> None:
         raise NotImplementedError(
             "Scene.add_mesh_instances: ROADMAP Queue 1 item 10 (instancing)")
@@ -214,6 +210,32 @@ class Scene:
             wn1 = geo.transform_normal(inv, n1)
             wn2 = geo.transform_normal(inv, n2)
         self._tri.append((w0, w1, w2, wn0, wn1, wn2, material))
+
+    def add_mesh(self, mesh, material: int,
+                 transform: TransformSpec = None) -> None:
+        """Add every triangle of a Mesh (core/mesh.py), baked to world
+        space; vertex normals go through the inverse transpose and are
+        renormalised, and a mesh without them gets flat face normals."""
+        m = _resolve_transform(transform)
+        inv = np.linalg.inv(m)
+        verts = np.asarray(mesh.vertices, dtype=np.float64)
+        idx = np.asarray(mesh.indices, dtype=np.int64).reshape(-1, 3)
+        w = verts @ m[:3, :3].T + m[:3, 3]
+        if mesh.normals is not None and len(mesh.normals) == len(verts):
+            nrm = np.asarray(mesh.normals, dtype=np.float64) @ inv[:3, :3]
+            lens = np.linalg.norm(nrm, axis=1, keepdims=True)
+            nrm = nrm / np.maximum(lens, 1e-30)
+        else:
+            nrm = None
+        for (a, b, c) in idx:
+            if nrm is not None:
+                self._tri.append((w[a], w[b], w[c], nrm[a], nrm[b], nrm[c],
+                                  material))
+            else:
+                gn = np.cross(w[b] - w[a], w[c] - w[a])
+                ln = np.linalg.norm(gn)
+                gn = gn / ln if ln > 0 else np.array([0.0, 1.0, 0.0])
+                self._tri.append((w[a], w[b], w[c], gn, gn, gn, material))
 
     @property
     def num_primitives(self) -> int:
@@ -370,6 +392,24 @@ def _init_cornell(scene: Scene) -> None:
 def _needs_extensions(scene: Scene) -> None:
     raise NotImplementedError(
         f"the texture_demo and sky_demo presets: {_SCENE_EXTENSIONS}")
+
+
+def ply_showcase_scene(path: str):
+    """The PLY showcase of the JAX package (``core/scene.py``
+    ``ply_showcase_scene``): the mesh scaled 8x and turned to face the
+    camera, on a gray 100x100 ground quad under an emissive sphere.
+
+    Returns (scene, eye, look_at)."""
+    from parallelraytracing_tpu_torch.core.mesh import load_ply
+    mesh = load_ply(path)
+    scene = Scene(preset=None)
+    mat = scene.add_lambertian((0.75, 0.65, 0.5))
+    scene.add_mesh(mesh, mat, ((8, 8, 8), (0, 180, 0), (0, 8, 0)))
+    ground = scene.add_lambertian((0.5, 0.5, 0.5))
+    scene.add_quad(100, 100, ground, None)
+    light = scene.add_emissive((12, 12, 12))
+    scene.add_sphere(3.0, light, ((1, 1, 1), (0, 0, 0), (12, 25, 12)))
+    return scene, (0.0, 14.0, 28.0), (0.0, 7.0, 0.0)
 
 
 _PRESET_BUILDERS = {

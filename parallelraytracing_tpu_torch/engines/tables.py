@@ -32,18 +32,22 @@ class SceneTables:
     #: True iff some triangle column has a non-zero geometric normal (a
     #: kind of never-hit pad columns is skipped by the trace)
     tri_live: bool
+    #: the scene box as ((lo xyz), (1 / extent xyz)): the frame of
+    #: wavefront_fused's origin-Morton sort key (ops/pack.scene_bbox)
+    bb: Tuple[Tuple[float, float, float], Tuple[float, float, float]]
 
 
 def build_scene_tables(scene, device):
-    """Pack a Scene for the trace kernel on `device`.
+    """Pack a Scene for the trace and segment kernels on `device`.
 
-    Returns (SceneTables, SceneData).  What the trace cannot render yet
-    (triangles, NEE, Russian roulette) it refuses when called."""
+    Returns (SceneTables, SceneData).  What the kernels cannot render yet
+    (NEE, Russian roulette) they refuse when called."""
     from parallelraytracing_tpu_torch.convert import tables_from_numpy
-    from parallelraytracing_tpu_torch.ops.pack import pack_scene_tables
+    from parallelraytracing_tpu_torch.ops.pack import pack_scene_tables, scene_bbox
     scene_data = scene.build(device)
     host = scene_data.numpy()
-    tables = tables_from_numpy(*pack_scene_tables(host), host["sky"], device)
+    tables = tables_from_numpy(*pack_scene_tables(host), host["sky"], device,
+                               bb=scene_bbox(host))
     return tables, scene_data
 
 

@@ -1,0 +1,240 @@
+"""Wavefront-fused engine: bounce segments over a compacted, re-sorted queue.
+
+The counterpart of ``parallelraytracing_tpu.engines.wavefront_fused``.  Per
+frame: derive the frame's seeds (ops/rays.frame_stream_seeds), generate
+jittered camera rays straight from the Morton-permuted pixel ids, then
+trace them in segments of bounces (ops/segment.segment, the CUDA kernel
+on a card).  Between segments one stable argsort both compacts and
+re-sorts the queue: dead rays key to 2^30 and go last, survivors order by
+a coherence key (direction octant over origin Morton code, by default);
+one gather moves the (13, R) state and one the pixel ids.  The live count
+stays a device tensor that the next segment reads, so a frame has no host
+sync.  Radiance rides the state; one scatter at the end of the frame puts
+it back in pixel order.
+
+Streams are keyed on (pixel id, absolute depth) and both engines share
+the bounce (csrc/bounce.cuh; ops/trace._bounce on the CPU), so the image
+does not depend on the schedule, the sort key or the engine: it is the
+fused engine's, bit for bit.
+
+Left out of the port, on purpose: the TPU's pad of the queue to a
+(rows, 128) tile multiple with its drop row for pad rays, and the ``rows``
+attribute (CUDA has no tile rule); the PRT_* environment variables (the
+knobs are plain attributes); the bounce-0 frustum pretest (scheduling
+only on the TPU).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from parallelraytracing_tpu_torch.config import RenderConfig
+from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
+from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm, raygen_ids
+from parallelraytracing_tpu_torch.ops.rays import frame_stream_seeds, sample_key
+from parallelraytracing_tpu_torch.ops.segment import segment
+
+#: the sort key of a dead ray: past every live key (30-bit Morton codes)
+DEAD_KEY = 1 << 30
+SORT_MODES = ("octant", "origin", "")
+#: a scene of more triangles than this is triangle-heavy: the renderer's
+#: default is the growing schedule, and the CLI's "auto" picks this engine
+TRI_HEAVY = 512
+
+
+def _part1by2(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of int32 v over 30 (x -> x00 interleave)."""
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _origin_morton(ox, oy, oz, bb_lo, inv_ext) -> torch.Tensor:
+    """30-bit Morton code of ray origins quantised in the scene box."""
+    def q(o, lo, ie):
+        return torch.clamp((o - lo) * ie * 1024.0, 0.0, 1023.0).to(torch.int32)
+    return (_part1by2(q(ox, bb_lo[0], inv_ext[0])) << 2) \
+        | (_part1by2(q(oy, bb_lo[1], inv_ext[1])) << 1) \
+        | _part1by2(q(oz, bb_lo[2], inv_ext[2]))
+
+
+def _sort_key(state, bb, mode: str) -> torch.Tensor:
+    """Coherence key of each queue slot: "origin" is the origin's 30-bit
+    Morton code; "octant" puts the direction octant (3 bits) over the top
+    27 bits of it, grouping rays by where they are and which way they
+    point."""
+    m = _origin_morton(state[0], state[1], state[2], *bb)
+    if mode == "origin":
+        return m
+    oct_ = ((state[3] < 0).to(torch.int32) << 2) \
+        | ((state[4] < 0).to(torch.int32) << 1) \
+        | (state[5] < 0).to(torch.int32)
+    return (oct_ << 27) | (m >> 3)
+
+
+def segment_lengths(max_depth: int, segment: int, first_segment: int = 0,
+                    schedule: Tuple[int, ...] = ()) -> list:
+    """Bounces per segment covering `max_depth`: `schedule` (its last entry
+    repeated) when given, else an optional `first_segment` and then
+    `segment`-long segments; the last one is cut to fit."""
+    lens = []
+    if schedule:
+        for s in schedule:
+            if sum(lens) >= max_depth:
+                break
+            lens.append(min(int(s), max_depth - sum(lens)))
+        segment = max(1, int(schedule[-1]))
+    elif 0 < first_segment < max_depth:
+        lens.append(first_segment)
+    while sum(lens) < max_depth:
+        lens.append(min(segment, max_depth - sum(lens)))
+    return lens
+
+
+def _scalars(seed: int, depth0: int, count: torch.Tensor) -> torch.Tensor:
+    """[seed, depth0, count] int32 on count's device, made there by fills
+    (no host-to-device copy, which would wait for the stream)."""
+    sd = torch.full((2,), seed, dtype=torch.int32, device=count.device)
+    sd[1] = depth0
+    return torch.cat([sd, count])
+
+
+def _run_segment(tables, pix, state, scalars, n_bounces: int,
+                 cfg: RenderConfig, seg_fn) -> torch.Tensor:
+    t = tables
+    return seg_fn(pix, state, scalars, t.sph, t.quad, t.tri, t.sph_cl,
+                  t.quad_cl, t.tri_cl, t.mats, n_bounces=n_bounces,
+                  t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
+                  tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
+                  nee=cfg.nee)
+
+
+def _initial_state(o, d) -> torch.Tensor:
+    r = o.shape[0]
+    ones = torch.ones((3, r), dtype=torch.float32, device=o.device)
+    return torch.cat([o.t(), d.t(), ones, torch.zeros_like(ones),
+                      ones[:1]]).contiguous()
+
+
+def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
+                    segment_len: int = 3, sort_rays: str = "octant",
+                    first_segment: int = 0, schedule: Tuple[int, ...] = (),
+                    seg_fn=None) -> torch.Tensor:
+    """(R, 3) radiance in pixel order for camera rays (o, d) of pixel ids
+    `pix` ((R,) int32, a permutation of range(R), rays in any order).
+
+    `seed` is the frame's path seed; the segments follow
+    ``segment_lengths(cfg.max_depth, segment_len, first_segment,
+    schedule)``.  `seg_fn` is ops/segment.segment by default; passing
+    ``segment_reference`` runs the plain version on any device."""
+    if sort_rays not in SORT_MODES:
+        raise ValueError(f"sort_rays {sort_rays!r}: want one of {SORT_MODES}")
+    seg_fn = seg_fn or segment
+    r = o.shape[0]
+    dev = o.device
+    state = _initial_state(o, d)
+    count = torch.full((1,), r, dtype=torch.int32, device=dev)
+    lens = segment_lengths(cfg.max_depth, segment_len, first_segment, schedule)
+    depth0 = 0
+    for s, n_bounces in enumerate(lens):
+        state = _run_segment(tables, pix, state, _scalars(seed, depth0, count),
+                             n_bounces, cfg, seg_fn)
+        depth0 += n_bounces
+        if s + 1 < len(lens):
+            alive = state[12] > 0.0
+            key = (_sort_key(state, tables.bb, sort_rays) if sort_rays
+                   else torch.arange(r, dtype=torch.int32, device=dev))
+            order = torch.argsort(torch.where(alive, key, DEAD_KEY),
+                                  stable=True)
+            count = alive.sum(dtype=torch.int32).reshape(1)
+            state = state.index_select(1, order)
+            pix = pix.index_select(0, order)
+    rad = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    return rad.index_copy_(0, pix.long(), state[9:12].t())
+
+
+def count_frame_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
+                     seg_fn=None) -> int:
+    """Exact ray count of one frame: the camera rays plus the rays alive
+    entering every later bounce, from one-bounce segments over the same
+    pixel-keyed streams the engines trace (compacted, never re-sorted).
+    The numerator of Mrays/s."""
+    seg_fn = seg_fn or segment
+    r = o.shape[0]
+    dev = o.device
+    state = _initial_state(o, d)
+    count = torch.full((1,), r, dtype=torch.int32, device=dev)
+    total = torch.zeros((1,), dtype=torch.int64, device=dev)
+    for depth in range(cfg.max_depth):
+        total += count
+        state = _run_segment(tables, pix, state, _scalars(seed, depth, count),
+                             1, cfg, seg_fn)
+        alive = state[12] > 0.0
+        key = torch.where(alive, torch.arange(r, dtype=torch.int32, device=dev),
+                          DEAD_KEY)
+        order = torch.argsort(key, stable=True)
+        count = alive.sum(dtype=torch.int32).reshape(1)
+        state = state.index_select(1, order)
+        pix = pix.index_select(0, order)
+    return int(total.item())
+
+
+@register_engine
+class WavefrontFusedRenderer(Renderer):
+    name = "wavefront_fused"
+
+    #: bounces per segment; None: the scene's default (3, or the growing
+    #: schedule of a triangle-heavy scene when `schedule` is None too)
+    segment: Optional[int] = None
+    #: between-segment sort key: "octant", "origin", or "" (compact only)
+    sort_rays: str = "octant"
+    #: length of the first segment only (0: uniform `segment`)
+    segment_first: int = 0
+    #: per-segment bounce counts, the last repeated; overrides the two above
+    schedule: Optional[Tuple[int, ...]] = None
+
+    def _post_init(self) -> None:
+        from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
+        cfg = self.config
+        if cfg.qmc:
+            raise NotImplementedError(
+                "QMC camera sampling: ROADMAP Queue 1 item 11 (not ported yet)")
+        # The JAX package's growing schedule for triangle-heavy scenes:
+        # compact and re-sort after bounce 2 (the sky misses) and 6, then
+        # run the tail in one segment.  The knobs stay as the user set them;
+        # the schedule this scene runs is resolved here.
+        d = cfg.max_depth
+        segment, schedule = self.segment, self.schedule
+        if (segment is None and schedule is None
+                and len(self._scene._tri) > TRI_HEAVY):
+            segment = 5
+            schedule = (2, 4, d - 6) if d > 10 else (2, d - 2) if d > 4 else ()
+        self._lens = segment_lengths(d, 3 if segment is None else segment,
+                                     self.segment_first, tuple(schedule or ()))
+        self._tables, self._scene_data = build_scene_tables(self._scene,
+                                                            self.device)
+        perm, _ = morton_pixel_perm(cfg.width, cfg.height)
+        self._ids = torch.from_numpy(perm.copy()).to(self.device)
+
+    def segment_lengths(self) -> list:
+        """The bounces of each segment of a frame: the knobs set on the
+        renderer, else the scene's default."""
+        return list(self._lens)
+
+    def render_sample_buffer(self, frame_index: int) -> torch.Tensor:
+        cfg = self.config
+        acc = None
+        for s in range(cfg.samples_per_frame):
+            jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
+            o, d = raygen_ids(self._cam_params, self._ids, jseed, cfg.width,
+                              cfg.height, cfg.jitter, cfg.lens)
+            rad = segmented_trace(self._tables, o, d, self._ids, s0, cfg,
+                                  sort_rays=self.sort_rays,
+                                  schedule=tuple(self._lens))
+            acc = rad if acc is None else acc + rad
+        return acc / cfg.samples_per_frame

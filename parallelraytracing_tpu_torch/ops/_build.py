@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels.
 
-Each kernel source under ``csrc/`` compiles with ``nvcc`` into a shared
+Each kernel source ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared
 library with a plain C interface, loaded through ``ctypes``.  The build
 happens at first use, into ``build/kernels/`` at the root of the checkout,
-keyed by a hash of the source and the flags, so a changed source rebuilds
-and an unchanged one loads at once.  Nothing here runs at import time: a
-machine without ``nvcc`` imports the package and runs the plain PyTorch
-versions of the kernels on CPU tensors.
+keyed by a hash of the source, of every ``csrc/`` header it includes and
+of the flags, so a changed source or header rebuilds and an unchanged one
+loads at once.  ``build_all`` starts one ``nvcc`` per library at once and
+waits for all of them.  Nothing here runs at import time: a machine
+without ``nvcc`` imports the package and runs the plain PyTorch versions
+of the kernels on CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,8 +30,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 #: sm_90a keeps Hopper-only instructions available to later kernels.
 #: No --use_fast_math, and -fmad=false: the kernels are held to plain
 #: PyTorch versions that round every multiply and add on its own (see the
-#: note in csrc/trace.cu).  -Xptxas -v records registers and spills in the
-#: build log beside the library.
+#: note in csrc/bounce.cuh).  -Xptxas -v records registers and spills in
+#: the build log beside the library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -38,18 +41,38 @@ I = ctypes.c_int
 F = ctypes.c_float
 U = ctypes.c_uint
 
+
+class PrtScene(ctypes.Structure):
+    """ctypes mirror of ``struct PrtScene`` in csrc/bounce.cuh."""
+    _fields_ = [
+        ("sph", P), ("sph_cl", P),
+        ("n_sph", I), ("sph_cl_rows", I), ("sph_cl_cols", I),
+        ("quad", P), ("quad_cl", P),
+        ("n_quad", I), ("quad_cl_rows", I), ("quad_cl_cols", I),
+        ("tri", P), ("tri_cl", P),
+        ("n_tri", I), ("tri_cl_rows", I), ("tri_cl_cols", I),
+        ("mats", P), ("n_mats", I),
+        ("csize", I), ("tri_csize", I),
+        ("t_min", F), ("t_cap", F), ("sky0", F), ("sky1", F), ("sky2", F),
+    ]
+
+
+SCENE = ctypes.POINTER(PrtScene)
+
 #: C signature of each kernel library's launch function
 SIGNATURES = {
     "trace": ("prt_trace_launch", [
-        I, P,                  # device, stream
+        I, P, SCENE,           # device, stream, scene
         P, P, P, P, I,         # o, d, pix, out, n_rays
-        P, I, P, I, I,         # sph, n_sph, sph_cl, rows, cols
-        P, I, P, I, I,         # quad, n_quad, quad_cl, rows, cols
-        P, I, I,               # mats, n_mats, csize
-        U, I, F, F,            # seed, max_depth, t_min, t_cap
-        F, F, F,               # sky
+        U, I,                  # seed, max_depth
+    ]),
+    "segment": ("prt_segment_launch", [
+        I, P, SCENE,           # device, stream, scene
+        P, P, P, P, I, I,      # pix, in, out, scalars, n_rays, n_bounces
     ]),
 }
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -66,31 +89,60 @@ def nvcc() -> str:
                        "build only on a machine with the CUDA toolkit")
 
 
+def sources(name: str):
+    """csrc/<name>.cu and every csrc/ header it includes, transitively."""
+    todo = [CSRC / f"{name}.cu"]
+    seen = []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(CSRC / inc.decode())
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> list:
+    """Compile csrc/<name>.cu for each name whose library is missing, one
+    nvcc process each, all started together.  Returns the library paths;
+    raises with nvcc's output if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    outs = [library_path(n) for n in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, cmd, proc))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        text, _ = proc.communicate()
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed building {name}.cu:\n{text}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for its hash exists.
-    Raises with nvcc's output if the compile fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {name}.cu:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    """Compile csrc/<name>.cu unless the library for its hash exists."""
+    return build_all([name])[0]
 
 
 @functools.lru_cache(maxsize=None)

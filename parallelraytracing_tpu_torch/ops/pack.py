@@ -309,6 +309,41 @@ def _morton_order(mn, mx):
     return np.argsort(morton3d((cen - lo) / ext), kind="stable")
 
 
+def scene_bbox(scene: dict):
+    """The scene's bounding box as ((lo xyz), (1 / extent xyz)): the frame
+    in which wavefront_fused quantises ray origins for its sort key.  The
+    union of the world boxes of every valid primitive (the role of
+    ``accel/lbvh.scene_primitive_aabbs`` in the JAX package's
+    ``engines/tables.py``); the unit box when the scene is empty."""
+    mins, maxs = [], []
+    sv = np.asarray(scene["sph_valid"])
+    if sv.any():
+        mn, mx = geo.sphere_aabb(
+            np.asarray(scene["sph_center"], np.float64)[sv],
+            np.asarray(scene["sph_radius"], np.float64)[sv])
+        mins.append(mn)
+        maxs.append(mx)
+    qv = np.asarray(scene["quad_valid"])
+    if qv.any():
+        mn, mx = geo.quad_aabb(*(np.asarray(scene[k], np.float64)[qv]
+                                 for k in ("quad_center", "quad_u", "quad_v")))
+        mins.append(mn)
+        maxs.append(mx)
+    tv = np.asarray(scene["tri_valid"])
+    if tv.any():
+        mn, mx = geo.triangle_aabb(*(np.asarray(scene[k], np.float64)[tv]
+                                     for k in ("tri_v0", "tri_v1", "tri_v2")))
+        mins.append(mn)
+        maxs.append(mx)
+    if mins:
+        lo = np.concatenate(mins).min(0)
+        ext = np.maximum(np.concatenate(maxs).max(0) - lo, 1e-9)
+    else:
+        lo = np.zeros(3)
+        ext = np.ones(3)
+    return (tuple(float(x) for x in lo), tuple(float(1.0 / x) for x in ext))
+
+
 def pack_scene_tables(scene: dict):
     """Pack a scene's arrays (``SceneData.numpy()`` or the JAX package's
     SceneData fields as numpy, keyed by field name) into

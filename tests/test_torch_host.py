@@ -89,6 +89,9 @@ def test_import_leaves_jax_out():
             "parallelraytracing_tpu_torch.cli, "
             "parallelraytracing_tpu_torch.convert, "
             "parallelraytracing_tpu_torch.ops.trace, "
+            "parallelraytracing_tpu_torch.ops.segment, "
+            "parallelraytracing_tpu_torch.engines.wavefront_fused, "
+            "parallelraytracing_tpu_torch.core.mesh, "
             "parallelraytracing_tpu_torch.ops._build; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'parallelraytracing_tpu'"
@@ -97,3 +100,14 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kernel_cache_key_covers_included_headers():
+    """Both kernel libraries include csrc/bounce.cuh, so its hash is part
+    of both cache keys: an edit to the shared bounce rebuilds both."""
+    from parallelraytracing_tpu_torch.ops import _build
+    for name in ("trace", "segment"):
+        names = [p.name for p in _build.sources(name)]
+        assert names == [f"{name}.cu", "bounce.cuh"], names
+        assert name in _build.SIGNATURES
+    assert _build.library_path("trace") != _build.library_path("segment")

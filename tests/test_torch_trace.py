@@ -83,7 +83,7 @@ def test_features_outside_the_slice_raise():
     kw = dict(max_depth=2, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=False)
     for fn in (trace, trace_reference):
         assert fn(*args, **kw).shape == (4, 3)
-        for extra in (dict(tri_live=True), dict(nee=True), dict(rr_depth=2),
+        for extra in (dict(nee=True), dict(rr_depth=2),
                       dict(inst=object()), dict(checker=((1.0,),)),
                       dict(itex=((1,),)), dict(depth_out=True),
                       dict(collect_stats=True), dict(sky=(0.1,) * 13)):
