@@ -5,18 +5,25 @@
 
     python3 chip_smoke.py --png-dir renders   # also keep the PNGs
 
-Drives the port's two main paths through the entry points a user calls,
-at 1920x1080, depth 20, 1 spp per frame, jitter on: the fused engine on
+Drives the port's main paths through the entry points a user calls, at
+1920x1080, depth 20, 1 spp per frame, jitter on: the fused engine on
 RANDOM_BALLS_LARGE (808 spheres + one ground quad), and the
 wavefront_fused engine on the mesh showcase scene (ply_showcase_scene)
 of an icosahedron subdivided to level 5 (20,480 triangles, smooth vertex
-normals), written as a PLY and loaded through the port's reader.  Phases,
-one line each (any failure raises and exits non-zero):
+normals), written as a PLY and loaded through the port's reader; then the
+next-event estimation (NEE) and Russian roulette paths: A fused CORNELL
+--nee (one quad light; the shadow test's equal-t, lowest-ordinal tie
+rule decides its visibility), B fused RANDOM_BALLS_LARGE --nee (8 sphere lights),
+C wavefront_fused CORNELL --nee --rr-depth 3 (the no-emit mark and
+roulette across segments), D wavefront_fused mesh --nee (shadow walks
+through the triangle tree).  Phases, one or more lines each, each line
+tagged with its seconds (any failure raises and exits non-zero):
 
 1. probe: the card, its power limit, the torch and CUDA versions;
 2. build: the trace and segment kernels from csrc/ with nvcc (sm_90a),
-   one nvcc each, started together; ptxas registers and spills of each
-   instantiation (with and without the triangle fold);
+   one nvcc each, started together; ptxas registers and spill stores of
+   each instantiation (with and without the triangle fold, NEE,
+   roulette);
 3. kernel vs plain PyTorch version on the card: at 320x180 on
    RANDOM_BALLS_LARGE and MATERIAL_TEST, depth 1 without jitter (winning
    radiance per ray within 1e-5 on >= 99.9% of rays) and depth 20 with
@@ -44,18 +51,43 @@ one line each (any failure raises and exits non-zero):
    frame, a finite film that is neither black nor sky, and a PNG; then
    the fused engine: frame 0's trace kernel against the plain version
    (per ray within 1e-5 on >= 99.9% of rays), and the same frames timed
-   the same way.
+   the same way;
+8. paths A and B at 1920x1080: the trace kernel with NEE against the
+   plain version (whose shadow test is the closest-hit formulation):
+   depth 1 without jitter and frame 0 at depth 20, per ray within 1e-5 on
+   >= 99.9% of rays, and the films of 4 frames (HDR RMSE < 1e-3); then
+   each path timed like phase 4 (ms/frame, Msamples/s, Mrays/s over
+   count_frame_rays, which leaves NEE's shadow rays out), its launch
+   count, film and PNG;
+9. Russian roulette: RANDOM_BALLS_LARGE with rr_depth 3, NEE off, at
+   1920x1080, with phase 8's bounds;
+10. path C at 1920x1080: every segment of frame 0 of the (3,)-bounce
+    default schedule against the plain segment at its real queue (13
+    planes within 1e-5 on >= 99.9% of live slots, the alive plane of 0, 1
+    and 2 exactly equal); the wavefront_fused and fused films over 16
+    frames (HDR RMSE < 1e-3, max abs difference printed, 0 expected);
+    then timed;
+11. path D: at 320x180 (a 1080p plain mesh frame with NEE would take
+    ~45 s) the trace kernel with phase 8's checks and one 2-bounce
+    segment (13 planes, alive equal); then timed at 1920x1080;
+12. NEE is unbiased on the card: CORNELL at 320x180, depth 20, 8 NEE
+    frames against a truth of 1024 frames without NEE, with
+    tests/test_nee.py's bounds (mean within 6%; RMSE to the truth < 0.6 x
+    that of 8 frames without NEE).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
-path's timed frames); the last line is {"ok": true, "device": {...}}.
-Exits non-zero without CUDA.
+path's timed frames, its NEE and roulette comparisons, and the timed
+paths A-D); the last line is {"ok": true, "device": {...}}.  Exits
+non-zero without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -79,6 +111,14 @@ WARMUP, TIMED = 2, 8
 MESH_LEVEL = 5
 #: size and frame counts of the mesh comparisons with the plain versions
 CMP_W, CMP_H, CMP_FRAMES, AGREE_FRAMES = 320, 180, 4, 16
+#: Russian roulette's start depth on the slice's paths (the CLI's
+#: --rr-depth 3), and the frames of each NEE / roulette film comparison
+RR_DEPTH, NEE_FILM_FRAMES = 3, 4
+#: NEE is unbiased (tests/test_nee.py's bounds, CORNELL at CMP_W x CMP_H):
+#: the mean of NEE_FRAMES NEE frames within MEAN_REL of a truth of
+#: TRUTH_FRAMES frames without NEE, and their RMSE to the truth under
+#: RMSE_RATIO x that of NEE_FRAMES frames without NEE
+TRUTH_FRAMES, NEE_FRAMES, MEAN_REL, RMSE_RATIO = 1024, 8, 0.06, 0.6
 
 #: the regular icosahedron: 12 closed-form vertices (0, +-1, +-phi) and
 #: cyclic permutations, 20 faces wound counter-clockwise seen from outside
@@ -92,8 +132,15 @@ ICO_F = ((0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
          (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1))
 
 
+_LAST = [time.perf_counter()]
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One result line, tagged with the seconds since the previous line
+    (the seconds of that step of the phase)."""
+    now = time.perf_counter()
+    print(f"[{name} {now - _LAST[0]:.1f} s] {msg}", flush=True)
+    _LAST[0] = now
 
 
 def frame_inputs(renderer, frame_index: int, jitter=None):
@@ -110,33 +157,40 @@ def frame_inputs(renderer, frame_index: int, jitter=None):
     return o, d, renderer._ids, seed
 
 
+def trace_kw(tables, cfg) -> dict:
+    """The trace's keyword arguments as the engines pass them (NEE and
+    Russian roulette included)."""
+    return dict(max_depth=cfg.max_depth, t_min=cfg.t_min, t_max=cfg.t_max,
+                sky=tables.sky, tri_live=tables.tri_live, nee=tables.nee,
+                lights=tables.lights, rr_depth=cfg.russian_roulette_depth)
+
+
 def both_traces(tables, cfg, o, d, pix, seed):
     """(kernel radiance, plain radiance) for the same inputs."""
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
     args = (o, d, pix, seed, tables.sph, tables.quad, tables.tri,
             tables.sph_cl, tables.quad_cl, tables.tri_cl, tables.mats)
-    kw = dict(max_depth=cfg.max_depth, t_min=cfg.t_min, t_max=cfg.t_max,
-              sky=tables.sky, tri_live=tables.tri_live)
+    kw = trace_kw(tables, cfg)
     return trace(*args, **kw), trace_reference(*args, **kw)
 
 
 def traced_on(r, fn):
     """fn (trace or trace_reference) on renderer r's tables and config,
     called as fn(o, d, pix, seed)."""
-    t, cfg = r._tables, r.config
+    t = r._tables
     return lambda o, d, pix, seed: fn(
         o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl,
-        t.mats, max_depth=cfg.max_depth, t_min=cfg.t_min, t_max=cfg.t_max,
-        sky=t.sky, tri_live=t.tri_live)
+        t.mats, **trace_kw(t, r.config))
 
 
-def make_renderer(preset: str, width: int, height: int, **cfg_kw):
+def make_renderer(preset: str, width: int, height: int, engine="fused",
+                  **cfg_kw):
     from parallelraytracing_tpu_torch import (Film, RenderConfig, Scene,
                                               ScenePreset, create_renderer,
                                               default_camera)
     cfg = RenderConfig(width=width, height=height, **cfg_kw)
     film = Film(width, height, "cuda")
-    r = create_renderer("fused", "cuda")
+    r = create_renderer(engine, "cuda")
     r.init(film, Scene(ScenePreset(preset)), default_camera(width, height), cfg)
     return r, film
 
@@ -270,17 +324,25 @@ def check_film(film, sky, tag: str, png_dir) -> str:
 
 
 def ptxas_summary(lib: str, log: Path) -> str:
-    """The registers and spills of each kernel instantiation in an nvcc
-    build log (-Xptxas -v): "tri" with the triangle fold, "sq" without."""
+    """Registers and spill stores of each kernel instantiation in an nvcc
+    build log (-Xptxas -v): "tri" with the triangle fold, "sq" without,
+    "+nee" with the NEE block, "+rr" with Russian roulette."""
     if not log.exists():  # built by an earlier run, whose log is gone
         return ""
-    out, tag = [], lib
+    out, tag, spill = [], lib, ""
     for ln in log.read_text().splitlines():
-        if "Compiling entry function" in ln:
-            tag = f"{lib}[{'tri' if 'ILb1E' in ln else 'sq'}]"
-        elif "registers" in ln or "spill" in ln:
-            out.append(f"{tag}: {ln.replace('ptxas info    :', '').strip()}")
-    return " | ".join(out)
+        m = re.search(r"ILb([01])ELb([01])ELb([01])E", ln)
+        if "Compiling entry function" in ln and m:
+            tag = (f"{lib}[{'tri' if m.group(1) == '1' else 'sq'}"
+                   f"{'+nee' if m.group(2) == '1' else ''}"
+                   f"{'+rr' if m.group(3) == '1' else ''}]")
+            spill = ""
+        elif "spill stores" in ln and not spill:
+            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
+        elif "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{tag} {regs} registers, {spill} B spill stores")
+    return "; ".join(out)
 
 
 def timed_ms(fn):
@@ -308,6 +370,154 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_vs_plain(r, tag: str) -> dict:
+    """The trace kernel against the plain version through renderer r's
+    tables and config (NEE and roulette as r runs them): every ray of
+    depth 1 without jitter, every ray of frame 0 at r's depth with jitter
+    (within RAY_ATOL on RAY_SHARE of them), and the films of
+    NEE_FILM_FRAMES frames (HDR RMSE < FILM_RMSE).  Raises on a miss;
+    returns the record for the kernels line."""
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    cfg = r.config
+    k1, p1 = both_traces(r._tables, dataclasses.replace(cfg, max_depth=1),
+                         *frame_inputs(r, 0, jitter=False))
+    share1 = ray_share(k1, p1)
+    inputs = frame_inputs(r, 0)
+    k = traced_on(r, trace)(*inputs)
+    p, plain_ms = timed_ms(lambda: traced_on(r, trace_reference)(*inputs))
+    share = ray_share(k, p)
+    err = max(float((k - p).abs().max()), float((k1 - p1).abs().max()))
+    ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+    del k1, p1
+    acc_k, acc_p = k, p
+    for f in range(1, NEE_FILM_FRAMES):
+        inputs = frame_inputs(r, f)
+        acc_k = acc_k + traced_on(r, trace)(*inputs)
+        acc_p = acc_p + traced_on(r, trace_reference)(*inputs)
+    rmse = float(((acc_k - acc_p) / NEE_FILM_FRAMES).pow(2).mean().sqrt())
+    size = f"{cfg.width}x{cfg.height}"
+    phase("nee-vs-plain", f"{tag} {size}: depth 1 no jitter {share1:.6f} "
+          f"of rays within {RAY_ATOL}; depth {cfg.max_depth} frame 0 "
+          f"{share:.6f} within {RAY_ATOL}, max abs err {err:.3e}; "
+          f"x{NEE_FILM_FRAMES} frames HDR RMSE {rmse:.3e}; trace kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms (frame 0)")
+    if share1 < RAY_SHARE or share < RAY_SHARE or not rmse < FILM_RMSE:
+        raise AssertionError(f"{tag}: trace kernel disagrees with plain")
+    return dict(size=size, depth1_share=share1, share=share, max_abs_err=err,
+                film_rmse=rmse, ms=ms, plain_ms=plain_ms)
+
+
+def check_segments(r, tag: str) -> list:
+    """Each segment of frame 0 of wavefront_fused renderer r at its real
+    queue: the kernel and the plain version on the same input, the
+    kernel's state carried on.  Every live slot's 13 planes within
+    RAY_ATOL on RAY_SHARE of them, and the alive plane (0, 1, or NEE's 2)
+    equal on every slot.  Raises on a miss; returns one record each."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        segmented_trace
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    segs = []
+
+    def checked(pix, state, scalars, *tabs, **kw):
+        k = segment(pix, state, scalars, *tabs, **kw)
+        p, p_ms = timed_ms(lambda: segment_reference(pix, state, scalars,
+                                                     *tabs, **kw))
+        live = int(scalars[2])
+        segs.append(dict(
+            bounces=kw["n_bounces"], live=live,
+            share=ray_share(k[:, :live].t(), p[:, :live].t()) if live
+            else 1.0, alive_equal=bool((k[12] == p[12]).all()),
+            max_abs_err=float((k - p).abs().max()),
+            ms=cuda_ms(lambda: segment(pix, state, scalars, *tabs, **kw), 5),
+            plain_ms=p_ms))
+        return k
+    segmented_trace(r._tables, *frame_inputs(r, 0), r.config,
+                    sort_rays=r.sort_rays, schedule=tuple(r.segment_lengths()),
+                    seg_fn=checked)
+    cfg = r.config
+    for sg in segs:
+        phase("segment-vs-plain", f"{tag} {cfg.width}x{cfg.height} frame 0, "
+              f"segment of {sg['bounces']} bounces over {sg['live']} live "
+              f"slots: {sg['share']:.6f} within {RAY_ATOL} on all 13 planes, "
+              f"alive plane equal {sg['alive_equal']}, max abs err "
+              f"{sg['max_abs_err']:.3e}; segment kernel {sg['ms']:.3f} ms, "
+              f"plain {sg['plain_ms']:.3f} ms")
+        if sg["share"] < RAY_SHARE or not sg["alive_equal"]:
+            raise AssertionError(f"{tag}: segment kernel disagrees with plain")
+    if len(segs) != len(r.segment_lengths()):
+        raise AssertionError(f"{tag}: {len(segs)} segments checked, want "
+                             f"{len(r.segment_lengths())}")
+    return segs
+
+
+def timed_path(r, film, tag: str, png_dir) -> dict:
+    """A main path through its engine, as the CLI drives it: WARMUP
+    frames, then every launch count set to 0, TIMED frames timed with
+    CUDA events, the counts read; ms/frame, Msamples/s and Mrays/s over
+    count_frame_rays (camera rays plus the rays entering each later
+    bounce; NEE's shadow rays are not counted).  Raises unless the path
+    launched only its own kernel (trace for fused, segment for
+    wavefront_fused, once per segment); checks and writes the film."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        count_frame_rays
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    rays = count_frame_rays(r._tables, *frame_inputs(r, 0), r.config)
+    for _ in range(WARMUP):
+        r.progressive_render()
+    torch.cuda.synchronize()
+    trace.launches = 0
+    segment.launches = 0
+    ms = cuda_ms(r.progressive_render, TIMED)
+    launches = dict(trace=trace.launches, segment=segment.launches)
+    cfg = r.config
+    samples = cfg.width * cfg.height * cfg.samples_per_frame
+    wavefront = r.name == "wavefront_fused"
+    phase("timed", f"{tag}: {r.name} {cfg.width}x{cfg.height} depth "
+          f"{cfg.max_depth}, nee {r._tables.nee}, rr_depth "
+          f"{cfg.russian_roulette_depth}: {ms:.3f} ms/frame, "
+          f"{samples / ms / 1e3:.3f} Msamples/s, {rays / ms / 1e3:.3f} Mrays/s "
+          f"({rays} rays in frame 0, shadow rays not counted) over {TIMED} "
+          f"frames; launches {launches}")
+    want = len(r.segment_lengths()) * TIMED if wavefront else None
+    if (wavefront and (launches["segment"] != want or launches["trace"])) \
+            or (not wavefront and (launches["trace"] < TIMED
+                                   or launches["segment"])):
+        raise AssertionError(f"{tag}: launches {launches} in {TIMED} frames")
+    phase("timed", check_film(film, r._tables.sky, tag, png_dir))
+    return dict(engine=r.name, ms_per_frame=ms,
+                msamples_per_s=samples / ms / 1e3, mrays_per_s=rays / ms / 1e3,
+                rays=rays, launches=launches)
+
+
+def nee_unbiased() -> dict:
+    """NEE is unbiased and lowers the error on CORNELL (the bounds of
+    tests/test_nee.py): a truth of TRUTH_FRAMES frames without NEE (seed
+    7), NEE_FRAMES NEE frames (seed 0) and NEE_FRAMES frames without
+    (seed 1), all through the fused engine on the card."""
+    def film_of(frames, **cfg_kw):
+        r, film = make_renderer("cornell", CMP_W, CMP_H, max_depth=MAIN_DEPTH,
+                                **cfg_kw)
+        for _ in range(frames):
+            r.progressive_render()
+        return film.hdr_average()
+    truth = film_of(TRUTH_FRAMES, seed=7)
+    nee = film_of(NEE_FRAMES, seed=0, nee=True)
+    plain = film_of(NEE_FRAMES, seed=1)
+    rel = float((nee.mean() - truth.mean()).abs() / truth.mean())
+    rmse_nee = float((nee - truth).pow(2).mean().sqrt())
+    rmse_plain = float((plain - truth).pow(2).mean().sqrt())
+    phase("nee-unbiased", f"cornell {CMP_W}x{CMP_H} depth {MAIN_DEPTH}: "
+          f"NEE x{NEE_FRAMES} mean {float(nee.mean()):.5f} vs truth "
+          f"x{TRUTH_FRAMES} {float(truth.mean()):.5f} (rel {rel:.4f} < "
+          f"{MEAN_REL}); RMSE to truth NEE {rmse_nee:.5f} vs no NEE "
+          f"{rmse_plain:.5f} (ratio {rmse_nee / rmse_plain:.3f} < {RMSE_RATIO})")
+    if not (rel < MEAN_REL and rmse_nee < RMSE_RATIO * rmse_plain):
+        raise AssertionError("NEE is biased or does not lower the error")
+    return dict(mean_rel=rel, rmse_nee=rmse_nee, rmse_plain=rmse_plain)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png-dir", default=None,
@@ -317,7 +527,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    import dataclasses
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
         count_frame_rays, segmented_trace)
     from parallelraytracing_tpu_torch.ops import _build
@@ -470,37 +679,7 @@ def main(argv=None) -> int:
         rays = count_frame_rays(mw_r._tables, *frame_inputs(mw_r, 0),
                                 mw_r.config)
         per_frame = len(mw_r.segment_lengths())
-        # Each segment of frame 0 at its real queue: the kernel and the
-        # plain version on the same input, the kernel's state carried on.
-        segs = []
-
-        def checked(pix, state, scalars, *tabs, **kw):
-            k = segment(pix, state, scalars, *tabs, **kw)
-            p, p_ms = timed_ms(lambda: segment_reference(pix, state, scalars,
-                                                         *tabs, **kw))
-            live = int(scalars[2])
-            segs.append(dict(
-                bounces=kw["n_bounces"], live=live,
-                share=ray_share(k[:, :live].t(), p[:, :live].t()) if live
-                else 1.0,
-                max_abs_err=float((k - p).abs().max()),
-                ms=cuda_ms(lambda: segment(pix, state, scalars, *tabs, **kw),
-                           5), plain_ms=p_ms))
-            return k
-        segmented_trace(mw_r._tables, *frame_inputs(mw_r, 0), mw_r.config,
-                        sort_rays=mw_r.sort_rays,
-                        schedule=tuple(mw_r.segment_lengths()), seg_fn=checked)
-        for sg in segs:
-            phase("mesh-segment-vs-plain", f"{MAIN_W}x{MAIN_H} frame 0, "
-                  f"segment of {sg['bounces']} bounces over {sg['live']} live "
-                  f"slots: {sg['share']:.6f} within {RAY_ATOL} on all 13 "
-                  f"planes, max abs err {sg['max_abs_err']:.3e}; segment "
-                  f"kernel {sg['ms']:.3f} ms, plain {sg['plain_ms']:.3f} ms")
-            if sg["share"] < RAY_SHARE:
-                raise AssertionError("mesh main path: segment kernel "
-                                     "disagrees with plain")
-        if len(segs) != per_frame:
-            raise AssertionError(f"{len(segs)} segments checked, want {per_frame}")
+        segs = check_segments(mw_r, "mesh")
         for _ in range(WARMUP):
             mw_r.progressive_render()
         torch.cuda.synchronize()
@@ -558,30 +737,115 @@ def main(argv=None) -> int:
                                  f"frames, {segment.launches} segment launches")
         phase("mesh-main-path", check_film(mf_film, mf_r._tables.sky,
                                            "mesh_fused", args.png_dir))
+        del mf_r, mf_film
+
+        # 8. paths A and B: NEE, kernel vs plain at 1920x1080, then timed
+        paths, nee_recs = {}, {}
+        for tag, preset in (("A", "cornell"), ("B", "random_balls_large")):
+            r, film = make_renderer(preset, MAIN_W, MAIN_H,
+                                    max_depth=MAIN_DEPTH, jitter=True,
+                                    nee=True)
+            nee_recs[preset] = kernel_vs_plain(r, f"path {tag}: {preset} nee")
+            paths[tag] = timed_path(r, film, f"path_{tag}_{preset}_nee",
+                                    args.png_dir)
+            del r, film
+
+        # 9. Russian roulette, kernel vs plain at 1920x1080 (NEE off)
+        r, _ = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                             max_depth=MAIN_DEPTH, jitter=True,
+                             russian_roulette_depth=RR_DEPTH)
+        rr_rec = kernel_vs_plain(r, f"random_balls_large rr_depth {RR_DEPTH}")
+        del r
+
+        # 10. path C: wavefront_fused on CORNELL with NEE and roulette; every
+        # segment of frame 0 against the plain version, then the two
+        # engines' films, then timed
+        cfg_c = dict(max_depth=MAIN_DEPTH, jitter=True, nee=True,
+                     russian_roulette_depth=RR_DEPTH)
+        c_r, c_film = make_renderer("cornell", MAIN_W, MAIN_H,
+                                    "wavefront_fused", **cfg_c)
+        segs_c = check_segments(c_r, "path C: cornell nee rr")
+        cf_r, cf_film = make_renderer("cornell", MAIN_W, MAIN_H, **cfg_c)
+        for _ in range(AGREE_FRAMES):
+            c_r.progressive_render()
+            cf_r.progressive_render()
+        diff = c_film.hdr_average() - cf_film.hdr_average()
+        c_rmse, c_max = float(diff.pow(2).mean().sqrt()), float(diff.abs().max())
+        phase("engines-agree", f"path C {MAIN_W}x{MAIN_H} x{AGREE_FRAMES} "
+              f"frames: wavefront_fused vs fused, nee + rr_depth {RR_DEPTH}: "
+              f"HDR RMSE {c_rmse:.3e}, max abs diff {c_max!r}")
+        if not c_rmse < FILM_RMSE:
+            raise AssertionError("path C: wavefront_fused and fused disagree")
+        del cf_r, cf_film, diff
+        paths["C"] = timed_path(c_r, c_film, "path_C_cornell_nee_rr",
+                                args.png_dir)
+        del c_r, c_film
+
+        # 11. path D: the mesh with NEE; kernels vs plain at CMP_W x CMP_H
+        # (a 1080p plain mesh frame with NEE takes ~45 s), then timed at
+        # 1920x1080
+        d_r, _ = mesh_renderer("fused", ply, CMP_W, CMP_H,
+                               max_depth=MAIN_DEPTH, jitter=True, nee=True)
+        mesh_nee = kernel_vs_plain(d_r, "path D: mesh nee")
+        del d_r
+        dw_r, _ = mesh_renderer("wavefront_fused", ply, CMP_W, CMP_H,
+                                max_depth=MAIN_DEPTH, jitter=True, nee=True)
+        k, p, d_seg_ms, d_seg_plain_ms = segment_both(dw_r)
+        mesh_nee_seg = dict(
+            share=ray_share(k.t(), p.t()), alive_equal=bool((k[12] == p[12]).all()),
+            max_abs_err=float((k - p).abs().max()), ms=d_seg_ms,
+            plain_ms=d_seg_plain_ms)
+        phase("segment-vs-plain", f"path D: mesh nee {size}, one 2-bounce "
+              f"segment: {mesh_nee_seg['share']:.6f} of slots within "
+              f"{RAY_ATOL} on all 13 planes, alive plane equal "
+              f"{mesh_nee_seg['alive_equal']}, max abs err "
+              f"{mesh_nee_seg['max_abs_err']:.3e}; segment kernel "
+              f"{d_seg_ms:.3f} ms, plain {d_seg_plain_ms:.3f} ms")
+        if mesh_nee_seg["share"] < RAY_SHARE or not mesh_nee_seg["alive_equal"]:
+            raise AssertionError("path D: segment kernel disagrees with plain")
+        del dw_r, k, p
+        dm_r, dm_film = mesh_renderer("wavefront_fused", ply, MAIN_W, MAIN_H,
+                                      max_depth=MAIN_DEPTH, jitter=True,
+                                      nee=True)
+        paths["D"] = timed_path(dm_r, dm_film, "path_D_mesh_nee", args.png_dir)
+        del dm_r, dm_film
+
+    # 12. NEE is unbiased and lowers the error on the card
+    unbiased = nee_unbiased()
 
     print(smi)
     seg0 = segs[0]
+    nee_recs["mesh"] = mesh_nee
+    trace_recs = list(nee_recs.values()) + [rr_rec]
+    seg_recs = segs + segs_c + [mesh_nee_seg]
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches,
-         "max_abs_err": max(max_abs_err, mesh_main_err), "ms": kernel_ms,
-         "plain_ms": plain_ms,
-         "size": f"ms, plain_ms: random_balls_large {MAIN_W}x{MAIN_H} depth "
-                 f"{MAIN_DEPTH}, one frame; max_abs_err over that frame and "
-                 f"the {n_tri}-triangle mesh's",
+         "max_abs_err": max([max_abs_err, mesh_main_err]
+                            + [x["max_abs_err"] for x in trace_recs]),
+         "ms": kernel_ms, "plain_ms": plain_ms,
+         "size": f"ms, plain_ms, launches: random_balls_large {MAIN_W}x"
+                 f"{MAIN_H} depth {MAIN_DEPTH} without NEE, one frame "
+                 f"(launches over its {TIMED} timed frames); max_abs_err over "
+                 f"every trace comparison of the run",
          "mesh": {"launches": f_launches, "max_abs_err": mesh_main_err,
                   "ms": mesh_main_ms, "plain_ms": mesh_main_plain_ms,
                   "size": f"{n_tri}-triangle mesh {MAIN_W}x{MAIN_H} depth "
-                          f"{MAIN_DEPTH}, one frame"}},
+                          f"{MAIN_DEPTH}, one frame"},
+         "nee": nee_recs, "rr": rr_rec, "nee_unbiased": unbiased,
+         "paths": {k: paths[k] for k in "AB"}},
         {"name": "segment", "route": "cuda", "source": SEG_SOURCE,
          "replaces": SEG_REPLACES, "launches": seg_launches,
-         "max_abs_err": max([seg_err] + [sg["max_abs_err"] for sg in segs]),
+         "max_abs_err": max([seg_err] + [x["max_abs_err"] for x in seg_recs]),
          "ms": seg0["ms"], "plain_ms": seg0["plain_ms"],
-         "size": f"ms, plain_ms: {n_tri}-triangle mesh {MAIN_W}x{MAIN_H}, "
-                 f"frame 0's first segment ({seg0['bounces']} bounces over "
-                 f"{seg0['live']} slots); max_abs_err over every segment of "
-                 f"that frame and the {size} checks",
-         "segments": segs}]}))
+         "size": f"ms, plain_ms, launches: {n_tri}-triangle mesh {MAIN_W}x"
+                 f"{MAIN_H} without NEE, frame 0's first segment "
+                 f"({seg0['bounces']} bounces over {seg0['live']} slots; "
+                 f"launches over its {TIMED} timed frames); max_abs_err over "
+                 f"every segment comparison of the run",
+         "segments": segs, "nee_rr_segments": segs_c,
+         "mesh_nee_segment": mesh_nee_seg,
+         "paths": {k: paths[k] for k in "CD"}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,8 @@ Usage:
     python -m parallelraytracing_tpu_torch.cli --scene random_balls_large \
         --width 1920 --height 1080 --frames 16 --out balls.png
     python -m parallelraytracing_tpu_torch.cli --ply mesh.ply --frames 16
+    python -m parallelraytracing_tpu_torch.cli --scene cornell --nee \
+        --rr-depth 3 --frames 16 --out cornell.png
     python -m parallelraytracing_tpu_torch.cli --device cpu --scene cornell \
         --width 64 --height 64 --frames 4
 """
@@ -53,6 +55,21 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-jitter", action="store_true",
                    help="sample pixel centers (reference CPU/CUDA behavior)")
+    p.add_argument("--nee", action="store_true",
+                   help="next-event estimation: sample emissive lights "
+                        "directly at diffuse hits (in-kernel in fused and "
+                        "wavefront_fused; much lower variance on "
+                        "emissive-lit scenes)")
+    p.add_argument("--rr-depth", type=int, default=0, metavar="D",
+                   help="Russian roulette: stochastically terminate "
+                        "low-throughput paths after D bounces, unbiased "
+                        "(0 = off, the reference's fixed depth budget; "
+                        "listed as future work in its wavefront.md)")
+    p.add_argument("--clamp", type=float, default=0.0, metavar="C",
+                   help="firefly clamp: cap per-sample radiance at C "
+                        "before accumulation (0 = off; biased but kills "
+                        "outlier speckle — reference wavefront.md future "
+                        "work)")
     p.add_argument("--eye", type=float, nargs=3, default=None,
                    metavar=("X", "Y", "Z"))
     p.add_argument("--look-at", type=float, nargs=3, default=None,
@@ -95,7 +112,9 @@ def main(argv=None) -> int:
 
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth, samples_per_frame=args.spp,
-                       jitter=not args.no_jitter, seed=args.seed)
+                       jitter=not args.no_jitter, seed=args.seed,
+                       nee=args.nee, russian_roulette_depth=args.rr_depth,
+                       firefly_clamp=args.clamp)
     if args.ply:
         from parallelraytracing_tpu_torch.core.scene import ply_showcase_scene
         scene, default_eye, default_look = ply_showcase_scene(args.ply)
@@ -128,6 +147,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"scene={args.ply or args.scene} engine={engine} "
           f"{args.width}x{args.height} depth={cfg.max_depth} "
+          f"nee={renderer._tables.nee} rr_depth={cfg.russian_roulette_depth} "
           f"prims={scene.num_primitives} "
           f"device={device} ({name})")
 

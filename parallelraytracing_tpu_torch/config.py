@@ -44,9 +44,10 @@ class RenderConfig:
     #: wavefront compaction threshold (carried over unchanged)
     compaction_threshold: float = 0.5
     dtype: str = "float32"
-    #: Russian roulette start depth (0 = off; not in this port yet)
+    #: Russian roulette from this absolute depth on (0 = off)
     russian_roulette_depth: int = 0
-    #: next-event estimation (not in this port yet)
+    #: next-event estimation (direct light sampling at diffuse hits; a
+    #: scene without emissive spheres or quads renders without it)
     nee: bool = False
     #: firefly clamp on per-sample radiance (0 = off)
     firefly_clamp: float = 0.0

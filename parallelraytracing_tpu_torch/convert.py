@@ -16,6 +16,7 @@ import torch
 
 from parallelraytracing_tpu_torch.core.scene import SceneData
 from parallelraytracing_tpu_torch.engines.tables import SceneTables
+from parallelraytracing_tpu_torch.ops.pack import LIGHT_ROWS
 
 #: SceneData fields of the JAX package with no counterpart here yet (sky
 #: models and textures, ROADMAP Queue 1 item 11)
@@ -37,20 +38,28 @@ def scene_data_from_numpy(arrays: dict, device) -> SceneData:
 
 
 def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
-                      device, bb=((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
-                      ) -> SceneTables:
+                      device, bb=((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),
+                      lights=None, nee: bool = False) -> SceneTables:
     """SceneTables on `device` from packed host tables (either package's
     ``pack_scene_tables``), the sky 3-tuple and the scene box ``bb`` =
     ((lo), (1 / extent)) of the sort key (the JAX engine tables' ``bb``;
-    it only orders the wavefront queue, never changes an image)."""
+    it only orders the wavefront queue, never changes an image).
+    `lights` is either package's ``pack_lights_table`` (default: the
+    (28, 1) zero table of a scene without lights) and `nee` whether the
+    trace samples it: pass True only for a table of real lights (the JAX
+    engine tables' ``nee``)."""
     def dev(a):
         return torch.from_numpy(
             np.array(a, dtype=np.float32, order="C")).to(device)
 
     tri = np.asarray(tri, np.float32)
+    if lights is None:
+        if nee:
+            raise ValueError("nee needs the light table")
+        lights = np.zeros((LIGHT_ROWS, 1), np.float32)
     return SceneTables(
         sph=dev(sph), quad=dev(quad), tri=dev(tri), sph_cl=dev(sph_cl),
         quad_cl=dev(quad_cl), tri_cl=dev(tri_cl), mats=dev(mats),
         sky=tuple(float(s) for s in np.asarray(sky, np.float32)),
-        tri_live=bool(np.any(tri[0:3] != 0.0)),
-        bb=tuple(tuple(float(x) for x in v) for v in bb))
+        tri_live=bool(np.any(tri[0:3] != 0.0)), lights=dev(lights),
+        nee=bool(nee), bb=tuple(tuple(float(x) for x in v) for v in bb))

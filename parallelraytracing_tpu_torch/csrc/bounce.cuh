@@ -5,12 +5,13 @@
 // queue), so the two run the same arithmetic and render the same bits.
 //
 // The counterpart of parallelraytracing_tpu/ops/pallas_trace.py
-// _make_bounce_step on its constant-sky, NEE-off, untextured subset: the
-// sphere, quad and triangle closest-hit bodies (sph_body, quad_body,
+// _make_bounce_step on its constant-sky, untextured subset: the sphere,
+// quad and triangle closest-hit bodies (sph_body, quad_body,
 // make_tri_body), the three per-kind walks of `clustered` (threaded SAH
 // tree, linear cluster scan behind a root pretest, plain loop for tiny
-// kinds), the deferred shading normal, sky, emission, the branchless
-// Lambertian / metal / dielectric block and the PCG streams.
+// kinds), the deferred shading normal, sky, emission, next-event
+// estimation with its any-hit shadow walk, the branchless Lambertian /
+// metal / dielectric block, Russian roulette and the PCG streams.
 //
 // The tables are the JAX package's (C, N) column layout in read-only
 // global memory (every table of the repo's scenes fits in the H100's
@@ -53,11 +54,15 @@ struct PrtScene {
   int tri_csize;  // primitives per linear cluster, triangle kind
   float t_min, t_cap;  // t_cap = t_max, or +inf when t_max >= 1e30
   float sky0, sky1, sky2;
+  const float* lights;  // (28, n_lights): ops/pack.pack_lights_table
+  int n_lights;         // 0: NEE off
+  int rr_depth;         // Russian roulette from this absolute depth; 0: off
 };
 
 namespace {
 
 constexpr float kBig = 3.0e38f;
+constexpr float kPi = (float)3.14159265358979323846;
 constexpr float kTwoPi = (float)(2.0 * 3.14159265358979323846);
 constexpr uint32_t kSaltStep = 0x9E3779B9u;
 constexpr uint32_t kDepthStep = 0x85EBCA6Bu;
@@ -84,9 +89,24 @@ struct Ray {
 // or the triangle's unnormalised interpolated normal) and the winner's
 // compressed material record.
 struct Hit {
+  static constexpr bool kAnyHit = false;
   float t, gx, gy, gz, c0, c1, c2, extra, ord;
   int front, is_sph, mtype;
 };
+
+// Any-hit carry of a shadow ray, seeded with its light's own (t, ord): a
+// primitive that beats the seed occludes the light and sets t to -kBig,
+// which no slab or primitive test passes, and the walks return at once
+// (the per-ray form of the TPU's "best_t -> -BIG").
+struct Occluder {
+  static constexpr bool kAnyHit = true;
+  float t, ord;
+};
+
+template <class Carry>
+__device__ __forceinline__ bool occluded(const Carry& h) {
+  return Carry::kAnyHit && h.t == -kBig;
+}
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   uint32_t state = x * 747796405u + 2891336453u;
@@ -130,73 +150,113 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ tab,
 
 // Strict < with the lowest global ordinal breaking ties: the fold's result
 // is the lexicographic minimum of (t, ord), whatever the visit order.
-__device__ __forceinline__ bool beats(float t, float ordv, const Hit& h) {
+template <class Carry>
+__device__ __forceinline__ bool beats(float t, float ordv, const Carry& h) {
   return t < h.t || (t == h.t && ordv < h.ord);
 }
 
+// Record a winner: the closest-hit carry takes its geometry and material;
+// an any-hit carry is occluded.
+template <class Carry>
 __device__ __forceinline__ void take(const PrtScene& S, float t, float ordv,
                                      float mid, float gx, float gy, float gz,
-                                     int front, int is_sph, Hit& h) {
-  int mi = (int)mid;
-  int n = S.n_mats;
-  h.t = t;
-  h.ord = ordv;
-  h.gx = gx;
-  h.gy = gy;
-  h.gz = gz;
-  h.front = front;
-  h.is_sph = is_sph;
-  h.mtype = (int)ld(S.mats, mi);
-  h.c0 = ld(S.mats, n + mi);
-  h.c1 = ld(S.mats, 2 * n + mi);
-  h.c2 = ld(S.mats, 3 * n + mi);
-  h.extra = ld(S.mats, 4 * n + mi);
+                                     int front, int is_sph, Carry& h) {
+  if constexpr (Carry::kAnyHit) {
+    h.t = -kBig;
+  } else {
+    int mi = (int)mid;
+    int n = S.n_mats;
+    h.t = t;
+    h.ord = ordv;
+    h.gx = gx;
+    h.gy = gy;
+    h.gz = gz;
+    h.front = front;
+    h.is_sph = is_sph;
+    h.mtype = (int)ld(S.mats, mi);
+    h.c0 = ld(S.mats, n + mi);
+    h.c1 = ld(S.mats, 2 * n + mi);
+    h.c2 = ld(S.mats, 3 * n + mi);
+    h.extra = ld(S.mats, 4 * n + mi);
+  }
 }
 
-__device__ __forceinline__ void sphere_test(const PrtScene& S, int j,
-                                            const Ray& r, Hit& h) {
-  const float* __restrict__ s = S.sph;
-  const int n = S.n_sph;
-  float cx = ld(s, j), cy = ld(s, n + j), cz = ld(s, 2 * n + j);
-  float r2 = ld(s, 3 * n + j);
-  float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
-  float b2 = r.dx * ocx + r.dy * ocy + r.dz * ocz;
+// The sphere test's hit distance: the nearer root when it is >= t_min,
+// else the farther one; `front` says which.  The NEE block computes its
+// sphere light's analytic t with this same function.
+__device__ __forceinline__ bool sphere_t(float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float cx, float cy, float cz, float r2,
+                                         float t_min, float t_cap, float& t,
+                                         bool& front) {
+  float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  float b2 = dx * ocx + dy * ocy + dz * ocz;
   float cterm = ocx * ocx + ocy * ocy + ocz * ocz - r2;
   float disc = b2 * b2 - cterm;
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float t_near = -b2 - sq;
   float t_far = -b2 + sq;
-  bool fr = t_near >= S.t_min;
-  float t = fr ? t_near : t_far;
-  bool ok = (disc >= 0.0f) && (t >= S.t_min) && (t <= S.t_cap);
-  if (!ok) return;
+  front = t_near >= t_min;
+  t = front ? t_near : t_far;
+  return (disc >= 0.0f) && (t >= t_min) && (t <= t_cap);
+}
+
+// The quad test's hit distance and in-extent test from the plane
+// constants n, cn and the scaled edges us, cu, vs, cv; `on` is o.n (its
+// sign gives the front flag).  Shared with the NEE block's quad light.
+__device__ __forceinline__ bool quad_t(float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       float qnx, float qny, float qnz,
+                                       float cn, float usx, float usy,
+                                       float usz, float cu, float vsx,
+                                       float vsy, float vsz, float cv,
+                                       float t_min, float t_cap, float& t,
+                                       float& on) {
+  float dn = dx * qnx + dy * qny + dz * qnz;
+  on = ox * qnx + oy * qny + oz * qnz;
+  bool denom_ok = fabsf(dn) >= 1e-8f;
+  float inv_dn = denom_ok ? 1.0f / dn : 0.0f;
+  t = (cn - on) * inv_dn;
+  float a = (ox * usx + oy * usy + oz * usz)
+      + t * (dx * usx + dy * usy + dz * usz) - cu;
+  float b = (ox * vsx + oy * vsy + oz * vsz)
+      + t * (dx * vsx + dy * vsy + dz * vsz) - cv;
+  return denom_ok && (t > t_min) && (a * a < 1.0f) && (b * b < 1.0f)
+      && (t <= t_cap);
+}
+
+template <class Carry>
+__device__ __forceinline__ void sphere_test(const PrtScene& S, int j,
+                                            const Ray& r, Carry& h) {
+  const float* __restrict__ s = S.sph;
+  const int n = S.n_sph;
+  float cx = ld(s, j), cy = ld(s, n + j), cz = ld(s, 2 * n + j);
+  float t;
+  bool fr;
+  if (!sphere_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cx, cy, cz,
+                ld(s, 3 * n + j), S.t_min, S.t_cap, t, fr)) {
+    return;
+  }
   float ordv = ld(s, 5 * n + j);
   if (!beats(t, ordv, h)) return;
   take(S, t, ordv, ld(s, 4 * n + j), cx, cy, cz, fr, 1, h);
 }
 
+template <class Carry>
 __device__ __forceinline__ void quad_test(const PrtScene& S, int j,
-                                          const Ray& r, Hit& h) {
+                                          const Ray& r, Carry& h) {
   const float* __restrict__ q = S.quad;
   const int n = S.n_quad;
   float qnx = ld(q, j), qny = ld(q, n + j), qnz = ld(q, 2 * n + j);
   float cn = ld(q, 3 * n + j);
-  float usx = ld(q, 4 * n + j), usy = ld(q, 5 * n + j), usz = ld(q, 6 * n + j);
-  float cu = ld(q, 7 * n + j);
-  float vsx = ld(q, 8 * n + j), vsy = ld(q, 9 * n + j), vsz = ld(q, 10 * n + j);
-  float cv = ld(q, 11 * n + j);
-  float dn = r.dx * qnx + r.dy * qny + r.dz * qnz;
-  float on = r.ox * qnx + r.oy * qny + r.oz * qnz;
-  bool denom_ok = fabsf(dn) >= 1e-8f;
-  float inv_dn = denom_ok ? 1.0f / dn : 0.0f;
-  float t = (cn - on) * inv_dn;
-  float a = (r.ox * usx + r.oy * usy + r.oz * usz)
-      + t * (r.dx * usx + r.dy * usy + r.dz * usz) - cu;
-  float b = (r.ox * vsx + r.oy * vsy + r.oz * vsz)
-      + t * (r.dx * vsx + r.dy * vsy + r.dz * vsz) - cv;
-  bool ok = denom_ok && (t > S.t_min) && (a * a < 1.0f) && (b * b < 1.0f)
-      && (t <= S.t_cap);
-  if (!ok) return;
+  float t, on;
+  if (!quad_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, qnx, qny, qnz, cn,
+              ld(q, 4 * n + j), ld(q, 5 * n + j), ld(q, 6 * n + j),
+              ld(q, 7 * n + j), ld(q, 8 * n + j), ld(q, 9 * n + j),
+              ld(q, 10 * n + j), ld(q, 11 * n + j), S.t_min, S.t_cap, t,
+              on)) {
+    return;
+  }
   float ordv = ld(q, 13 * n + j);
   if (!beats(t, ordv, h)) return;
   take(S, t, ordv, ld(q, 12 * n + j), qnx, qny, qnz, on - cn > 0.0f, 0, h);
@@ -207,8 +267,9 @@ __device__ __forceinline__ void quad_test(const PrtScene& S, int j,
 // b2 = (-w.e1 - d.(p0 x e1)) / div with w = o x d.  The winner carries the
 // raw barycentric blend of the vertex normals and the front flag
 // !(d.n_interp > 0); the normal is normalised once, after the fold.
+template <class Carry>
 __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
-                                         const Ray& r, Hit& h) {
+                                         const Ray& r, Carry& h) {
   const float* __restrict__ q = S.tri;
   const int n = S.n_tri;
   float ngx = ld(q, j), ngy = ld(q, n + j), ngz = ld(q, 2 * n + j);
@@ -232,21 +293,25 @@ __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
   if (!ok) return;
   float ordv = ld(q, 17 * n + j);
   if (!beats(t, ordv, h)) return;
-  float b0 = 1.0f - b1 - b2;
-  float inx = b0 * ld(q, 18 * n + j) + b1 * ld(q, 21 * n + j)
-      + b2 * ld(q, 24 * n + j);
-  float iny = b0 * ld(q, 19 * n + j) + b1 * ld(q, 22 * n + j)
-      + b2 * ld(q, 25 * n + j);
-  float inz = b0 * ld(q, 20 * n + j) + b1 * ld(q, 23 * n + j)
-      + b2 * ld(q, 26 * n + j);
-  bool back = (r.dx * inx + r.dy * iny + r.dz * inz) > 0.0f;
-  take(S, t, ordv, ld(q, 16 * n + j), inx, iny, inz, !back, 0, h);
+  if constexpr (Carry::kAnyHit) {
+    h.t = -kBig;
+  } else {
+    float b0 = 1.0f - b1 - b2;
+    float inx = b0 * ld(q, 18 * n + j) + b1 * ld(q, 21 * n + j)
+        + b2 * ld(q, 24 * n + j);
+    float iny = b0 * ld(q, 19 * n + j) + b1 * ld(q, 22 * n + j)
+        + b2 * ld(q, 25 * n + j);
+    float inz = b0 * ld(q, 20 * n + j) + b1 * ld(q, 23 * n + j)
+        + b2 * ld(q, 26 * n + j);
+    bool back = (r.dx * inx + r.dy * iny + r.dz * inz) > 0.0f;
+    take(S, t, ordv, ld(q, 16 * n + j), inx, iny, inz, !back, 0, h);
+  }
 }
 
-template <int kKind>
+template <int kKind, class Carry>
 __device__ __forceinline__ void test_range(const PrtScene& S, int lo, int hi,
-                                           const Ray& r, Hit& h) {
-  for (int j = lo; j < hi; ++j) {
+                                           const Ray& r, Carry& h) {
+  for (int j = lo; j < hi && !occluded(h); ++j) {
     if (kKind == kSphere) {
       sphere_test(S, j, r, h);
     } else if (kKind == kQuad) {
@@ -257,17 +322,18 @@ __device__ __forceinline__ void test_range(const PrtScene& S, int lo, int hi,
   }
 }
 
-// One kind's closest-hit fold, dispatched like `clustered`: a tiny kind
-// (n <= csize) is a plain loop; an (8, M) table is the threaded tree
-// (hit -> node + 1, miss -> escape link in row 6, row 7 packs a leaf as
-// lo*64 + span); a (6, n_cl + 1) table is the linear cluster scan behind
-// the root pretest in its last column.  `csize` is the kind's own cluster
-// size (TRI_CLUSTER for triangles): it sets both the tiny-kind test and
-// the linear runs.
-template <int kKind>
+// One kind's fold, dispatched like `clustered`: a tiny kind (n <= csize)
+// is a plain loop; an (8, M) table is the threaded tree (hit -> node + 1,
+// miss -> escape link in row 6, row 7 packs a leaf as lo*64 + span); a
+// (6, n_cl + 1) table is the linear cluster scan behind the root pretest
+// in its last column.  `csize` is the kind's own cluster size
+// (TRI_CLUSTER for triangles): it sets both the tiny-kind test and the
+// linear runs.  The carry is the closest hit (Hit) or a shadow ray's
+// any-hit (Occluder), which returns as soon as the light is occluded.
+template <int kKind, class Carry>
 __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl,
                           int rows, int cols, int csize, const Ray& r,
-                          Hit& h) {
+                          Carry& h) {
   if (n <= csize) {
     test_range<kKind>(S, 0, n, r, h);
     return;
@@ -283,6 +349,7 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
         int enc = (int)lo_f;
         int lo = enc >> 6;
         test_range<kKind>(S, lo, lo + (enc & 63), r, h);
+        if (occluded(h)) return;
       }
       node = (enter && !leaf) ? node + 1 : miss;
     }
@@ -290,7 +357,7 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
   }
   int n_cl = (n + csize - 1) / csize;
   if (!slab_hit(cl, cols, n_cl, r, S.t_min, h.t)) return;
-  for (int ci = 0; ci < n_cl; ++ci) {
+  for (int ci = 0; ci < n_cl && !occluded(h); ++ci) {
     if (slab_hit(cl, cols, ci, r, S.t_min, h.t)) {
       int lo = ci * csize;
       test_range<kKind>(S, lo, min(lo + csize, n), r, h);
@@ -298,43 +365,165 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
   }
 }
 
-// One bounce of path `s` with the bounce's stream word rng_d.  Returns
-// true when the path continues; a path that ends (sky, emitter, metal ray
-// scattered under the surface) keeps its origin, direction and
-// throughput, and only its radiance changes.  kTri is whether the scene
-// has live triangles (S.n_tri > 0): the kernels are instantiated both
-// ways, so a sphere/quad scene runs code without the triangle fold, which
-// would otherwise cost every ray registers and spills.  Forced inline, so
-// each kernel's bounce loop compiles as one body.
+// The fold of every kind; kTri adds the triangle kind.
+template <bool kTri, class Carry>
+__device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
+                                           Carry& h) {
+  fold_kind<kSphere>(S, S.n_sph, S.sph_cl, S.sph_cl_rows, S.sph_cl_cols,
+                     S.csize, r, h);
+  if (occluded(h)) return;
+  fold_kind<kQuad>(S, S.n_quad, S.quad_cl, S.quad_cl_rows, S.quad_cl_cols,
+                   S.csize, r, h);
+  if (kTri && !occluded(h)) {
+    fold_kind<kTriangle>(S, S.n_tri, S.tri_cl, S.tri_cl_rows, S.tri_cl_cols,
+                         S.tri_csize, r, h);
+  }
+}
+
+// Next-event estimation at a Lambertian vertex p with shading normal n
+// and albedo c (pallas_trace.py l.2748-2895, its any-hit form): pick one
+// light from the stream's salt 5, sample a direction toward it from salts
+// 6 and 7 (a uniform cone toward a sphere light, a uniform point on a quad
+// light), trace the shadow ray as an any-hit walk seeded with the light's
+// own analytic hit (t, ord), and add throughput * albedo * the light's
+// emission * cos / (pi * pdf) when nothing beats the seed.  The seed's t
+// is computed by the light's own primitive test from the rows 18-27 of
+// the light table, so it equals the t the closest-hit fold would give the
+// light, and the equal-t tie rule decides coplanar geometry as the
+// closest-hit formulation does.  Reads the incoming throughput.
 template <bool kTri>
-__device__ __forceinline__ bool bounce(const PrtScene& S, uint32_t rng_d,
-                                       PathState& s) {
+__device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
+                                           float px, float py, float pz,
+                                           float nx, float ny, float nz,
+                                           float c0, float c1, float c2,
+                                           PathState& s) {
+  const int nl = S.n_lights;
+  const float u_l = uniform01(rng_d, 5u);
+  const float u_a = uniform01(rng_d, 6u);
+  const float u_b = uniform01(rng_d, 7u);
+  const int li = min((int)(u_l * (float)nl), nl - 1);
+  // The light's rows by direct index; "+ 0.0f" turns a -0.0 entry into
+  // +0.0, as the TPU kernel's blend over the lights (p*(1-m) + row*m) does.
+  const float* __restrict__ L = S.lights + li;
+  auto row = [&](int k) { return ld(L, k * nl) + 0.0f; };
+  const bool is_sphl = row(0) == 0.0f;  // kind: 0 sphere, 1 quad
+  const float lcx = row(2), lcy = row(3), lcz = row(4);
+  float wix, wiy, wiz, pdf, sh_t;
+  bool ok, sh_hit;
+  if (is_sphl) {
+    const float lr = row(5);
+    float tox = lcx - px, toy = lcy - py, toz = lcz - pz;
+    float dc2 = tox * tox + toy * toy + toz * toz;
+    float inv_dc = 1.0f / sqrtf(fmaxf(dc2, 1e-20f));
+    float axx = tox * inv_dc, axy = toy * inv_dc, axz = toz * inv_dc;
+    float sin2m = fminf(fmaxf(lr * lr / fmaxf(dc2, 1e-20f), 0.0f), 1.0f);
+    float cosm = sqrtf(fmaxf(1.0f - sin2m, 0.0f));
+    float cost = 1.0f - u_a * (1.0f - cosm);
+    float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+    float phi_l = kTwoPi * u_b;
+    float hy = fabsf(axx) > 0.9f ? 1.0f : 0.0f;
+    float hx = 1.0f - hy;
+    float t1x = axy * 0.0f - axz * hy;
+    float t1y = axz * hx - axx * 0.0f;
+    float t1z = axx * hy - axy * hx;
+    float t_il = 1.0f / sqrtf(fmaxf(t1x * t1x + t1y * t1y + t1z * t1z,
+                                    1e-20f));
+    t1x = t1x * t_il;
+    t1y = t1y * t_il;
+    t1z = t1z * t_il;
+    float t2x = axy * t1z - axz * t1y;
+    float t2y = axz * t1x - axx * t1z;
+    float t2z = axx * t1y - axy * t1x;
+    float cp = (float)cos((double)phi_l) * sint;
+    float sp = (float)sin((double)phi_l) * sint;
+    wix = axx * cost + t1x * cp + t2x * sp;
+    wiy = axy * cost + t1y * cp + t2y * sp;
+    wiz = axz * cost + t1z * cp + t2z * sp;
+    pdf = 1.0f / fmaxf(kTwoPi * (1.0f - cosm), 1e-12f);
+    ok = dc2 > lr * lr;
+    bool front;
+    sh_hit = sphere_t(px, py, pz, wix, wiy, wiz, lcx, lcy, lcz, row(27),
+                      S.t_min, S.t_cap, sh_t, front);
+  } else {
+    const float lux = row(6), luy = row(7), luz = row(8);
+    const float lvx = row(9), lvy = row(10), lvz = row(11);
+    const float lqx = row(12), lqy = row(13), lqz = row(14);
+    float a2 = 2.0f * u_a - 1.0f;
+    float b2l = 2.0f * u_b - 1.0f;
+    float qpx = lcx + a2 * lux + b2l * lvx - px;
+    float qpy = lcy + a2 * luy + b2l * lvy - py;
+    float qpz = lcz + a2 * luz + b2l * lvz - pz;
+    float dist2 = qpx * qpx + qpy * qpy + qpz * qpz;
+    float inv_dq = 1.0f / sqrtf(fmaxf(dist2, 1e-20f));
+    wix = qpx * inv_dq;
+    wiy = qpy * inv_dq;
+    wiz = qpz * inv_dq;
+    float crx = luy * lvz - luz * lvy;
+    float cry = luz * lvx - lux * lvz;
+    float crz = lux * lvy - luy * lvx;
+    float area = 4.0f * sqrtf(fmaxf(crx * crx + cry * cry + crz * crz, 0.0f));
+    float cosl = fabsf(wix * lqx + wiy * lqy + wiz * lqz);
+    pdf = dist2 / fmaxf(cosl * area, 1e-12f);
+    ok = cosl > 1e-6f;
+    float on;
+    sh_hit = quad_t(px, py, pz, wix, wiy, wiz, lqx, lqy, lqz, row(18),
+                    row(19), row(20), row(21), row(22), row(23), row(24),
+                    row(25), row(26), S.t_min, S.t_cap, sh_t, on);
+  }
+  pdf = pdf / (float)nl;
+  const float cos_s = wix * nx + wiy * ny + wiz * nz;
+  if (!(cos_s > 0.0f && ok && sh_hit)) return;
+  Ray r{px, py, pz, wix, wiy, wiz, safe_inv(wix), safe_inv(wiy),
+        safe_inv(wiz), py * wiz - pz * wiy, pz * wix - px * wiz,
+        px * wiy - py * wix};
+  Occluder oc{sh_t, row(1)};
+  fold_scene<kTri>(S, r, oc);
+  if (occluded(oc)) return;
+  const float w_l = cos_s / (kPi * fmaxf(pdf, 1e-12f));
+  s.rr = s.rr + s.tr * c0 * w_l * row(15);
+  s.rg = s.rg + s.tg * c1 * w_l * row(16);
+  s.rb = s.rb + s.tb * c2 * w_l * row(17);
+}
+
+// One bounce of path `s` at absolute depth `depth` with the bounce's
+// stream word rng_d.  `alive_in` is the path's alive value (1, or 2 when
+// NEE sampled the light at the previous, diffuse vertex: its emission is
+// then not added again).  Returns the alive value after the bounce: 0
+// when the path ends (sky, emitter, metal ray scattered under the
+// surface, Russian roulette), 2 when it goes on from a diffuse vertex
+// under NEE, else 1.  A path that ends keeps its origin and direction
+// (unless roulette ended it after the scatter), and only its radiance
+// changes.  kTri is whether the scene has live triangles (S.n_tri > 0),
+// kNee whether NEE is on (S.n_lights > 0), kRR whether Russian roulette
+// is (S.rr_depth > 0): the kernels are instantiated each way
+// (kernel_variant), so a sphere scene without NEE or roulette runs code
+// without the triangle fold, the NEE block and the roulette, each of
+// which costs every ray registers or spills.  Forced inline, so each
+// kernel's bounce loop compiles as one body.
+template <bool kTri, bool kNee, bool kRR>
+__device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
+                                      int depth, int alive_in, PathState& s) {
   const float ox = s.ox, oy = s.oy, oz = s.oz;
   const float dx = s.dx, dy = s.dy, dz = s.dz;
   Ray r{ox, oy, oz, dx, dy, dz, safe_inv(dx), safe_inv(dy), safe_inv(dz),
         oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
   Hit h{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (float)(1 << 24),
         0, 0, 0};
-  fold_kind<kSphere>(S, S.n_sph, S.sph_cl, S.sph_cl_rows, S.sph_cl_cols,
-                     S.csize, r, h);
-  fold_kind<kQuad>(S, S.n_quad, S.quad_cl, S.quad_cl_rows, S.quad_cl_cols,
-                   S.csize, r, h);
-  if (kTri) {
-    fold_kind<kTriangle>(S, S.n_tri, S.tri_cl, S.tri_cl_rows, S.tri_cl_cols,
-                         S.tri_csize, r, h);
-  }
+  fold_scene<kTri>(S, r, h);
 
   if (!(h.t < kBig)) {  // miss: sky * throughput, the path ends
     s.rr = s.rr + s.tr * S.sky0;
     s.rg = s.rg + s.tg * S.sky1;
     s.rb = s.rb + s.tb * S.sky2;
-    return false;
+    return 0;
   }
   if (h.mtype == kEmissive) {  // emission; an emitter does not scatter
-    s.rr = s.rr + s.tr * h.c0;
-    s.rg = s.rg + s.tg * h.c1;
-    s.rb = s.rb + s.tb * h.c2;
-    return false;
+    if (!(kNee && alive_in == 2)) {
+      s.rr = s.rr + s.tr * h.c0;
+      s.rg = s.rg + s.tg * h.c1;
+      s.rb = s.rb + s.tb * h.c2;
+    }
+    return 0;
   }
 
   // Deferred shading normal: spheres carried their center, quads the unit
@@ -352,6 +541,10 @@ __device__ __forceinline__ bool bounce(const PrtScene& S, uint32_t rng_d,
   float nx = nrx * sgn_n;
   float ny = nry * sgn_n;
   float nz = nrz * sgn_n;
+
+  if (kNee && h.mtype == kLambertian) {
+    nee_direct<kTri>(S, rng_d, px, py, pz, nx, ny, nz, h.c0, h.c1, h.c2, s);
+  }
 
   float u1 = uniform01(rng_d, 1u);
   float u2 = uniform01(rng_d, 2u);
@@ -406,12 +599,27 @@ __device__ __forceinline__ bool bounce(const PrtScene& S, uint32_t rng_d,
   sz = sz * ilen;
   // A metal ray scattered below the surface is absorbed.
   if (h.mtype == kMetal && !((sx * nx + sy * ny + sz * nz) > 0.0f)) {
-    return false;
+    return 0;
   }
   if (h.mtype != kDielectric) {
     s.tr = s.tr * h.c0;
     s.tg = s.tg * h.c1;
     s.tb = s.tb * h.c2;
+  }
+  // Russian roulette on the attenuated throughput: end the path with
+  // probability 1 - p, p = clip(max channel, 0.05, 1); a survivor's
+  // throughput is divided by p.  The origin and direction move either way.
+  int alive = 1;
+  if (kRR && depth >= S.rr_depth) {
+    float p = fminf(fmaxf(fmaxf(s.tr, fmaxf(s.tg, s.tb)), 0.05f), 1.0f);
+    if (uniform01(rng_d, 4u) >= p) {
+      alive = 0;
+    } else {
+      float boost = 1.0f / p;
+      s.tr = s.tr * boost;
+      s.tg = s.tg * boost;
+      s.tb = s.tb * boost;
+    }
   }
   s.ox = px;
   s.oy = py;
@@ -419,7 +627,15 @@ __device__ __forceinline__ bool bounce(const PrtScene& S, uint32_t rng_d,
   s.dx = sx;
   s.dy = sy;
   s.dz = sz;
-  return true;
+  // Under NEE a diffuse continuation is marked 2: the next vertex skips
+  // the emission this vertex's light sample already counted.
+  return (kNee && alive && h.mtype == kLambertian) ? 2 : alive;
+}
+
+// The instantiation <kTri, kNee, kRR> a scene needs, as an index
+// kTri * 4 + kNee * 2 + kRR into a kernel's table of eight.
+inline int kernel_variant(const PrtScene& S) {
+  return (S.n_tri > 0) * 4 + (S.n_lights > 0) * 2 + (S.rr_depth > 0);
 }
 
 }  // namespace

@@ -7,10 +7,12 @@
 // traced in segments gets the same bits as one traced in a single launch.
 //
 // The state is 13 planes of R floats, (13, R) row-major: origin (3),
-// direction (3), throughput (3), radiance (3) and alive.  Radiance rides
-// the state across segments: it is never reset here.  A thread keeps its
-// slot's state in registers across the segment's bounces and writes it
-// once.  The queue's live prefix length `count` is read from device
+// direction (3), throughput (3), radiance (3) and alive (0, 1, or 2 when
+// NEE sampled the light at the previous, diffuse vertex, so the next
+// vertex adds no emission: the mark crosses segment boundaries here).
+// Radiance rides the state across segments: it is never reset here.  A
+// thread keeps its slot's state in registers across the segment's bounces
+// and writes it once.  The queue's live prefix length `count` is read from device
 // memory (scalars = [seed, depth0, count], int32), so the engine needs no
 // host sync between segments; a thread at or past `count`, or whose slot
 // is not alive, runs no bounce: it copies its slot through with alive 0
@@ -34,7 +36,7 @@ struct SegmentArgs {
   int n_bounces;
 };
 
-template <bool kTri>
+template <bool kTri, bool kNee, bool kRR>
 __global__ void __launch_bounds__(kThreads)
     segment_kernel(const PrtScene S, const SegmentArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -43,7 +45,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* __restrict__ in = A.in + i;
   float* __restrict__ out = A.out + i;
   const int count = __ldg(A.scalars + 2);
-  if (i >= count || !(in[12 * R] > 0.0f)) {
+  const float alive_in = in[12 * R];
+  if (i >= count || !(alive_in > 0.0f)) {
     for (int k = 0; k < kPlanes - 1; ++k) out[k * R] = in[k * R];
     out[12 * R] = 0.0f;
     return;
@@ -54,9 +57,11 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t seed = (uint32_t)__ldg(A.scalars);
   const int depth0 = __ldg(A.scalars + 1);
   const uint32_t rng_base = pcg_hash((uint32_t)A.pix[i] ^ seed);
-  bool alive = true;
+  int alive = alive_in > 1.5f ? 2 : 1;
   for (int b = 0; b < A.n_bounces && alive; ++b) {
-    alive = bounce<kTri>(S, rng_base + (uint32_t)(depth0 + b) * kDepthStep, s);
+    const int depth = depth0 + b;
+    alive = bounce<kTri, kNee, kRR>(S, rng_base + (uint32_t)depth * kDepthStep,
+                                    depth, alive, s);
   }
   out[0] = s.ox;
   out[R] = s.oy;
@@ -70,8 +75,16 @@ __global__ void __launch_bounds__(kThreads)
   out[9 * R] = s.rr;
   out[10 * R] = s.rg;
   out[11 * R] = s.rb;
-  out[12 * R] = alive ? 1.0f : 0.0f;
+  out[12 * R] = (float)alive;
 }
+
+using SegmentKernel = void (*)(const PrtScene, const SegmentArgs);
+// Indexed by kernel_variant().
+const SegmentKernel kSegmentKernels[8] = {
+    segment_kernel<false, false, false>, segment_kernel<false, false, true>,
+    segment_kernel<false, true, false>,  segment_kernel<false, true, true>,
+    segment_kernel<true, false, false>,  segment_kernel<true, false, true>,
+    segment_kernel<true, true, false>,   segment_kernel<true, true, true>};
 
 }  // namespace
 
@@ -87,12 +100,8 @@ extern "C" int prt_segment_launch(int device, void* stream,
   if (n_rays <= 0) return 0;
   SegmentArgs A{pix, in, out, scalars, n_rays, n_bounces};
   int blocks = (n_rays + kThreads - 1) / kThreads;
-  if (scene->n_tri > 0) {
-    segment_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *scene, A);
-  } else {
-    segment_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        *scene, A);
-  }
+  kSegmentKernels[kernel_variant(*scene)]<<<blocks, kThreads, 0,
+                                              (cudaStream_t)stream>>>(*scene,
+                                                                      A);
   return (int)cudaGetLastError();
 }

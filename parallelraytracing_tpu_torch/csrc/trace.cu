@@ -3,11 +3,11 @@
 //
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_trace (the
 // kernel body _make_trace_kernel.kernel driving _make_bounce_step) on its
-// constant-sky, NEE-off, untextured subset; the bounce itself (closest-hit
-// fold over spheres, quads and triangles, then shading) is bounce.cuh,
-// shared with the segment kernel.  NEE, Russian roulette, textures,
-// instances, the directional sky, the stream path and the straggler-tail
-// view are refused by the Python wrapper (ops/trace.py) before a launch.
+// constant-sky, untextured subset; the bounce itself (closest-hit fold
+// over spheres, quads and triangles, shading, NEE and Russian roulette) is
+// bounce.cuh, shared with the segment kernel.  Textures, instances, the
+// directional sky, the stream path and the straggler-tail view are
+// refused by the Python wrapper (ops/trace.py) before a launch.
 //
 // What bounds it on the H100: not FLOPs and not HBM bandwidth.  A ray
 // reads the 7 values of its input once and writes 3; everything else is
@@ -27,6 +27,10 @@
 namespace {
 
 constexpr int kThreads = 128;
+// Blocks per SM the plain sphere instantiation (no triangles, NEE or
+// roulette) is built for: 9 x 128 threads caps it at 56 registers, the
+// count it had before NEE and roulette joined the bounce.
+constexpr int kSphereMinBlocks = 9;
 
 struct TraceArgs {
   const float* __restrict__ o;  // (R, 3)
@@ -38,8 +42,9 @@ struct TraceArgs {
   int max_depth;
 };
 
-template <bool kTri>
-__global__ void __launch_bounds__(kThreads)
+template <bool kTri, bool kNee, bool kRR>
+__global__ void __launch_bounds__(kThreads,
+                                  kTri || kNee || kRR ? 1 : kSphereMinBlocks)
     trace_kernel(const PrtScene S, const TraceArgs A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.n_rays) return;
@@ -48,13 +53,24 @@ __global__ void __launch_bounds__(kThreads)
               1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
   // Pixel-keyed streams: the image does not depend on ray order.
   const uint32_t rng_base = pcg_hash((uint32_t)A.pix[i] ^ A.seed);
-  for (int depth = 0; depth < A.max_depth; ++depth) {
-    if (!bounce<kTri>(S, rng_base + (uint32_t)depth * kDepthStep, s)) break;
+  // The alive value carries NEE's no-emit mark (2) from bounce to bounce.
+  int alive = 1;
+  for (int depth = 0; depth < A.max_depth && alive; ++depth) {
+    alive = bounce<kTri, kNee, kRR>(S, rng_base + (uint32_t)depth * kDepthStep,
+                                    depth, alive, s);
   }
   A.out[3 * i] = s.rr;
   A.out[3 * i + 1] = s.rg;
   A.out[3 * i + 2] = s.rb;
 }
+
+using TraceKernel = void (*)(const PrtScene, const TraceArgs);
+// Indexed by kernel_variant().
+const TraceKernel kTraceKernels[8] = {
+    trace_kernel<false, false, false>, trace_kernel<false, false, true>,
+    trace_kernel<false, true, false>,  trace_kernel<false, true, true>,
+    trace_kernel<true, false, false>,  trace_kernel<true, false, true>,
+    trace_kernel<true, true, false>,   trace_kernel<true, true, true>};
 
 }  // namespace
 
@@ -69,12 +85,7 @@ extern "C" int prt_trace_launch(int device, void* stream,
   if (n_rays <= 0) return 0;
   TraceArgs A{o, d, pix, out, n_rays, seed, max_depth};
   int blocks = (n_rays + kThreads - 1) / kThreads;
-  if (scene->n_tri > 0) {
-    trace_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(*scene,
-                                                                      A);
-  } else {
-    trace_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(*scene,
-                                                                       A);
-  }
+  kTraceKernels[kernel_variant(*scene)]<<<blocks, kThreads, 0,
+                                          (cudaStream_t)stream>>>(*scene, A);
   return (int)cudaGetLastError();
 }

@@ -71,8 +71,8 @@ class FusedRenderer(Renderer):
         if cfg.qmc:
             raise NotImplementedError(
                 "QMC camera sampling: ROADMAP Queue 1 item 11 (not ported yet)")
-        self._tables, self._scene_data = build_scene_tables(self._scene,
-                                                            self.device)
+        self._tables, self._scene_data = build_scene_tables(
+            self._scene, self.device, nee=cfg.nee)
         perm, inv = morton_pixel_perm(cfg.width, cfg.height)
         self._ids = torch.from_numpy(perm.copy()).to(self.device)
         self._minv = torch.from_numpy(inv.copy()).to(self.device)

@@ -111,7 +111,7 @@ def _run_segment(tables, pix, state, scalars, n_bounces: int,
                   t.quad_cl, t.tri_cl, t.mats, n_bounces=n_bounces,
                   t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
                   tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
-                  nee=cfg.nee)
+                  nee=t.nee, lights=t.lights)
 
 
 def _initial_state(o, d) -> torch.Tensor:
@@ -162,8 +162,9 @@ def count_frame_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
                      seg_fn=None) -> int:
     """Exact ray count of one frame: the camera rays plus the rays alive
     entering every later bounce, from one-bounce segments over the same
-    pixel-keyed streams the engines trace (compacted, never re-sorted).
-    The numerator of Mrays/s."""
+    pixel-keyed streams the engines trace (compacted, never re-sorted), so
+    paths that Russian roulette ends count as the engines trace them.
+    NEE's shadow rays are not counted.  The numerator of Mrays/s."""
     seg_fn = seg_fn or segment
     r = o.shape[0]
     dev = o.device
@@ -216,8 +217,8 @@ class WavefrontFusedRenderer(Renderer):
             schedule = (2, 4, d - 6) if d > 10 else (2, d - 2) if d > 4 else ()
         self._lens = segment_lengths(d, 3 if segment is None else segment,
                                      self.segment_first, tuple(schedule or ()))
-        self._tables, self._scene_data = build_scene_tables(self._scene,
-                                                            self.device)
+        self._tables, self._scene_data = build_scene_tables(
+            self._scene, self.device, nee=cfg.nee)
         perm, _ = morton_pixel_perm(cfg.width, cfg.height)
         self._ids = torch.from_numpy(perm.copy()).to(self.device)
 

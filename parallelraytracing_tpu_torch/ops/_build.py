@@ -54,6 +54,7 @@ class PrtScene(ctypes.Structure):
         ("mats", P), ("n_mats", I),
         ("csize", I), ("tri_csize", I),
         ("t_min", F), ("t_cap", F), ("sky0", F), ("sky1", F), ("sky2", F),
+        ("lights", P), ("n_lights", I), ("rr_depth", I),
     ]
 
 

@@ -452,3 +452,37 @@ def pack_scene_tables(scene: dict):
     return (np.ascontiguousarray(sph), np.ascontiguousarray(quad),
             np.ascontiguousarray(tri), sph_cl, quad_cl, tri_cl,
             np.ascontiguousarray(mats))
+
+
+#: rows of the light table
+LIGHT_ROWS = 28
+
+
+def pack_lights_table(scene: dict) -> np.ndarray:
+    """(28, Nl) float32 light table for NEE, the JAX package's
+    ``pack_lights_table``: per light (ops/nee.extract_lights order)
+    [kind, global ord, center(3), radius, u(3), v(3), normal(3), emit(3)],
+    then rows 18-27 [cn, us(3), cu, vs(3), cv, r2]: the light's own
+    quad-plane and sphere constants, computed with the same float32 numpy
+    expressions as the quad and sphere rows of ``pack_scene_tables``, so
+    the shadow ray's analytic hit on its light is bit-equal to the t the
+    primitive's own test gives (the equal-t, lowest-ordinal tie rule then
+    decides coplanar geometry, such as CORNELL's light in its ceiling, as
+    the closest-hit fold would).  A (28, 1) zero table when the scene has
+    no light."""
+    from parallelraytracing_tpu_torch.ops.nee import KIND_SPHERE, extract_lights
+    lights = extract_lights(scene)
+    if lights is None:
+        return np.zeros((LIGHT_ROWS, 1), np.float32)
+    n_sph_full = int(np.asarray(scene["sph_valid"]).shape[0])
+    ordv = np.where(lights.kind == KIND_SPHERE, lights.idx,
+                    n_sph_full + lights.idx)
+    lc, lu, lv, ln = lights.center, lights.u, lights.v, lights.normal
+    us = lu / np.maximum((lu * lu).sum(1, keepdims=True), 1e-30)
+    vs = lv / np.maximum((lv * lv).sum(1, keepdims=True), 1e-30)
+    return np.concatenate([
+        lights.kind[None].astype(np.float32), ordv[None].astype(np.float32),
+        lc.T, lights.radius[None], lu.T, lv.T, ln.T, lights.emit.T,
+        (lc * ln).sum(1)[None], us.T, (lc * us).sum(1)[None], vs.T,
+        (lc * vs).sum(1)[None], (lights.radius * lights.radius)[None]],
+        axis=0).astype(np.float32)

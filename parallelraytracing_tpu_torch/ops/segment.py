@@ -16,12 +16,16 @@ Inputs: ``pix`` (R,) int32 pixel ids keying the PCG streams; ``state``
 (13, R) float32 planes [ox oy oz dx dy dz tr tg tb rr rg rb alive];
 ``scalars`` (3,) int32 [seed, depth0, count] on the state's device (the
 kernel reads `count` there, so a frame needs no host sync between
-segments); the tables of ops/pack.py.  Returns a new (13, R) state: the
-12 planes after the segment and alive (1.0 or 0.0).  Radiance rides the
+segments); the tables of ops/pack.py, and with ``nee`` the light table
+(as in ops/trace.py).  Returns a new (13, R) state: the 12 planes after
+the segment and alive: 0.0 ended, 1.0 goes on, 2.0 goes on from a
+diffuse vertex under NEE (the next vertex adds no emission, whichever
+segment traces it: an incoming 2.0 is honoured).  Radiance rides the
 state and accumulates across segments.  A slot at or past `count`, or
 not alive, is dead: its planes pass through and its alive is 0.  Bounce
-i of the segment draws the streams of absolute depth depth0 + i, so no
-permutation of the queue changes the image.
+i of the segment draws the streams of absolute depth depth0 + i, and
+Russian roulette (``rr_depth`` > 0) starts at absolute depth
+``rr_depth``, so no permutation of the queue changes the image.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import ctypes
 import torch
 
 from parallelraytracing_tpu_torch.ops import rng
-from parallelraytracing_tpu_torch.ops.trace import (_bounce, _refuse, _t_cap,
+from parallelraytracing_tpu_torch.ops.trace import (_bounce, _light_table,
+                                                    _refuse, _t_cap,
                                                     check_tensors, scene_arg,
                                                     stream_of)
 
@@ -41,15 +46,16 @@ PLANES = 13
 
 def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
             mats, *, n_bounces: int, t_min: float, t_max: float, sky,
-            tri_live: bool, rr_depth: int = 0,
-            nee: bool = False) -> torch.Tensor:
+            tri_live: bool, rr_depth: int = 0, nee: bool = False,
+            lights=None) -> torch.Tensor:
     """Run `n_bounces` bounces over the queue; the new (13, R) state."""
-    _refuse(sky, rr_depth=rr_depth, nee=nee)
+    _refuse(sky)
     if state.device.type == "cpu":
         return segment_reference(pix, state, scalars, sph, quad, tri, sph_cl,
                                  quad_cl, tri_cl, mats, n_bounces=n_bounces,
                                  t_min=t_min, t_max=t_max, sky=sky,
-                                 tri_live=tri_live)
+                                 tri_live=tri_live, rr_depth=rr_depth,
+                                 nee=nee, lights=lights)
     if state.device.type != "cuda":
         raise ValueError(f"segment runs on cpu or cuda tensors, not {state.device}")
     r = int(state.shape[1])
@@ -59,7 +65,8 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                   {"pix": (pix, (r,)), "scalars": (scalars, (3,))})
     scene = scene_arg(state.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
-                      tri_live=tri_live)
+                      tri_live=tri_live, rr_depth=rr_depth, nee=nee,
+                      lights=lights)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("segment")
@@ -79,11 +86,12 @@ segment.launches = 0
 def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
                       tri_cl, mats, *, n_bounces: int, t_min: float,
                       t_max: float, sky, tri_live: bool, rr_depth: int = 0,
-                      nee: bool = False) -> torch.Tensor:
+                      nee: bool = False, lights=None) -> torch.Tensor:
     """Plain PyTorch version of ``segment`` (same signature and result).
     Each bounce runs on the slots still alive; a dead slot's state is left
     as it was."""
-    _refuse(sky, rr_depth=rr_depth, nee=nee)
+    _refuse(sky)
+    lights = _light_table(nee, lights)
     seed, depth0, count = (int(v) for v in scalars.tolist())
     r = state.shape[1]
     dev = state.device
@@ -91,20 +99,21 @@ def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
     sky = tuple(float(s) for s in sky)
     out = state.clone()
     planes = [out[k] for k in range(PLANES - 1)]
-    alive = torch.nonzero((state[12] > 0.0)
-                          & (torch.arange(r, device=dev) < count))[:, 0]
-    out[12] = 0.0
+    alive = out[12]
+    alive[(alive <= 0.0) | (torch.arange(r, device=dev) >= count)] = 0.0
+    idx = torch.nonzero(alive > 0.0)[:, 0]
     rng_base = rng.pcg_hash((pix.to(torch.int64) & rng.MASK32)
                             ^ (seed & rng.MASK32))
     for i in range(n_bounces):
-        if alive.numel() == 0:
+        if idx.numel() == 0:
             break
-        rng_d = (rng_base[alive] + (depth0 + i) * rng.DEPTH_STEP) & rng.MASK32
-        new, cont = _bounce([p[alive] for p in planes], rng_d, sph, quad,
-                            tri if tri_live else None, mats, t_min, t_cap,
-                            sky)
+        depth = depth0 + i
+        rng_d = (rng_base[idx] + depth * rng.DEPTH_STEP) & rng.MASK32
+        new, alive_out = _bounce([p[idx] for p in planes], alive[idx], rng_d,
+                                 depth, sph, quad, tri if tri_live else None,
+                                 mats, t_min, t_cap, sky, lights, rr_depth)
         for p, v in zip(planes, new):
-            p[alive] = v
-        alive = alive[cont]
-    out[12, alive] = 1.0
+            p[idx] = v
+        alive[idx] = alive_out
+        idx = idx[alive_out > 0.0]
     return out

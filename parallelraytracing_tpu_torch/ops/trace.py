@@ -1,8 +1,9 @@
 """The fused trace: every bounce of every ray in one kernel launch.
 
 The counterpart of ``pallas_trace`` (``parallelraytracing_tpu/ops/pallas_trace.py``)
-on sphere, quad and triangle scenes with the constant sky.  Two functions
-of one signature:
+on sphere, quad and triangle scenes with the constant sky, with
+next-event estimation (NEE) and Russian roulette.  Two functions of one
+signature:
 
 - ``trace``: the wrapper.  On a CUDA tensor it launches the hand-written
   kernel ``csrc/trace.cu`` (built at first use, ops/_build.py) or raises;
@@ -12,18 +13,26 @@ of one signature:
   Its closest hit is a brute-force fold over every sphere, quad and
   triangle column (an independent check of the kernel's tree walk);
   everything after the fold follows the order of operations of
-  ``_make_bounce_step``.  ``_bounce`` is shared with the segment
-  kernel's plain version (ops/segment.py).
+  ``_make_bounce_step``.  Its NEE shadow test is the closest-hit
+  formulation (the light is visible iff the brute-force closest hit along
+  the shadow ray is the light itself, the JAX package's
+  ``PRT_NEE_ANYHIT=0``), an independent check of the kernel's any-hit
+  walk.  ``_bounce`` is shared with the segment kernel's plain version
+  (ops/segment.py).
 
 Rays: o, d (R, 3) float32; pix (R,) int32 pixel ids keying the PCG
 streams; seed the frame's int32 path seed.  Tables: the (C, N) float32
-tables of ops/pack.py (or of the JAX package, via convert.py).  Returns
-(R, 3) float32 radiance.
+tables of ops/pack.py (or of the JAX package, via convert.py); with
+``nee`` the (28, Nl) light table of ``pack_lights_table`` too, whose
+every column is sampled (as in ``pallas_trace``, which takes
+``lights.shape[1]`` lights: pass ``nee`` only for a scene with lights,
+as engines/tables.py does).  ``rr_depth`` > 0 plays Russian roulette
+from that absolute depth on.  Returns (R, 3) float32 radiance.
 
 A triangle kind of never-hit pad columns (``tri_live`` False) is skipped.
-Not in this port yet, refused with NotImplementedError: NEE, Russian
-roulette, instances, checker and image textures, the directional sky,
-``depth_out`` and ``collect_stats``.
+Not in this port yet, refused with NotImplementedError: instances,
+checker and image textures, the directional sky, ``depth_out`` and
+``collect_stats``.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 from parallelraytracing_tpu_torch.core.scene import (MAT_DIELECTRIC, MAT_EMISSIVE,
                                                   MAT_LAMBERTIAN, MAT_METAL)
 from parallelraytracing_tpu_torch.ops import ieee, rng
-from parallelraytracing_tpu_torch.ops.pack import CLUSTER, TRI_CLUSTER
+from parallelraytracing_tpu_torch.ops.pack import CLUSTER, LIGHT_ROWS, TRI_CLUSTER
 
 BIG = 3.0e38
 TWO_PI = 2.0 * math.pi
@@ -46,8 +55,6 @@ T_MAX_INF = 1e30
 CHUNK_ELEMS = 1 << 23
 
 _ROADMAP = {
-    "nee": "NEE: ROADMAP Queue 1 item 9",
-    "rr_depth": "Russian roulette: ROADMAP Queue 1 item 11",
     "inst": "instances: ROADMAP Queue 1 item 10",
     "checker": "checker textures: ROADMAP Queue 1 item 11",
     "itex": "image textures: ROADMAP Queue 1 item 11",
@@ -71,20 +78,22 @@ def _t_cap(t_max: float) -> float:
 
 def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
           mats, *, max_depth: int, t_min: float, t_max: float, sky,
-          tri_live: bool, rr_depth: int = 0, nee: bool = False, inst=None,
-          checker=(), itex=(), depth_out: bool = False,
+          tri_live: bool, rr_depth: int = 0, nee: bool = False,
+          lights=None, inst=None, checker=(), itex=(),
+          depth_out: bool = False,
           collect_stats: bool = False) -> torch.Tensor:
     """Trace R rays through up to `max_depth` bounces; (R, 3) radiance.
 
     `tri_live` says whether the triangle table holds any hittable column
     (engines/tables.py and convert.py compute it on the host)."""
-    _refuse(sky, rr_depth=rr_depth, nee=nee, inst=inst, checker=checker,
-            itex=itex, depth_out=depth_out, collect_stats=collect_stats)
+    _refuse(sky, inst=inst, checker=checker, itex=itex, depth_out=depth_out,
+            collect_stats=collect_stats)
     if o.device.type == "cpu":
         return trace_reference(o, d, pix, seed, sph, quad, tri, sph_cl,
                                quad_cl, tri_cl, mats, max_depth=max_depth,
                                t_min=t_min, t_max=t_max, sky=sky,
-                               tri_live=tri_live)
+                               tri_live=tri_live, rr_depth=rr_depth, nee=nee,
+                               lights=lights)
     if o.device.type != "cuda":
         raise ValueError(f"trace runs on cpu or cuda tensors, not {o.device}")
     r = int(o.shape[0])
@@ -94,7 +103,8 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
     check_tensors(o.device, {"o": o, "d": d}, {"pix": (pix, (r,))})
     scene = scene_arg(o.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
-                      tri_live=tri_live)
+                      tri_live=tri_live, rr_depth=rr_depth, nee=nee,
+                      lights=lights)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("trace")
@@ -136,15 +146,29 @@ def check_tensors(device, floats: dict, ints: dict) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _light_table(nee: bool, lights):
+    """The light table NEE samples, or None with NEE off."""
+    if not nee:
+        return None
+    if lights is None or lights.dim() != 2 or lights.shape[0] != LIGHT_ROWS:
+        raise ValueError("nee needs the (28, Nl) light table of "
+                         "pack_lights_table as `lights`")
+    return lights
+
+
 def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
-              t_min: float, t_max: float, sky, tri_live: bool):
+              t_min: float, t_max: float, sky, tri_live: bool,
+              rr_depth: int = 0, nee: bool = False, lights=None):
     """Validate the tables a kernel reads and pack them into the
     ``PrtScene`` struct of csrc/bounce.cuh.  The struct holds raw device
     pointers: the tables must outlive the launch."""
     from parallelraytracing_tpu_torch.ops import _build
+    lights = _light_table(nee, lights)
     check_tensors(device, {"sph": sph, "quad": quad, "tri": tri,
                            "sph_cl": sph_cl, "quad_cl": quad_cl,
-                           "tri_cl": tri_cl, "mats": mats}, {})
+                           "tri_cl": tri_cl, "mats": mats,
+                           **({} if lights is None else {"lights": lights})},
+                  {})
     if (sph.shape[0] != 6 or quad.shape[0] != 14 or tri.shape[0] != 27
             or mats.shape[0] != 5):
         raise ValueError("tables: want sph (6,N), quad (14,N), tri (27,N), "
@@ -167,7 +191,8 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
         *tri_cl.shape,
         ptr(mats), mats.shape[1], CLUSTER, TRI_CLUSTER,
         float(t_min), _t_cap(t_max), float(sky[0]), float(sky[1]),
-        float(sky[2]))
+        float(sky[2]), None if lights is None else ptr(lights),
+        0 if lights is None else lights.shape[1], max(int(rr_depth), 0))
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +270,11 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap):
     ordinal) over accepted primitives, which is what the strict-< /
     lowest-ordinal fold computes in any visit order.
 
-    Returns (best_t, gx, gy, gz, front, is_sph, mid): best_t = BIG on a
-    miss; the winner's raw geometry (sphere center, quad normal, or the
-    unnormalised barycentric blend of the triangle's vertex normals), its
-    front flag, kind and material id.  Fields of a missing ray are
-    arbitrary."""
+    Returns (best_t, gx, gy, gz, front, is_sph, mid, ord): best_t = BIG
+    on a miss; the winner's raw geometry (sphere center, quad normal, or
+    the unnormalised barycentric blend of the triangle's vertex normals),
+    its front flag, kind, material id and global ordinal.  Fields of a
+    missing ray are arbitrary."""
     n_s, n_q = sph.shape[1], quad.shape[1]
     n_t = 0 if tri is None else tri.shape[1]
     ords = torch.cat([sph[5], quad[13]] + ([tri[17]] if n_t else []))
@@ -292,15 +317,114 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap):
             front = torch.where(is_tri, ~back, front)
             mid = torch.where(is_tri, tri[16, ct], mid)
         outs.append((torch.where(tmin < BIG, tmin, BIG), *g, front, is_sph,
-                     mid.long()))
+                     mid.long(), ords[col]))
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _bounce(state, rng_d, sph, quad, tri, mats, t_min, t_cap, sky):
-    """One bounce of the alive rays; returns the new state and `cont`.
-    `tri` is None when the scene has no hittable triangle."""
+def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
+                tri, t_min, t_cap):
+    """Next-event estimation at B shading points (``nee_direct`` of
+    csrc/bounce.cuh, pallas_trace.py l.2748-2895): pick a light from salt
+    5, sample a direction toward it from salts 6 and 7, and return the
+    (B,) weights cos / (pi * pdf) of the samples whose light is visible,
+    0 elsewhere, and the light's emission (3 x (B,)).  Only the `cand`
+    points (Lambertian hits) sample.  Visibility is the closest-hit
+    formulation: the brute-force closest hit along the shadow ray is the
+    sampled light's ordinal."""
+    nl = lights.shape[1]
+    u_l = rng.uniform01(rng_d, 5)
+    u_a = rng.uniform01(rng_d, 6)
+    u_b = rng.uniform01(rng_d, 7)
+    li = torch.clamp_max((u_l * nl).to(torch.int64), nl - 1)
+    # "+ 0.0" turns a -0.0 entry into +0.0, as the TPU's blend of rows does
+    (lkind, lord, lcx, lcy, lcz, lr, lux, luy, luz, lvx, lvy, lvz,
+     lqx, lqy, lqz, ler, leg, leb) = lights[:18, li] + 0.0
+
+    # sphere light: uniform cone toward the sphere
+    tox = lcx - px
+    toy = lcy - py
+    toz = lcz - pz
+    dc2 = tox * tox + toy * toy + toz * toz
+    inv_dc = ieee.rsqrt(torch.clamp_min(dc2, 1e-20))
+    axx = tox * inv_dc
+    axy = toy * inv_dc
+    axz = toz * inv_dc
+    sin2m = torch.clamp(lr * lr / torch.clamp_min(dc2, 1e-20), 0.0, 1.0)
+    cosm = ieee.sqrt(torch.clamp_min(1.0 - sin2m, 0.0))
+    cost = 1.0 - u_a * (1.0 - cosm)
+    sint = ieee.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+    phi_l = TWO_PI * u_b
+    hy = (torch.abs(axx) > 0.9).to(torch.float32)
+    hx = 1.0 - hy
+    t1x = axy * 0.0 - axz * hy
+    t1y = axz * hx - axx * 0.0
+    t1z = axx * hy - axy * hx
+    t_il = ieee.rsqrt(torch.clamp_min(t1x * t1x + t1y * t1y + t1z * t1z,
+                                      1e-20))
+    t1x = t1x * t_il
+    t1y = t1y * t_il
+    t1z = t1z * t_il
+    t2x = axy * t1z - axz * t1y
+    t2y = axz * t1x - axx * t1z
+    t2z = axx * t1y - axy * t1x
+    cp = ieee.cos(phi_l) * sint
+    sp = ieee.sin(phi_l) * sint
+    wsx = axx * cost + t1x * cp + t2x * sp
+    wsy = axy * cost + t1y * cp + t2y * sp
+    wsz = axz * cost + t1z * cp + t2z * sp
+    pdf_s = 1.0 / torch.clamp_min(TWO_PI * (1.0 - cosm), 1e-12)
+    s_ok = dc2 > lr * lr
+
+    # quad light: uniform area, converted to a solid-angle pdf
+    a2 = 2.0 * u_a - 1.0
+    b2l = 2.0 * u_b - 1.0
+    qpx = lcx + a2 * lux + b2l * lvx - px
+    qpy = lcy + a2 * luy + b2l * lvy - py
+    qpz = lcz + a2 * luz + b2l * lvz - pz
+    dist2 = qpx * qpx + qpy * qpy + qpz * qpz
+    inv_dq = ieee.rsqrt(torch.clamp_min(dist2, 1e-20))
+    wqx = qpx * inv_dq
+    wqy = qpy * inv_dq
+    wqz = qpz * inv_dq
+    crx = luy * lvz - luz * lvy
+    cry = luz * lvx - lux * lvz
+    crz = lux * lvy - luy * lvx
+    area = 4.0 * ieee.sqrt(torch.clamp_min(crx * crx + cry * cry + crz * crz,
+                                           0.0))
+    cosl = torch.abs(wqx * lqx + wqy * lqy + wqz * lqz)
+    pdf_q = dist2 / torch.clamp_min(cosl * area, 1e-12)
+    q_ok = cosl > 1e-6
+
+    is_sphl = lkind == 0.0
+    wix = torch.where(is_sphl, wsx, wqx)
+    wiy = torch.where(is_sphl, wsy, wqy)
+    wiz = torch.where(is_sphl, wsz, wqz)
+    pdf_l = torch.where(is_sphl, pdf_s, pdf_q) / float(nl)
+    cos_s = wix * nx + wiy * ny + wiz * nz
+    cand = cand & (cos_s > 0.0) & torch.where(is_sphl, s_ok, q_ok)
+
+    vis = torch.zeros_like(cand)
+    idx = torch.nonzero(cand)[:, 0]
+    if idx.numel():
+        sh = _closest_hit(px[idx], py[idx], pz[idx], wix[idx], wiy[idx],
+                          wiz[idx], sph, quad, tri, t_min, t_cap)
+        vis[idx] = (sh[0] < BIG) & (sh[7] == lord[idx])
+    w_l = (cos_s / (math.pi * torch.clamp_min(pdf_l, 1e-12))) \
+        * (cand & vis).to(torch.float32)
+    return w_l, (ler, leg, leb)
+
+
+def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
+            t_cap, sky, lights=None, rr_depth: int = 0):
+    """One bounce of B alive paths at absolute depth `depth`: the new
+    state and the (B,) float32 alive values after it (0 ended, 1 goes on,
+    2 goes on from a diffuse vertex under NEE).  `alive` holds the values
+    before it (1, or 2: emission was sampled by NEE at the previous vertex
+    and is not added again).  `tri` is None when the scene has no
+    hittable triangle, `lights` None when NEE is off."""
+    nee = lights is not None
     ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb = state
-    best_t, gx, gy, gz, fr, is_sph, mid = _closest_hit(
+    best_t, gx, gy, gz, fr, is_sph, mid, _ = _closest_hit(
         ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap)
     hit = best_t < BIG
     is_sph_k = hit & is_sph
@@ -329,15 +453,30 @@ def _bounce(state, rng_d, sph, quad, tri, mats, t_min, t_cap, sky):
     ny = nry * sgn_n
     nz = nrz * sgn_n
 
-    # miss: sky * throughput; emission before the scatter test
+    # miss: sky * throughput; emission before the scatter test, not added
+    # again at a vertex whose light NEE sampled at the previous one
     mw = (~hit).to(torch.float32)
     rr = rr + mw * tr * sky[0]
     rg = rg + mw * tg * sky[1]
     rb = rb + mw * tb * sky[2]
     lw = hit.to(torch.float32) * (m_type == MAT_EMISSIVE).to(torch.float32)
+    if nee:
+        lw = lw * (alive <= 1.5).to(torch.float32)
     rr = rr + lw * tr * m_c0
     rg = rg + lw * tg * m_c1
     rb = rb + lw * tb * m_c2
+
+    is_lam = m_type == MAT_LAMBERTIAN
+    is_met = m_type == MAT_METAL
+    is_die = m_type == MAT_DIELECTRIC
+
+    if nee:  # reads the throughput before the BSDF's attenuation
+        w_l, (ler, leg, leb) = _nee_direct(px, py, pz, nx, ny, nz,
+                                           hit & is_lam, rng_d, lights, sph,
+                                           quad, tri, t_min, t_cap)
+        rr = rr + tr * m_c0 * w_l * ler
+        rg = rg + tg * m_c1 * w_l * leg
+        rb = rb + tb * m_c2 * w_l * leb
 
     u1 = rng.uniform01(rng_d, 1)
     u2 = rng.uniform01(rng_d, 2)
@@ -348,10 +487,6 @@ def _bounce(state, rng_d, sph, quad, tri, mats, t_min, t_cap, sky):
     ux = rxy * ieee.cos(phi)
     uy = rxy * ieee.sin(phi)
     uz = z
-
-    is_lam = m_type == MAT_LAMBERTIAN
-    is_met = m_type == MAT_METAL
-    is_die = m_type == MAT_DIELECTRIC
 
     lx = nx + ux
     ly = ny + uy
@@ -410,26 +545,39 @@ def _bounce(state, rng_d, sph, quad, tri, mats, t_min, t_cap, sky):
     tr = tr * (ncw + cw * att_r)
     tg = tg * (ncw + cw * att_g)
     tb = tb * (ncw + cw * att_b)
+    if 0 < rr_depth <= depth:
+        # Russian roulette: survive with p = clip(max channel, 0.05, 1),
+        # a survivor's throughput divided by p
+        p = torch.clamp(torch.maximum(tr, torch.maximum(tg, tb)), 0.05, 1.0)
+        survive = ~(rng.uniform01(rng_d, 4) >= p)
+        boost = torch.where(survive & cont, 1.0 / p, 1.0)
+        tr = tr * boost
+        tg = tg * boost
+        tb = tb * boost
+        cw = cw * survive.to(torch.float32)
     ox = torch.where(cont, px, ox)
     oy = torch.where(cont, py, oy)
     oz = torch.where(cont, pz, oz)
     dx = torch.where(cont, sx, dx)
     dy = torch.where(cont, sy, dy)
     dz = torch.where(cont, sz, dz)
-    return (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb), cont
+    if nee:  # a diffuse continuation: the next vertex adds no emission
+        cw = cw * torch.where(is_lam, 2.0, 1.0)
+    return (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb), cw
 
 
 def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
                     tri_cl, mats, *, max_depth: int, t_min: float,
                     t_max: float, sky, tri_live: bool, rr_depth: int = 0,
-                    nee: bool = False, inst=None, checker=(), itex=(),
-                    depth_out: bool = False,
+                    nee: bool = False, lights=None, inst=None, checker=(),
+                    itex=(), depth_out: bool = False,
                     collect_stats: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``trace`` (same signature and result).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
     its state unchanged, as in the TPU kernel's dead-tile exit."""
-    _refuse(sky, rr_depth=rr_depth, nee=nee, inst=inst, checker=checker,
-            itex=itex, depth_out=depth_out, collect_stats=collect_stats)
+    _refuse(sky, inst=inst, checker=checker, itex=itex, depth_out=depth_out,
+            collect_stats=collect_stats)
+    lights = _light_table(nee, lights)
     r = o.shape[0]
     dev = o.device
     t_cap = _t_cap(t_max)
@@ -442,15 +590,17 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
     state = [s.contiguous().clone() for s in state]
     rng_base = rng.pcg_hash((pix.to(torch.int64) & rng.MASK32)
                             ^ (int(seed) & rng.MASK32))
-    alive = torch.arange(r, device=dev)
+    alive = ones.clone()
+    idx = torch.arange(r, device=dev)
     for depth in range(max_depth):
-        if alive.numel() == 0:
+        if idx.numel() == 0:
             break
-        rng_d = (rng_base[alive] + depth * rng.DEPTH_STEP) & rng.MASK32
-        new, cont = _bounce([s[alive] for s in state], rng_d, sph, quad,
-                            tri if tri_live else None, mats, t_min, t_cap,
-                            sky)
+        rng_d = (rng_base[idx] + depth * rng.DEPTH_STEP) & rng.MASK32
+        new, alive_out = _bounce([s[idx] for s in state], alive[idx], rng_d,
+                                 depth, sph, quad, tri if tri_live else None,
+                                 mats, t_min, t_cap, sky, lights, rr_depth)
         for s, v in zip(state, new):
-            s[alive] = v
-        alive = alive[cont]
+            s[idx] = v
+        alive[idx] = alive_out
+        idx = idx[alive_out > 0.0]
     return torch.stack(state[9:12], dim=1)

@@ -14,7 +14,9 @@ primitive except where a box test and a hit test round differently); at
 depth 20 the films of 4-16 jittered frames agree to an HDR RMSE < 1e-3.
 The segment kernel is held to the same bounds on the 13 planes of one
 segment, and the wavefront_fused and fused films on a mesh to the RMSE
-bound (the two kernels share their bounce, so 0 is expected).
+bound (the two kernels share their bounce, so 0 is expected).  With NEE
+and Russian roulette the same bounds hold, and the segment's alive plane
+(0, 1, or 2 for NEE's no-emit mark) is equal on every slot.
 """
 
 import numpy as np
@@ -35,12 +37,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def preset_renderer(preset, width, height, **cfg_kw):
+def preset_renderer(preset, width, height, engine="fused", **cfg_kw):
     from parallelraytracing_tpu_torch import (Film, RenderConfig, Scene,
                                               ScenePreset, create_renderer,
                                               default_camera)
     film = Film(width, height, "cuda")
-    r = create_renderer("fused", "cuda")
+    r = create_renderer(engine, "cuda")
     r.init(film, Scene(ScenePreset(preset)), default_camera(width, height),
            RenderConfig(width=width, height=height, **cfg_kw))
     return r, film
@@ -77,12 +79,14 @@ def frame_inputs(r, frame_index, jitter=None):
 
 
 def traced(r, fn, max_depth=None):
-    """fn (trace or trace_reference) on renderer r's tables and config."""
+    """fn (trace or trace_reference) on renderer r's tables and config
+    (NEE and Russian roulette as the renderer runs them)."""
     t, cfg = r._tables, r.config
     return lambda o, d, pix, seed: fn(
         o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl,
         t.mats, max_depth=max_depth or cfg.max_depth, t_min=cfg.t_min,
-        t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live)
+        t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=t.nee,
+        lights=t.lights, rr_depth=cfg.russian_roulette_depth)
 
 
 def ray_share(k, p):
@@ -134,9 +138,32 @@ def test_engine_launches_kernel_and_wrapper_checks(cuda):
         trace(o, d, pix.to(torch.int64), *args, **kw)
     with pytest.raises(ValueError):
         trace(o, d.t().contiguous().t(), pix, *args, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="light table"):
         trace(o, d, pix, *args, **{**kw, "nee": True})
     assert trace.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,cfg_kw", [
+    ("cornell", dict(nee=True)), ("random_balls_large", dict(nee=True)),
+    ("random_balls_large", dict(russian_roulette_depth=3)),
+    ("cornell", dict(nee=True, russian_roulette_depth=3))])
+def test_nee_rr_kernel_matches_plain(cuda, preset, cfg_kw):
+    """NEE (the kernel's any-hit shadow walk against the plain version's
+    closest-hit formulation) and Russian roulette on the card."""
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    r1, _ = preset_renderer(preset, 320, 180, max_depth=1, jitter=False,
+                            **cfg_kw)
+    assert r1._tables.nee == cfg_kw.get("nee", False)
+    inputs = frame_inputs(r1, 0)
+    k, p = traced(r1, trace)(*inputs), traced(r1, trace_reference)(*inputs)
+    assert torch.isfinite(k).all() and ray_share(k, p) >= RAY_SHARE
+    r20, _ = preset_renderer(preset, 320, 180, max_depth=20, **cfg_kw)
+    inputs = frame_inputs(r20, 0)
+    k, p = traced(r20, trace)(*inputs), traced(r20, trace_reference)(*inputs)
+    assert ray_share(k, p) >= RAY_SHARE
+    rmse = film_rmse(r20, 4, traced(r20, trace), traced(r20, trace_reference))
+    assert rmse < FILM_RMSE, rmse
 
 
 @pytest.fixture
@@ -201,9 +228,45 @@ def test_segment_wrapper_checks(cuda, mesh_ply):
         segment(pix, state[:12].contiguous(), scalars, *tabs, **kw)
     with pytest.raises(ValueError):
         segment(pix.cpu(), state, scalars, *tabs, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="light table"):
         segment(pix, state, scalars, *tabs, **kw, nee=True)
     assert segment.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_segment_nee_rr_kernel_matches_plain(cuda):
+    """Every segment of a CORNELL frame with NEE and rr_depth 3 against
+    the plain segment at its real queue (the kernel's state carried on):
+    the alive plane equal on every slot, the other planes within
+    RAY_ATOL on RAY_SHARE of the live slots; then the wavefront_fused and
+    fused films (RMSE bound, 0 expected)."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        segmented_trace
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    cfg_kw = dict(max_depth=20, nee=True, russian_roulette_depth=3)
+    r, wf_film = preset_renderer("cornell", 160, 90, "wavefront_fused",
+                                 **cfg_kw)
+    assert r._tables.nee and r.segment_lengths() == [3] * 6 + [2]
+    checked = []
+
+    def both(pix, state, scalars, *tabs, **kw):
+        k = segment(pix, state, scalars, *tabs, **kw)
+        p = segment_reference(pix, state, scalars, *tabs, **kw)
+        live = int(scalars[2])
+        assert torch.equal(k[12], p[12])
+        if live:
+            assert ray_share(k[:12, :live].t(), p[:12, :live].t()) >= RAY_SHARE
+        checked.append(live)
+        return k
+    segmented_trace(r._tables, *frame_inputs(r, 0), r.config,
+                    schedule=tuple(r.segment_lengths()), seg_fn=both)
+    assert len(checked) == 7 and checked[0] == 160 * 90
+    f, fused_film = preset_renderer("cornell", 160, 90, **cfg_kw)
+    for _ in range(4):
+        r.progressive_render()
+        f.progressive_render()
+    diff = wf_film.hdr_average() - fused_film.hdr_average()
+    assert float(diff.pow(2).mean().sqrt()) < FILM_RMSE
 
 
 @pytest.mark.cuda

@@ -192,17 +192,32 @@ def test_schedule_defaults(tmp_path):
         assert r.segment_lengths() == want
 
 
-def test_wavefront_fused_refuses_nee_and_rr(tmp_path):
-    """NEE and Russian roulette are not ported: NotImplementedError from
-    the engine and from both versions of the segment."""
+def test_wavefront_fused_runs_nee_and_rr(tmp_path):
+    """NEE and Russian roulette run in wavefront_fused on the CPU and give
+    the fused engine's film, bit for bit (the showcase scene's sphere
+    light; the tetrahedron is a tiny triangle kind); each changes the
+    film.  Both versions of the segment take them; NEE without a light
+    table raises."""
     path = mesh_ply(tmp_path, "tetra")
-    for cfg_kw in (dict(nee=True), dict(russian_roulette_depth=3)):
+    films = {}
+    for cfg_kw in (dict(), dict(nee=True), dict(russian_roulette_depth=2),
+                   dict(nee=True, russian_roulette_depth=2)):
         scene, eye, look = ply_showcase_scene(path)
-        r = T.create_renderer("wavefront_fused", "cpu")
-        r.init(T.Film(8, 8, "cpu"), scene, T.default_camera(8, 8),
-               T.RenderConfig(width=8, height=8, **cfg_kw))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eye, look = np.asarray(eye), np.asarray(look)
+        got = []
+        for engine in ("wavefront_fused", "fused"):
+            film = T.Film(16, 12, "cpu")
+            r = T.create_renderer(engine, "cpu")
+            r.init(film, scene, T.Camera(eye, look - eye, 16.0, 12.0, 100.0),
+                   T.RenderConfig(width=16, height=12, max_depth=6, seed=3,
+                                  **cfg_kw))
+            assert r._tables.nee == cfg_kw.get("nee", False)
             r.progressive_render()
+            got.append(film.hdr_average())
+        assert torch.equal(*got)
+        films[tuple(cfg_kw)] = got[0]
+    base = films[()]
+    assert all(not torch.equal(base, f) for k, f in films.items() if k)
     t = r._tables
     args = (torch.zeros(4, dtype=torch.int32), torch.zeros((PLANES, 4)),
             torch.tensor([1, 0, 4], dtype=torch.int32), t.sph, t.quad, t.tri,
@@ -210,9 +225,10 @@ def test_wavefront_fused_refuses_nee_and_rr(tmp_path):
     kw = dict(n_bounces=1, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=True)
     for fn in (segment, segment_reference):
         assert fn(*args, **kw).shape == (PLANES, 4)
-        for extra in (dict(nee=True), dict(rr_depth=2)):
-            with pytest.raises(NotImplementedError):
-                fn(*args, **kw, **extra)
+        assert fn(*args, **kw, nee=True, lights=t.lights,
+                  rr_depth=2).shape == (PLANES, 4)
+        with pytest.raises(ValueError, match="light table"):
+            fn(*args, **kw, nee=True)
 
 
 def test_schedule_follows_the_scene_on_reinit(tmp_path):

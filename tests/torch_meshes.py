@@ -26,8 +26,9 @@ OCTA_F = ((0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4),
 TETRA_V = ((1, 1, 1), (1, -1, -1), (-1, 1, -1), (-1, -1, 1))
 TETRA_F = ((0, 1, 2), (0, 3, 1), (0, 2, 3), (1, 3, 2))
 #: the three triangle kinds: tiny (plain loop), linear scan, SAH tree
+#: (the icosahedron at level 1, 80 triangles, is a tree too)
 MESHES = {"tetra": (TETRA_V, TETRA_F, 0), "octa": (OCTA_V, OCTA_F, 0),
-          "ico2": (ICO_V, ICO_F, 2)}
+          "ico1": (ICO_V, ICO_F, 1), "ico2": (ICO_V, ICO_F, 2)}
 
 
 def make_mesh(name: str) -> tmesh.Mesh:
