@@ -16,8 +16,11 @@ next-event estimation (NEE) and Russian roulette paths: A fused CORNELL
 rule decides its visibility), B fused RANDOM_BALLS_LARGE --nee (8 sphere lights),
 C wavefront_fused CORNELL --nee --rr-depth 3 (the no-emit mark and
 roulette across segments), D wavefront_fused mesh --nee (shadow walks
-through the triangle tree).  Phases, one or more lines each, each line
-tagged with its seconds (any failure raises and exits non-zero):
+through the triangle tree); then the instanced path: bench.py's
+multimesh scene (7 instances of 2 unique meshes through the kernels'
+instance block) at 1920x1080, depth 8.  Phases, one or more lines each,
+each line tagged with its seconds (any failure raises and exits
+non-zero):
 
 1. probe: the card, its power limit, the torch and CUDA versions;
 2. build: the trace and segment kernels from csrc/ with nvcc (sm_90a),
@@ -70,16 +73,40 @@ tagged with its seconds (any failure raises and exits non-zero):
 11. path D: at 320x180 (a 1080p plain mesh frame with NEE would take
     ~45 s) the trace kernel with phase 8's checks and one 2-bounce
     segment (13 planes, alive equal); then timed at 1920x1080;
-12. NEE is unbiased on the card: CORNELL at 320x180, depth 20, 8 NEE
+12. instances: bench.py's multimesh scene (its multimesh_scene recipe,
+    camera and depth 8) built through Scene.add_mesh_instances, with the
+    level-5 icosphere (20,480 triangles) in place of the bunny and the
+    20-triangle icosahedron in place of icosahedron.ply (neither PLY is
+    in the repo): 7 instances, 20,500 unique local triangles; the bytes
+    of the instance tables against those the baked flat tables would
+    need, and torch.cuda.max_memory_allocated();
+13. instances, kernels vs plain at 320x180, with and without NEE: the
+    trace kernel (depth 1 without jitter and frame 0 at depth 8 per ray
+    within 1e-5 on >= 99.9% of rays; films of 4 frames, HDR RMSE < 1e-3)
+    and one 2-bounce segment (13 planes within 1e-5 on >= 99.9% of
+    slots, the alive plane exactly equal);
+14. instances, the engines agree: wavefront_fused and fused films over 16
+    frames at 320x180 (HDR RMSE < 1e-3, max abs difference printed, 0
+    expected); and instanced against baked: bench's tlas_blas scene (4
+    icosahedron instances over a ground quad, 64x48, depth 10, 32 spp x
+    8 frames) through the kernel, instanced and baked with add_mesh, HDR
+    RMSE < 1e-3;
+15. the instanced path timed at 1920x1080, depth 8: wavefront_fused
+    (its schedule printed) and fused, each with and without NEE: the
+    kernels' times on frame 0, then the engine as in phase 8 (ms/frame,
+    Msamples/s, Mrays/s, bench's spp64_wall_s = 64 x ms/frame, launches,
+    film, PNG);
+16. NEE is unbiased on the card: CORNELL at 320x180, depth 20, 8 NEE
     frames against a truth of 1024 frames without NEE, with
     tests/test_nee.py's bounds (mean within 6%; RMSE to the truth < 0.6 x
     that of 8 frames without NEE).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
-path's timed frames, its NEE and roulette comparisons, and the timed
-paths A-D); the last line is {"ok": true, "device": {...}}.  Exits
-non-zero without CUDA.
+path's timed frames, its bound on the card for the measured launch, its
+NEE, roulette and instanced comparisons, and the timed paths A-D and
+the instanced ones); the last line is {"ok": true, "device": {...}}.
+Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -119,6 +146,21 @@ RR_DEPTH, NEE_FILM_FRAMES = 3, 4
 #: TRUTH_FRAMES frames without NEE, and their RMSE to the truth under
 #: RMSE_RATIO x that of NEE_FRAMES frames without NEE
 TRUTH_FRAMES, NEE_FRAMES, MEAN_REL, RMSE_RATIO = 1024, 8, 0.06, 0.6
+#: the instanced path: bench.py's multimesh rows (depth min(8, 20)) and
+#: its camera; the tlas_blas gate's scene, size, depth and samples
+INST_DEPTH = 8
+INST_EYE, INST_DIR = (0.0, 12.0, 30.0), (0.0, -7.0, -30.0)
+TLAS_W, TLAS_H, TLAS_DEPTH, TLAS_SPP, TLAS_FRAMES = 64, 48, 10, 32, 8
+#: the bound of a kernel launch (the H100 SXM's published peaks): float32
+#: operations outside the tensor cores, and HBM3 bytes/s
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+#: float32 operations of the least walk a ray segment needs, counted from
+#: csrc/bounce.cuh: one slab test, one sphere / quad / triangle test, one
+#: instance entry (the local ray), and the shading after the fold (hit
+#: point, normal, three PCG draws, the direction sample, the BSDF, the
+#: normalisation)
+SLAB_OPS, SPH_OPS, QUAD_OPS, TRI_OPS, ENTRY_OPS, SHADE_OPS = \
+    26, 24, 45, 45, 60, 150
 
 #: the regular icosahedron: 12 closed-form vertices (0, +-1, +-phi) and
 #: cyclic permutations, 20 faces wound counter-clockwise seen from outside
@@ -158,11 +200,12 @@ def frame_inputs(renderer, frame_index: int, jitter=None):
 
 
 def trace_kw(tables, cfg) -> dict:
-    """The trace's keyword arguments as the engines pass them (NEE and
-    Russian roulette included)."""
+    """The trace's keyword arguments as the engines pass them (NEE,
+    Russian roulette and instances included)."""
     return dict(max_depth=cfg.max_depth, t_min=cfg.t_min, t_max=cfg.t_max,
                 sky=tables.sky, tri_live=tables.tri_live, nee=tables.nee,
-                lights=tables.lights, rr_depth=cfg.russian_roulette_depth)
+                lights=tables.lights, rr_depth=cfg.russian_roulette_depth,
+                inst=tables.inst)
 
 
 def both_traces(tables, cfg, o, d, pix, seed):
@@ -245,17 +288,11 @@ def write_ply(path: str, level: int = MESH_LEVEL) -> int:
 def mesh_renderer(engine: str, ply: str, width: int, height: int, **cfg_kw):
     """A renderer of `engine` on the showcase scene of the PLY mesh, with
     the showcase camera, as the CLI's --ply builds it."""
-    from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
-                                              create_renderer)
     from parallelraytracing_tpu_torch.core.scene import ply_showcase_scene
     scene, eye, look = ply_showcase_scene(ply)
     eye, look = np.asarray(eye, np.float64), np.asarray(look, np.float64)
-    cfg = RenderConfig(width=width, height=height, **cfg_kw)
-    film = Film(width, height, "cuda")
-    r = create_renderer(engine, "cuda")
-    r.init(film, scene, Camera(eye, look - eye, float(width), float(height),
-                               100.0), cfg)
-    return r, film
+    return scene_renderer(engine, scene, eye, look - eye, width, height,
+                          **cfg_kw)
 
 
 def ray_share(k, p) -> float:
@@ -326,16 +363,18 @@ def check_film(film, sky, tag: str, png_dir) -> str:
 def ptxas_summary(lib: str, log: Path) -> str:
     """Registers and spill stores of each kernel instantiation in an nvcc
     build log (-Xptxas -v): "tri" with the triangle fold, "sq" without,
-    "+nee" with the NEE block, "+rr" with Russian roulette."""
+    "+nee" with the NEE block, "+rr" with Russian roulette, "+inst" with
+    the instance block."""
     if not log.exists():  # built by an earlier run, whose log is gone
         return ""
     out, tag, spill = [], lib, ""
     for ln in log.read_text().splitlines():
-        m = re.search(r"ILb([01])ELb([01])ELb([01])E", ln)
+        m = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             tag = (f"{lib}[{'tri' if m.group(1) == '1' else 'sq'}"
                    f"{'+nee' if m.group(2) == '1' else ''}"
-                   f"{'+rr' if m.group(3) == '1' else ''}]")
+                   f"{'+rr' if m.group(3) == '1' else ''}"
+                   f"{'+inst' if m.group(4) == '1' else ''}]")
             spill = ""
         elif "spill stores" in ln and not spill:
             spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
@@ -518,6 +557,353 @@ def nee_unbiased() -> dict:
     return dict(mean_rel=rel, rmse_nee=rmse_nee, rmse_plain=rmse_plain)
 
 
+def depth_counts(r) -> list:
+    """Rays entering each bounce of frame 0 of renderer r."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        count_depth_rays
+    return count_depth_rays(r._tables, *frame_inputs(r, 0), r.config)
+
+
+def tree_walk_shape(cl, roots=(0,)):
+    """(fewest nodes on a root-to-leaf path, mean leaf span) of a threaded
+    (8, M) table: a node's first child is the next column and a child's
+    next sibling its escape link, so one pass in column order gives every
+    node's depth.  `roots` are the trees' first columns (the instance
+    table holds one tree per unique mesh)."""
+    cl = cl.cpu().numpy()
+    depth = np.zeros(cl.shape[1], np.int64)
+    for root in roots:
+        depth[int(root)] = 1
+    for n in range(cl.shape[1]):
+        leaf = cl[7, n] >= 0
+        if not leaf and n + 1 < cl.shape[1] and not depth[n + 1]:
+            depth[n + 1] = depth[n] + 1
+        esc = int(cl[6, n])
+        if esc >= 0 and not depth[esc]:
+            depth[esc] = depth[n]
+    leaves = cl[7] >= 0
+    spans = cl[7, leaves].astype(np.int64) & 63
+    return int(depth[leaves].min()), float(spans.mean())
+
+
+def kind_ops(n: int, cl, csize: int, prim_ops: int) -> float:
+    """Operations of the least walk of one kind for one segment (the
+    walks of fold_kind): a tiny kind tests every primitive; a tree the
+    slab tests on its shallowest root-to-leaf path and one mean leaf's
+    primitives; a linear table its root pretest, every cluster box and
+    one cluster's primitives."""
+    if n <= csize:
+        return n * prim_ops
+    if cl.shape[0] == 8:
+        d_min, span = tree_walk_shape(cl)
+        return d_min * SLAB_OPS + span * prim_ops
+    return cl.shape[1] * SLAB_OPS + csize * prim_ops
+
+
+def segment_ops(t) -> float:
+    """Least operations of one ray segment through tables t: the shading
+    plus each kind's least walk; with instances, every instance's box
+    test, one entry, and the shallowest walk of the instanced trees."""
+    from parallelraytracing_tpu_torch.ops.pack import CLUSTER, TRI_CLUSTER
+    ops = SHADE_OPS + kind_ops(t.sph.shape[1], t.sph_cl, CLUSTER, SPH_OPS) \
+        + kind_ops(t.quad.shape[1], t.quad_cl, CLUSTER, QUAD_OPS)
+    if t.tri_live:
+        ops += kind_ops(t.tri.shape[1], t.tri_cl, TRI_CLUSTER, TRI_OPS)
+    if t.inst is not None:
+        roots = sorted(set(int(x) for x in t.inst.inst[0].tolist()))
+        d_min, span = tree_walk_shape(t.inst.iacc, roots)
+        ops += t.inst.n_inst * SLAB_OPS + ENTRY_OPS + d_min * SLAB_OPS \
+            + span * TRI_OPS
+    return ops
+
+
+def table_bytes(t) -> int:
+    tabs = [t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
+            t.lights]
+    if t.inst is not None:
+        tabs += [t.inst.itri, t.inst.iacc, t.inst.ibox, t.inst.inst]
+    return sum(x.numel() * x.element_size() for x in tabs)
+
+
+def kernel_bound(t, segments: int, n_rays: int, ray_bytes: int) -> dict:
+    """The least time the card could take for one launch: the larger of
+    its bytes (each ray's inputs read once and outputs written once, each
+    table read once) over the HBM rate and its operations (`segments`
+    ray segments of segment_ops each) over the float32 peak.  The walk
+    term is a lower bound: it counts the shallowest path, not the nodes
+    each ray visits."""
+    nbytes = n_rays * ray_bytes + table_bytes(t)
+    ops = segments * segment_ops(t)
+    b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return dict(bound_ms=max(b_ms, f_ms),
+                bound_by="bytes" if b_ms >= f_ms else "operations",
+                bytes=nbytes, operations=ops, segments=segments,
+                ops_per_segment=segment_ops(t))
+
+
+#: bytes per ray of a trace launch (o, d, pixel id in; radiance out) and
+#: of a segment launch (13 planes and the pixel id in, 13 planes out)
+TRACE_RAY_BYTES, SEGMENT_RAY_BYTES = 3 * 4 + 3 * 4 + 4 + 3 * 4, 13 * 4 * 2 + 4
+
+
+def icosahedron():
+    """The 20-triangle icosahedron, vertices on the unit sphere, flat
+    normals: the stand-in for the reference's icosahedron.ply."""
+    from parallelraytracing_tpu_torch.core.mesh import Mesh
+    v = np.asarray(ICO_V, np.float64)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    return Mesh(v.astype(np.float32), np.asarray(ICO_F, np.uint32).reshape(-1))
+
+
+def multimesh_scene(bunny, ico):
+    """bench.py's multimesh scene (multimesh_scene), through the port's
+    API: the bunny twice, the icosahedron three times in glass and twice
+    in red, over a 120x120 ground quad under an emissive sphere."""
+    from parallelraytracing_tpu_torch import Scene
+    s = Scene(preset=None)
+    body = s.add_lambertian((0.7, 0.6, 0.45))
+    s.add_mesh_instances(bunny, body, [((6, 6, 6), (0, 160, 0), (0, 6, 0)),
+                                       ((3, 3, 3), (0, 40, 0), (-12, 3, 6))])
+    glass = s.add_dielectric(1.5)
+    red = s.add_lambertian((0.8, 0.15, 0.1))
+    s.add_mesh_instances(ico, glass, [((2.5,) * 3, (0, 30 * i, 0),
+                                       (9 + 2.5 * i, 2.5, 8 - 3.0 * i))
+                                      for i in range(3)])
+    s.add_mesh_instances(ico, red, [((2,) * 3, (0, 15, 25), (-9, 2, 12)),
+                                    ((1.5,) * 3, (30, 0, 0), (4, 1.5, 14))])
+    s.add_quad(120, 120, s.add_lambertian((0.5, 0.5, 0.52)), None)
+    s.add_sphere(3.5, s.add_emissive((11, 11, 10)),
+                 ((1, 1, 1), (0, 0, 0), (14, 26, 14)))
+    return s
+
+
+def tlas_blas_scene(ico, baked: bool):
+    """bench.py's tlas_blas gate scene (ico_scene): 4 icosahedron
+    instances, or the same transforms baked with add_mesh."""
+    from parallelraytracing_tpu_torch import Scene
+    s = Scene(preset=None)
+    red = s.add_lambertian((0.8, 0.15, 0.1))
+    blue = s.add_lambertian((0.2, 0.3, 0.8))
+    tfs = [(red, ((2.0,) * 3, (0, 30 * i, 0), (-4 + 4 * i, 2, 0)))
+           for i in range(3)]
+    tfs.append((blue, ((1.5,) * 3, (0, 15, 25), (0, 2, 5))))
+    for mid, tf in tfs:
+        if baked:
+            s.add_mesh(ico, mid, tf)
+        else:
+            s.add_mesh_instances(ico, mid, [tf])
+    s.add_quad(60, 60, s.add_lambertian((0.5, 0.5, 0.52)), None)
+    return s
+
+
+def scene_renderer(engine: str, scene, eye, direction, width: int,
+                   height: int, **cfg_kw):
+    from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
+                                              create_renderer)
+    cfg = RenderConfig(width=width, height=height, **cfg_kw)
+    film = Film(width, height, "cuda")
+    r = create_renderer(engine, "cuda")
+    r.init(film, scene, Camera(np.asarray(eye, np.float64),
+                               np.asarray(direction, np.float64),
+                               float(width), float(height), 100.0), cfg)
+    return r, film
+
+
+def time_segments(r) -> list:
+    """Each segment kernel launch of frame 0 of wavefront_fused renderer r,
+    timed at its real queue (mean of 5 launches on the same input)."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        segmented_trace
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    segs = []
+
+    def timed(pix, state, scalars, *tabs, **kw):
+        segs.append(dict(bounces=kw["n_bounces"], live=int(scalars[2]),
+                         ms=cuda_ms(lambda: segment(pix, state, scalars,
+                                                    *tabs, **kw), 5)))
+        return segment(pix, state, scalars, *tabs, **kw)
+    segmented_trace(r._tables, *frame_inputs(r, 0), r.config,
+                    sort_rays=r.sort_rays, schedule=tuple(r.segment_lengths()),
+                    seg_fn=timed)
+    return segs
+
+
+def instanced_phases(ply: str, png_dir) -> dict:
+    """Phases 12-15: the instanced path.  Raises on any miss; returns the
+    records for the kernels line."""
+    import torch
+    from parallelraytracing_tpu_torch.core.mesh import load_ply
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        TRI_HEAVY, scene_triangles)
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    rec = {}
+
+    # 12. the scene, its tables and their memory
+    t0 = time.perf_counter()
+    bunny, ico = load_ply(ply), icosahedron()
+    scene = multimesh_scene(bunny, ico)
+    torch.cuda.reset_peak_memory_stats()
+    cmp_kw = dict(max_depth=INST_DEPTH, jitter=True)
+    f_r, f_film = scene_renderer("fused", scene, INST_EYE, INST_DIR, CMP_W,
+                                 CMP_H, **cmp_kw)
+    t = f_r._tables.inst
+    n_inst, n_unique = t.n_inst, t.itri.shape[1]
+    baked_tris = sum(hi - lo for lo, hi in t.ranges)
+    inst_bytes = sum(x.numel() * 4 for x in (t.itri, t.iacc, t.ibox, t.inst))
+    # baked flat tables: the (27, N) triangle table of every world copy and
+    # at least the trees of every copy (one per instance)
+    blas_nodes = {}
+    roots = t.inst[0].tolist()
+    ends = sorted(set(int(x) for x in roots)) + [t.iacc.shape[1]]
+    for a, b in zip(ends, ends[1:]):
+        blas_nodes[a] = b - a
+    baked_bytes = 27 * 4 * baked_tris + 8 * 4 * sum(blas_nodes[int(x)]
+                                                    for x in roots)
+    n_bunny = 20 * 4 ** MESH_LEVEL
+    if (n_inst, n_unique, baked_tris) != (7, n_bunny + 20, 2 * n_bunny + 100) \
+            or f_r._tables.tri_live or f_r._scene_data.tri_valid.any():
+        raise AssertionError(f"multimesh scene: {n_inst} instances, "
+                             f"{n_unique} unique / {baked_tris} baked "
+                             f"triangles")
+    phase("instances", f"bench multimesh scene: {n_inst} instances of "
+          f"{len(scene._inst_meshes)} unique meshes (level-{MESH_LEVEL} "
+          f"icosphere for the bunny, 20-triangle icosahedron), {n_unique} "
+          f"unique local triangles ({baked_tris} baked), built and packed in "
+          f"{time.perf_counter() - t0:.2f} s; itri {tuple(t.itri.shape)}, "
+          f"iacc {tuple(t.iacc.shape)}; instance tables {inst_bytes} bytes "
+          f"vs >= {baked_bytes} bytes baked (27 x {baked_tris} triangle "
+          f"columns + every copy's tree); base scene: no triangle")
+    rec["memory"] = dict(instance_table_bytes=inst_bytes,
+                         baked_table_bytes_at_least=baked_bytes,
+                         unique_triangles=n_unique, baked_triangles=baked_tris)
+
+    # 13. kernels vs plain at CMP_W x CMP_H, without and with NEE
+    cmp = {}
+    for nee in (False, True):
+        tag = f"instances{' nee' if nee else ''}"
+        r = f_r if not nee else scene_renderer(
+            "fused", scene, INST_EYE, INST_DIR, CMP_W, CMP_H, nee=True,
+            **cmp_kw)[0]
+        if r._tables.nee != nee:
+            raise AssertionError(f"{tag}: nee {r._tables.nee}")
+        trace_rec = kernel_vs_plain(r, tag)
+        w_r, _ = scene_renderer("wavefront_fused", scene, INST_EYE, INST_DIR,
+                                CMP_W, CMP_H, nee=nee, **cmp_kw)
+        k, p, s_ms, s_plain_ms = segment_both(w_r)
+        seg_rec = dict(share=ray_share(k.t(), p.t()),
+                       alive_equal=bool((k[12] == p[12]).all()),
+                       max_abs_err=float((k - p).abs().max()), ms=s_ms,
+                       plain_ms=s_plain_ms)
+        phase("segment-vs-plain", f"{tag} {CMP_W}x{CMP_H}, one 2-bounce "
+              f"segment: {seg_rec['share']:.6f} of slots within {RAY_ATOL} "
+              f"on all 13 planes, alive plane equal {seg_rec['alive_equal']}"
+              f", max abs err {seg_rec['max_abs_err']:.3e}; segment kernel "
+              f"{s_ms:.3f} ms, plain {s_plain_ms:.3f} ms")
+        if seg_rec["share"] < RAY_SHARE or not seg_rec["alive_equal"]:
+            raise AssertionError(f"{tag}: segment kernel disagrees with plain")
+        cmp["nee" if nee else "plain"] = dict(trace=trace_rec,
+                                              segment=seg_rec)
+        del k, p, w_r
+    rec["vs_plain"] = cmp
+    phase("instances", f"torch.cuda.max_memory_allocated() "
+          f"{torch.cuda.max_memory_allocated()} bytes (phases 12-13)")
+
+    # 14. the engines agree; instanced against baked
+    w_r, w_film = scene_renderer("wavefront_fused", scene, INST_EYE, INST_DIR,
+                                 CMP_W, CMP_H, **cmp_kw)
+    f_r, f_film = scene_renderer("fused", scene, INST_EYE, INST_DIR, CMP_W,
+                                 CMP_H, **cmp_kw)
+    for _ in range(AGREE_FRAMES):
+        w_r.progressive_render()
+        f_r.progressive_render()
+    diff = w_film.hdr_average() - f_film.hdr_average()
+    agree = dict(rmse=float(diff.pow(2).mean().sqrt()),
+                 max_abs=float(diff.abs().max()),
+                 schedule=w_r.segment_lengths())
+    phase("engines-agree", f"instances {CMP_W}x{CMP_H} depth {INST_DEPTH} "
+          f"x{AGREE_FRAMES} frames: wavefront_fused {tuple(agree['schedule'])}"
+          f" vs fused HDR RMSE {agree['rmse']:.3e}, max abs diff "
+          f"{agree['max_abs']!r}")
+    if not agree["rmse"] < FILM_RMSE:
+        raise AssertionError("instances: wavefront_fused and fused disagree")
+    rec["engines_agree"] = agree
+    del w_r, w_film, f_r, f_film, diff
+
+    films = {}
+    for baked in (False, True):
+        r, film = scene_renderer(
+            "fused", tlas_blas_scene(ico, baked), (0.0, 6.0, 16.0),
+            (0.0, -4.0, -16.0), TLAS_W, TLAS_H, max_depth=TLAS_DEPTH, seed=0,
+            samples_per_frame=TLAS_SPP)
+        if (r._tables.inst is None) != baked:
+            raise AssertionError("tlas_blas: the instanced render is baked")
+        for _ in range(TLAS_FRAMES):
+            r.progressive_render()
+        films[baked] = film.hdr_average()
+    tlas_rmse = float((films[False] - films[True]).pow(2).mean().sqrt())
+    phase("instanced-vs-baked", f"bench tlas_blas scene {TLAS_W}x{TLAS_H} "
+          f"depth {TLAS_DEPTH}, {TLAS_SPP} spp x {TLAS_FRAMES} frames through "
+          f"the trace kernel: instanced vs baked (add_mesh) HDR RMSE "
+          f"{tlas_rmse:.3e}, max abs diff "
+          f"{float((films[False] - films[True]).abs().max())!r}")
+    if not tlas_rmse < FILM_RMSE:
+        raise AssertionError("tlas_blas: instanced and baked films disagree")
+    rec["tlas_blas_rmse"] = tlas_rmse
+    del films
+
+    # 15. the instanced path at 1920x1080, depth 8: kernels on frame 0,
+    # then timed
+    paths = {}
+    for engine in ("wavefront_fused", "fused"):
+        for nee in (False, True):
+            tag = f"instances_{engine}{'_nee' if nee else ''}"
+            r, film = scene_renderer(engine, scene, INST_EYE, INST_DIR,
+                                     MAIN_W, MAIN_H, max_depth=INST_DEPTH,
+                                     jitter=True, nee=nee)
+            counts = depth_counts(r)
+            if engine == "fused":
+                inputs = frame_inputs(r, 0)
+                k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+                kern = dict(ms=k_ms, **kernel_bound(
+                    r._tables, sum(counts), MAIN_W * MAIN_H,
+                    TRACE_RAY_BYTES))
+                detail = f"trace kernel {k_ms:.3f} ms"
+                del inputs
+            else:
+                segs = time_segments(r)
+                depth0 = 0
+                for sg in segs:
+                    sg.update(kernel_bound(
+                        r._tables, sum(counts[depth0:depth0 + sg["bounces"]]),
+                        MAIN_W * MAIN_H, SEGMENT_RAY_BYTES))
+                    depth0 += sg["bounces"]
+                kern = dict(segments=segs)
+                detail = "segment kernels " + " + ".join(
+                    f"{sg['ms']:.3f}" for sg in segs) + " ms"
+            phase("instances-kernels", f"{tag} {MAIN_W}x{MAIN_H} depth "
+                  f"{INST_DEPTH} frame 0: {detail}; rays entering each "
+                  f"bounce {counts}")
+            p = timed_path(r, film, tag, png_dir)
+            p.update(spp64_wall_s=64.0 * p["ms_per_frame"] / 1000.0,
+                     schedule=(r.segment_lengths() if engine != "fused"
+                               else None), nee=nee, kernels=kern)
+            phase("timed", f"{tag}: bench spp64_wall_s "
+                  f"{p['spp64_wall_s']:.3f} s (64 x ms/frame)"
+                  + (f", schedule {tuple(p['schedule'])}" if p['schedule']
+                     else ""))
+            want = [2, INST_DEPTH - 2] \
+                if scene_triangles(scene) > TRI_HEAVY else [3, 3, 2]
+            if engine == "wavefront_fused" and p["schedule"] != want:
+                raise AssertionError(f"{tag}: schedule {p['schedule']}, "
+                                     f"want the JAX engine's {want}")
+            paths[tag] = p
+            del r, film
+    rec["paths"] = paths
+    phase("instances", f"torch.cuda.max_memory_allocated() "
+          f"{torch.cuda.max_memory_allocated()} bytes (phases 12-15)")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png-dir", default=None,
@@ -580,6 +966,8 @@ def main(argv=None) -> int:
               tri_live=main_r._tables.tri_live)
     kernel_ms = cuda_ms(lambda: trace(*args_t, **kw), 5)
     plain_ms = cuda_ms(lambda: trace_reference(*args_t, **kw), 1)
+    trace_bound = kernel_bound(main_r._tables, sum(depth_counts(main_r)),
+                               MAIN_W * MAIN_H, TRACE_RAY_BYTES)
     phase("kernel-vs-plain", f"main frame {MAIN_W}x{MAIN_H} depth "
           f"{MAIN_DEPTH}: {share_main:.6f} of rays within {RAY_ATOL}, max "
           f"abs err {max_abs_err:.3e}; trace kernel {kernel_ms:.3f} ms, "
@@ -680,6 +1068,9 @@ def main(argv=None) -> int:
                                 mw_r.config)
         per_frame = len(mw_r.segment_lengths())
         segs = check_segments(mw_r, "mesh")
+        seg_bound = kernel_bound(mw_r._tables,
+                                 sum(depth_counts(mw_r)[:segs[0]["bounces"]]),
+                                 MAIN_W * MAIN_H, SEGMENT_RAY_BYTES)
         for _ in range(WARMUP):
             mw_r.progressive_render()
         torch.cuda.synchronize()
@@ -810,42 +1201,63 @@ def main(argv=None) -> int:
         paths["D"] = timed_path(dm_r, dm_film, "path_D_mesh_nee", args.png_dir)
         del dm_r, dm_film
 
-    # 12. NEE is unbiased and lowers the error on the card
+        # 12-15. the instanced path
+        inst = instanced_phases(ply, args.png_dir)
+
+    # 16. NEE is unbiased and lowers the error on the card
     unbiased = nee_unbiased()
 
     print(smi)
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
-    trace_recs = list(nee_recs.values()) + [rr_rec]
-    seg_recs = segs + segs_c + [mesh_nee_seg]
+    inst_cmp = inst["vs_plain"].values()
+    trace_recs = list(nee_recs.values()) + [rr_rec] \
+        + [x["trace"] for x in inst_cmp]
+    seg_recs = segs + segs_c + [mesh_nee_seg] + [x["segment"] for x in inst_cmp]
+    bound_note = ("bound_ms: max(bytes / 3.35 TB/s, operations / 67 "
+                  "TFLOP/s) for the launch of ms, its walk term counting "
+                  "the shallowest root-to-leaf path per ray segment (a "
+                  "lower bound until collect_stats counts the real visits)")
+    inst_paths = inst.pop("paths")
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches,
          "max_abs_err": max([max_abs_err, mesh_main_err]
                             + [x["max_abs_err"] for x in trace_recs]),
          "ms": kernel_ms, "plain_ms": plain_ms,
+         "bound_ms": trace_bound["bound_ms"],
+         "bound_by": trace_bound["bound_by"], "library_ms": None,
+         "bound": {**trace_bound, "note": bound_note},
          "size": f"ms, plain_ms, launches: random_balls_large {MAIN_W}x"
                  f"{MAIN_H} depth {MAIN_DEPTH} without NEE, one frame "
                  f"(launches over its {TIMED} timed frames); max_abs_err over "
-                 f"every trace comparison of the run",
+                 f"every trace comparison of the run; library_ms null: no "
+                 f"single PyTorch call computes a path-traced frame",
          "mesh": {"launches": f_launches, "max_abs_err": mesh_main_err,
                   "ms": mesh_main_ms, "plain_ms": mesh_main_plain_ms,
                   "size": f"{n_tri}-triangle mesh {MAIN_W}x{MAIN_H} depth "
                           f"{MAIN_DEPTH}, one frame"},
          "nee": nee_recs, "rr": rr_rec, "nee_unbiased": unbiased,
-         "paths": {k: paths[k] for k in "AB"}},
+         "paths": {k: paths[k] for k in "AB"},
+         "instances": {**inst, "paths": {k: v for k, v in inst_paths.items()
+                                         if "_fused" in k and "wavefront" not in k}}},
         {"name": "segment", "route": "cuda", "source": SEG_SOURCE,
          "replaces": SEG_REPLACES, "launches": seg_launches,
          "max_abs_err": max([seg_err] + [x["max_abs_err"] for x in seg_recs]),
          "ms": seg0["ms"], "plain_ms": seg0["plain_ms"],
+         "bound_ms": seg_bound["bound_ms"], "bound_by": seg_bound["bound_by"],
+         "library_ms": None, "bound": {**seg_bound, "note": bound_note},
          "size": f"ms, plain_ms, launches: {n_tri}-triangle mesh {MAIN_W}x"
                  f"{MAIN_H} without NEE, frame 0's first segment "
                  f"({seg0['bounces']} bounces over {seg0['live']} slots; "
                  f"launches over its {TIMED} timed frames); max_abs_err over "
-                 f"every segment comparison of the run",
+                 f"every segment comparison of the run; library_ms null: no "
+                 f"single PyTorch call computes a path segment",
          "segments": segs, "nee_rr_segments": segs_c,
          "mesh_nee_segment": mesh_nee_seg,
-         "paths": {k: paths[k] for k in "CD"}}]}))
+         "paths": {k: paths[k] for k in "CD"},
+         "instances": {"paths": {k: v for k, v in inst_paths.items()
+                                 if "wavefront" in k}}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,7 @@ import sys
 import time
 
 #: engines of this port; "auto" picks by the scene's triangle count
-ENGINE_CHOICES = ("auto", "fused", "wavefront_fused")
+ENGINE_CHOICES = ("auto", "fused", "wavefront_fused", "tlas")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -39,7 +39,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="auto",
                    help="auto (wavefront_fused above 512 triangles, else "
                         "fused, as the JAX CLI picks) | fused | "
-                        "wavefront_fused.  On an H100 wavefront_fused is "
+                        "wavefront_fused | tlas (the fused engine, named "
+                        "for instanced scenes).  On an H100 wavefront_fused is "
                         "the slower engine on meshes: its default schedule "
                         "is the TPU's, not yet re-tuned for the GPU")
     p.add_argument("--device", default="cuda",
@@ -99,7 +100,8 @@ def main(argv=None) -> int:
 
     from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig, Scene,
                                               ScenePreset, create_renderer)
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import TRI_HEAVY
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        TRI_HEAVY, scene_triangles)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -124,7 +126,8 @@ def main(argv=None) -> int:
         default_look = (0.0, 0.0, 0.0)
     engine = args.engine
     if engine == "auto":
-        engine = "wavefront_fused" if len(scene._tri) > TRI_HEAVY else "fused"
+        engine = ("wavefront_fused" if scene_triangles(scene) > TRI_HEAVY
+                  else "fused")
     eye = np.asarray(args.eye if args.eye is not None else default_eye,
                      np.float64)
     look = np.asarray(args.look_at if args.look_at is not None

@@ -11,15 +11,17 @@ roughness, ior, emission}.
 The seven reference presets are replicated, including the mt19937(1337)
 layout of the RANDOM_BALLS variants, so ``build()`` gives the same arrays
 as the JAX package; ``add_mesh`` and ``ply_showcase_scene`` give its mesh
-scenes.  Sky models, textures and instances are not in this port yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+scenes, and ``add_mesh_instances`` its instanced ones (kept as records,
+world-baked only by ``build(bake_instances=True)``).  Sky models and
+textures are not in this port yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,6 +122,12 @@ class Scene:
         self._quad: List[Tuple] = []
         self._tri: List[Tuple] = []
 
+        # Instanced meshes: unique meshes and (mesh index, material, 4x4
+        # transform) records, not baked, so geometry memory stays
+        # proportional to unique meshes (ops/pack.pack_instance_tables).
+        self._inst_meshes: List = []
+        self._instances: List[Tuple[int, int, np.ndarray]] = []
+
         # Set per preset but never consumed by the reference backends
         # (they hardcode the sky); use_sky_intensity=True honors it.
         self.sky_light_intensity = 1.0
@@ -145,10 +153,6 @@ class Scene:
     def add_textured_lambertian(self, *args, **kw) -> int:
         raise NotImplementedError(
             f"Scene.add_textured_lambertian: {_SCENE_EXTENSIONS}")
-
-    def add_mesh_instances(self, *args, **kw) -> None:
-        raise NotImplementedError(
-            "Scene.add_mesh_instances: ROADMAP Queue 1 item 10 (instancing)")
 
     # ------------------------------------------------------------ materials
     def _add_material(self, mtype: int, albedo=(0, 0, 0), rough=0.0,
@@ -237,14 +241,52 @@ class Scene:
                 gn = gn / ln if ln > 0 else np.array([0.0, 1.0, 0.0])
                 self._tri.append((w[a], w[b], w[c], gn, gn, gn, material))
 
+    def add_mesh_instances(self, mesh, material: int,
+                           transforms: Sequence[TransformSpec]) -> None:
+        """Instance a mesh under several transforms (the role of the
+        reference's OptiX instance acceleration structure).  Stored as
+        {mesh, material, transform} records, not baked: the engines trace
+        them through the kernels' instance block, and only
+        ``build(bake_instances=True)`` world-bakes a copy.  A mesh is
+        kept once, by identity, however often it is instanced."""
+        for i, m in enumerate(self._inst_meshes):
+            if m is mesh:
+                mesh_i = i
+                break
+        else:
+            self._inst_meshes.append(mesh)
+            mesh_i = len(self._inst_meshes) - 1
+        for t in transforms:
+            self._instances.append((mesh_i, material, _resolve_transform(t)))
+
+    @property
+    def instances(self):
+        """The (mesh index, material id, 4x4 transform) records."""
+        return list(self._instances)
+
     @property
     def num_primitives(self) -> int:
-        return len(self._sph) + len(self._quad) + len(self._tri)
+        inst_tris = sum(len(np.asarray(self._inst_meshes[mi].indices)) // 3
+                        for mi, _, _ in self._instances)
+        return len(self._sph) + len(self._quad) + len(self._tri) + inst_tris
+
+    def _baked_instance_tris(self) -> List[Tuple]:
+        """The instances world-baked into triangle records, as add_mesh
+        bakes a mesh."""
+        saved, self._tri = self._tri, []
+        try:
+            for mesh_i, mat, m4 in self._instances:
+                self.add_mesh(self._inst_meshes[mesh_i], mat, m4)
+            return self._tri
+        finally:
+            self._tri = saved
 
     # ---------------------------------------------------------------- build
-    def build(self, device) -> SceneData:
+    def build(self, device, bake_instances: bool = True) -> SceneData:
         """Compile to SceneData on `device`.  float64 host values round to
-        float32 in numpy, as the JAX package's build does."""
+        float32 in numpy, as the JAX package's build does.  The instances
+        are world-baked after the other triangles unless
+        `bake_instances` is False (the engines' base scene)."""
         def f32(x):
             a = np.asarray(x, dtype=np.float64).astype(np.float32)
             return torch.from_numpy(a).to(device)
@@ -258,9 +300,11 @@ class Scene:
         sph = self._sph or [(np.array([0.0, 0.0, 0.0]), 0.0, 0)]
         quad = self._quad or [(np.zeros(3), np.array([1.0, 0, 0]),
                                np.array([0, 0, 1.0]), np.array([0, 1.0, 0]), 0)]
-        tri = self._tri or [(np.zeros(3), np.zeros(3), np.zeros(3),
-                             np.array([0, 1.0, 0]), np.array([0, 1.0, 0]),
-                             np.array([0, 1.0, 0]), 0)]
+        tris = self._tri + (self._baked_instance_tris()
+                            if bake_instances and self._instances else [])
+        tri = tris or [(np.zeros(3), np.zeros(3), np.zeros(3),
+                        np.array([0, 1.0, 0]), np.array([0, 1.0, 0]),
+                        np.array([0, 1.0, 0]), 0)]
         if not self._mat_type:
             self._add_material(MAT_LAMBERTIAN, albedo=(0.5, 0.5, 0.5))
 
@@ -284,7 +328,7 @@ class Scene:
             tri_n1=f32([t[4] for t in tri]),
             tri_n2=f32([t[5] for t in tri]),
             tri_mat=i32([t[6] for t in tri]),
-            tri_valid=flag([True] * len(self._tri) or [False]),
+            tri_valid=flag([True] * len(tris) or [False]),
             mat_type=i32(self._mat_type),
             mat_albedo=f32(self._mat_albedo),
             mat_rough=f32(self._mat_rough),

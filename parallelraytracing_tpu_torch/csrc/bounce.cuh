@@ -1,5 +1,6 @@
 // One bounce of one path on Hopper (sm_90a): the closest-hit fold over the
-// sphere, quad and triangle kinds and the shading step after it.  Shared
+// sphere, quad and triangle kinds and the instanced meshes, and the
+// shading step after it.  Shared
 // by the fused trace kernel (trace.cu: every bounce of a ray in one
 // launch) and the segment kernel (segment.cu: n bounces over a compacted
 // queue), so the two run the same arithmetic and render the same bits.
@@ -9,7 +10,9 @@
 // quad and triangle closest-hit bodies (sph_body, quad_body,
 // make_tri_body), the three per-kind walks of `clustered` (threaded SAH
 // tree, linear cluster scan behind a root pretest, plain loop for tiny
-// kinds), the deferred shading normal, sky, emission, next-event
+// kinds), the instance block (inst_body: a linear scan of the instances'
+// world boxes, each entered instance's tree walked by its mesh-local
+// ray), the deferred shading normal, sky, emission, next-event
 // estimation with its any-hit shadow walk, the branchless Lambertian /
 // metal / dielectric block, Russian roulette and the PCG streams.
 //
@@ -36,7 +39,8 @@
 #include <stdint.h>
 
 // The scene as both kernels read it; ops/_build.py mirrors this layout in
-// ctypes.  n_tri is 0 when the triangle kind holds only never-hit pads.
+// ctypes and checks it against prt_scene_size() at load.  n_tri is 0 when
+// the triangle kind holds only never-hit pads, n_inst 0 without instances.
 struct PrtScene {
   const float* sph;     // (6, n_sph): cx cy cz r2 mid ord
   const float* sph_cl;  // (8, M) tree or (6, n_cl + 1) linear
@@ -57,6 +61,15 @@ struct PrtScene {
   const float* lights;  // (28, n_lights): ops/pack.pack_lights_table
   int n_lights;         // 0: NEE off
   int rr_depth;         // Russian roulette from this absolute depth; 0: off
+  // Instances (ops/pack.pack_instance_tables): the unique meshes' local
+  // triangles, their concatenated threaded trees, the instances' world
+  // boxes and records [root, world->local 3x4, normal 3x3, mid, ord base].
+  const float* itri;  // (25, n_itri): ng(3) p0ng e1(3) e2(3) e2xp0(3)
+                      // p0xe1(3) n0(3) n1(3) n2(3)
+  const float* iacc;  // (8, n_iacc)
+  const float* ibox;  // (6, n_inst)
+  const float* inst;  // (24, n_inst)
+  int n_itri, n_iacc, n_inst;
 };
 
 namespace {
@@ -264,14 +277,13 @@ __device__ __forceinline__ void quad_test(const PrtScene& S, int j,
 
 // Moller-Trumbore through triple products (pallas_trace.py make_tri_body):
 // div = -d.ng, t = (o.ng - p0.ng) / div, b1 = (w.e2 - d.(e2 x p0)) / div,
-// b2 = (-w.e1 - d.(p0 x e1)) / div with w = o x d.  The winner carries the
-// raw barycentric blend of the vertex normals and the front flag
-// !(d.n_interp > 0); the normal is normalised once, after the fold.
-template <class Carry>
-__device__ __forceinline__ void tri_test(const PrtScene& S, int j,
-                                         const Ray& r, Carry& h) {
-  const float* __restrict__ q = S.tri;
-  const int n = S.n_tri;
+// b2 = (-w.e1 - d.(p0 x e1)) / div with w = o x d, over rows 0-15 of
+// column j of an (rows, n) table: the flat `tri` table and the instanced
+// `itri` table share that layout.
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ q, int n,
+                                        int j, const Ray& r, float t_min,
+                                        float t_cap, float& t, float& b1,
+                                        float& b2) {
   float ngx = ld(q, j), ngy = ld(q, n + j), ngz = ld(q, 2 * n + j);
   float p0ng = ld(q, 3 * n + j);
   float e1x = ld(q, 4 * n + j), e1y = ld(q, 5 * n + j), e1z = ld(q, 6 * n + j);
@@ -283,14 +295,25 @@ __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
   float div = -(r.dx * ngx + r.dy * ngy + r.dz * ngz);
   bool div_ok = div != 0.0f;
   float inv = div_ok ? 1.0f / div : 0.0f;
-  float t = (r.ox * ngx + r.oy * ngy + r.oz * ngz - p0ng) * inv;
-  float b1 = ((r.wx * e2x + r.wy * e2y + r.wz * e2z)
-              - (r.dx * xpx + r.dy * xpy + r.dz * xpz)) * inv;
-  float b2 = (-(r.wx * e1x + r.wy * e1y + r.wz * e1z)
-              - (r.dx * pex + r.dy * pey + r.dz * pez)) * inv;
-  bool ok = div_ok && (t >= S.t_min) && (b1 >= 0.0f) && (b2 >= 0.0f)
-      && (b1 + b2 <= 1.0f) && (t <= S.t_cap);
-  if (!ok) return;
+  t = (r.ox * ngx + r.oy * ngy + r.oz * ngz - p0ng) * inv;
+  b1 = ((r.wx * e2x + r.wy * e2y + r.wz * e2z)
+        - (r.dx * xpx + r.dy * xpy + r.dz * xpz)) * inv;
+  b2 = (-(r.wx * e1x + r.wy * e1y + r.wz * e1z)
+        - (r.dx * pex + r.dy * pey + r.dz * pez)) * inv;
+  return div_ok && (t >= t_min) && (b1 >= 0.0f) && (b2 >= 0.0f)
+      && (b1 + b2 <= 1.0f) && (t <= t_cap);
+}
+
+// A flat triangle: the winner carries the raw barycentric blend of the
+// vertex normals and the front flag !(d.n_interp > 0); the normal is
+// normalised once, after the fold.
+template <class Carry>
+__device__ __forceinline__ void tri_test(const PrtScene& S, int j,
+                                         const Ray& r, Carry& h) {
+  const float* __restrict__ q = S.tri;
+  const int n = S.n_tri;
+  float t, b1, b2;
+  if (!tri_hit(q, n, j, r, S.t_min, S.t_cap, t, b1, b2)) return;
   float ordv = ld(q, 17 * n + j);
   if (!beats(t, ordv, h)) return;
   if constexpr (Carry::kAnyHit) {
@@ -305,6 +328,47 @@ __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
         + b2 * ld(q, 26 * n + j);
     bool back = (r.dx * inx + r.dy * iny + r.dz * inz) > 0.0f;
     take(S, t, ordv, ld(q, 16 * n + j), inx, iny, inz, !back, 0, h);
+  }
+}
+
+// An instanced triangle, itri column j of instance k (pallas_trace.py
+// inst_body's itri_body): the hit test in mesh-local space with the
+// instance's local ray `lr`, whose t is world t.  The winner carries the
+// world normal (rows 13-21 of the instance record, the inverse transpose,
+// applied to the interpolated local normal), the front flag
+// !(world d . that normal > 0), the instance's material (row 22) and the
+// ordinal row 23 + j; the shadow ray's any-hit carry reads only t and the
+// ordinal.
+template <class Carry>
+__device__ __forceinline__ void itri_test(const PrtScene& S, int k, int j,
+                                          const Ray& lr, const Ray& r,
+                                          Carry& h) {
+  const float* __restrict__ q = S.itri;
+  const int n = S.n_itri;
+  float t, b1, b2;
+  if (!tri_hit(q, n, j, lr, S.t_min, S.t_cap, t, b1, b2)) return;
+  const float* __restrict__ I = S.inst + k;
+  const int ni = S.n_inst;
+  float ordv = ld(I, 23 * ni) + (float)j;
+  if (!beats(t, ordv, h)) return;
+  if constexpr (Carry::kAnyHit) {
+    h.t = -kBig;
+  } else {
+    float b0 = 1.0f - b1 - b2;
+    float inx = b0 * ld(q, 16 * n + j) + b1 * ld(q, 19 * n + j)
+        + b2 * ld(q, 22 * n + j);
+    float iny = b0 * ld(q, 17 * n + j) + b1 * ld(q, 20 * n + j)
+        + b2 * ld(q, 23 * n + j);
+    float inz = b0 * ld(q, 18 * n + j) + b1 * ld(q, 21 * n + j)
+        + b2 * ld(q, 24 * n + j);
+    float wnx = ld(I, 13 * ni) * inx + ld(I, 14 * ni) * iny
+        + ld(I, 15 * ni) * inz;
+    float wny = ld(I, 16 * ni) * inx + ld(I, 17 * ni) * iny
+        + ld(I, 18 * ni) * inz;
+    float wnz = ld(I, 19 * ni) * inx + ld(I, 20 * ni) * iny
+        + ld(I, 21 * ni) * inz;
+    bool back = (r.dx * wnx + r.dy * wny + r.dz * wnz) > 0.0f;
+    take(S, t, ordv, ld(I, 22 * ni), wnx, wny, wnz, !back, 0, h);
   }
 }
 
@@ -365,8 +429,59 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
   }
 }
 
-// The fold of every kind; kTri adds the triangle kind.
-template <bool kTri, class Carry>
+// The instance block (pallas_trace.py inst_body): a linear scan of the
+// instances' world boxes (instances are few) at the carry's t; on entry
+// the world ray goes into the mesh's space through the instance's
+// world->local affine (rows 1-12), its direction NOT renormalised, so
+// local t is world t and the carry's t bounds the local walk unchanged;
+// then the threaded walk of the mesh's tree over iacc from the
+// instance's root (row 0) to a -1 escape link, leaves testing itri
+// columns lo .. lo + span.  One thread walks one ray, so an instance a
+// ray misses costs one box test.
+template <class Carry>
+__device__ void fold_instances(const PrtScene& S, const Ray& r, Carry& h) {
+  const int ni = S.n_inst;
+  const int na = S.n_iacc;
+  const float* __restrict__ acc = S.iacc;
+  for (int k = 0; k < ni; ++k) {
+    if (!slab_hit(S.ibox, ni, k, r, S.t_min, h.t)) continue;
+    const float* __restrict__ I = S.inst + k;
+    auto g = [&](int row) { return ld(I, row * ni); };
+    Ray lr;
+    lr.ox = g(1) * r.ox + g(2) * r.oy + g(3) * r.oz + g(4);
+    lr.oy = g(5) * r.ox + g(6) * r.oy + g(7) * r.oz + g(8);
+    lr.oz = g(9) * r.ox + g(10) * r.oy + g(11) * r.oz + g(12);
+    lr.dx = g(1) * r.dx + g(2) * r.dy + g(3) * r.dz;
+    lr.dy = g(5) * r.dx + g(6) * r.dy + g(7) * r.dz;
+    lr.dz = g(9) * r.dx + g(10) * r.dy + g(11) * r.dz;
+    lr.ix = safe_inv(lr.dx);
+    lr.iy = safe_inv(lr.dy);
+    lr.iz = safe_inv(lr.dz);
+    lr.wx = lr.oy * lr.dz - lr.oz * lr.dy;
+    lr.wy = lr.oz * lr.dx - lr.ox * lr.dz;
+    lr.wz = lr.ox * lr.dy - lr.oy * lr.dx;
+    int node = (int)g(0);
+    while (node >= 0) {
+      bool enter = slab_hit(acc, na, node, lr, S.t_min, h.t);
+      int miss = (int)ld(acc, 6 * na + node);
+      float lo_f = ld(acc, 7 * na + node);
+      bool leaf = lo_f >= 0.0f;
+      if (enter && leaf) {
+        int enc = (int)lo_f;
+        int lo = enc >> 6;
+        for (int j = lo; j < lo + (enc & 63) && !occluded(h); ++j) {
+          itri_test(S, k, j, lr, r, h);
+        }
+        if (occluded(h)) return;
+      }
+      node = (enter && !leaf) ? node + 1 : miss;
+    }
+  }
+}
+
+// The fold of every kind; kTri adds the triangle kind, kInst the
+// instance block.
+template <bool kTri, bool kInst, class Carry>
 __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
                                            Carry& h) {
   fold_kind<kSphere>(S, S.n_sph, S.sph_cl, S.sph_cl_rows, S.sph_cl_cols,
@@ -377,6 +492,9 @@ __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
   if (kTri && !occluded(h)) {
     fold_kind<kTriangle>(S, S.n_tri, S.tri_cl, S.tri_cl_rows, S.tri_cl_cols,
                          S.tri_csize, r, h);
+  }
+  if (kInst && !occluded(h)) {
+    fold_instances(S, r, h);
   }
 }
 
@@ -390,8 +508,9 @@ __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
 // is computed by the light's own primitive test from the rows 18-27 of
 // the light table, so it equals the t the closest-hit fold would give the
 // light, and the equal-t tie rule decides coplanar geometry as the
-// closest-hit formulation does.  Reads the incoming throughput.
-template <bool kTri>
+// closest-hit formulation does.  The shadow walk runs through the
+// instances too (kInst).  Reads the incoming throughput.
+template <bool kTri, bool kInst>
 __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
                                            float px, float py, float pz,
                                            float nx, float ny, float nz,
@@ -477,7 +596,7 @@ __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
         safe_inv(wiz), py * wiz - pz * wiy, pz * wix - px * wiz,
         px * wiy - py * wix};
   Occluder oc{sh_t, row(1)};
-  fold_scene<kTri>(S, r, oc);
+  fold_scene<kTri, kInst>(S, r, oc);
   if (occluded(oc)) return;
   const float w_l = cos_s / (kPi * fmaxf(pdf, 1e-12f));
   s.rr = s.rr + s.tr * c0 * w_l * row(15);
@@ -495,12 +614,13 @@ __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
 // (unless roulette ended it after the scatter), and only its radiance
 // changes.  kTri is whether the scene has live triangles (S.n_tri > 0),
 // kNee whether NEE is on (S.n_lights > 0), kRR whether Russian roulette
-// is (S.rr_depth > 0): the kernels are instantiated each way
+// is (S.rr_depth > 0), kInst whether the scene has instances
+// (S.n_inst > 0): the kernels are instantiated each way
 // (kernel_variant), so a sphere scene without NEE or roulette runs code
-// without the triangle fold, the NEE block and the roulette, each of
-// which costs every ray registers or spills.  Forced inline, so each
-// kernel's bounce loop compiles as one body.
-template <bool kTri, bool kNee, bool kRR>
+// without the triangle fold, the instance block, the NEE block and the
+// roulette, each of which costs every ray registers or spills.  Forced
+// inline, so each kernel's bounce loop compiles as one body.
+template <bool kTri, bool kNee, bool kRR, bool kInst>
 __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
                                       int depth, int alive_in, PathState& s) {
   const float ox = s.ox, oy = s.oy, oz = s.oz;
@@ -509,7 +629,7 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
         oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
   Hit h{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (float)(1 << 24),
         0, 0, 0};
-  fold_scene<kTri>(S, r, h);
+  fold_scene<kTri, kInst>(S, r, h);
 
   if (!(h.t < kBig)) {  // miss: sky * throughput, the path ends
     s.rr = s.rr + s.tr * S.sky0;
@@ -543,7 +663,8 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   float nz = nrz * sgn_n;
 
   if (kNee && h.mtype == kLambertian) {
-    nee_direct<kTri>(S, rng_d, px, py, pz, nx, ny, nz, h.c0, h.c1, h.c2, s);
+    nee_direct<kTri, kInst>(S, rng_d, px, py, pz, nx, ny, nz, h.c0, h.c1,
+                            h.c2, s);
   }
 
   float u1 = uniform01(rng_d, 1u);
@@ -632,10 +753,11 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   return (kNee && alive && h.mtype == kLambertian) ? 2 : alive;
 }
 
-// The instantiation <kTri, kNee, kRR> a scene needs, as an index
-// kTri * 4 + kNee * 2 + kRR into a kernel's table of eight.
+// The instantiation <kTri, kNee, kRR, kInst> a scene needs, as an index
+// kInst * 8 + kTri * 4 + kNee * 2 + kRR into a kernel's table of 16.
 inline int kernel_variant(const PrtScene& S) {
-  return (S.n_tri > 0) * 4 + (S.n_lights > 0) * 2 + (S.rr_depth > 0);
+  return (S.n_inst > 0) * 8 + (S.n_tri > 0) * 4 + (S.n_lights > 0) * 2
+      + (S.rr_depth > 0);
 }
 
 }  // namespace

@@ -3,7 +3,7 @@
 //
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_segment (the
 // kernel body _make_segment_kernel.kernel) on the same subset as the trace
-// kernel: the bounce is bounce.cuh, shared with trace.cu, so a path
+// kernel, instances included: the bounce is bounce.cuh, shared with trace.cu, so a path
 // traced in segments gets the same bits as one traced in a single launch.
 //
 // The state is 13 planes of R floats, (13, R) row-major: origin (3),
@@ -36,7 +36,7 @@ struct SegmentArgs {
   int n_bounces;
 };
 
-template <bool kTri, bool kNee, bool kRR>
+template <bool kTri, bool kNee, bool kRR, bool kInst>
 __global__ void __launch_bounds__(kThreads)
     segment_kernel(const PrtScene S, const SegmentArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -60,8 +60,8 @@ __global__ void __launch_bounds__(kThreads)
   int alive = alive_in > 1.5f ? 2 : 1;
   for (int b = 0; b < A.n_bounces && alive; ++b) {
     const int depth = depth0 + b;
-    alive = bounce<kTri, kNee, kRR>(S, rng_base + (uint32_t)depth * kDepthStep,
-                                    depth, alive, s);
+    alive = bounce<kTri, kNee, kRR, kInst>(
+        S, rng_base + (uint32_t)depth * kDepthStep, depth, alive, s);
   }
   out[0] = s.ox;
   out[R] = s.oy;
@@ -80,13 +80,29 @@ __global__ void __launch_bounds__(kThreads)
 
 using SegmentKernel = void (*)(const PrtScene, const SegmentArgs);
 // Indexed by kernel_variant().
-const SegmentKernel kSegmentKernels[8] = {
-    segment_kernel<false, false, false>, segment_kernel<false, false, true>,
-    segment_kernel<false, true, false>,  segment_kernel<false, true, true>,
-    segment_kernel<true, false, false>,  segment_kernel<true, false, true>,
-    segment_kernel<true, true, false>,   segment_kernel<true, true, true>};
+const SegmentKernel kSegmentKernels[16] = {
+    segment_kernel<false, false, false, false>,
+    segment_kernel<false, false, true, false>,
+    segment_kernel<false, true, false, false>,
+    segment_kernel<false, true, true, false>,
+    segment_kernel<true, false, false, false>,
+    segment_kernel<true, false, true, false>,
+    segment_kernel<true, true, false, false>,
+    segment_kernel<true, true, true, false>,
+    segment_kernel<false, false, false, true>,
+    segment_kernel<false, false, true, true>,
+    segment_kernel<false, true, false, true>,
+    segment_kernel<false, true, true, true>,
+    segment_kernel<true, false, false, true>,
+    segment_kernel<true, false, true, true>,
+    segment_kernel<true, true, false, true>,
+    segment_kernel<true, true, true, true>};
 
 }  // namespace
+
+// sizeof(PrtScene) as this library was built; ops/_build.py compares it
+// with its ctypes mirror at load.
+extern "C" int prt_scene_size() { return (int)sizeof(PrtScene); }
 
 // Launch on `stream` (PyTorch's current stream) without synchronising.
 // Returns cudaGetLastError() after the launch: 0 when it was accepted.

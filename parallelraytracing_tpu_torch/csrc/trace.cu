@@ -4,17 +4,17 @@
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_trace (the
 // kernel body _make_trace_kernel.kernel driving _make_bounce_step) on its
 // constant-sky, untextured subset; the bounce itself (closest-hit fold
-// over spheres, quads and triangles, shading, NEE and Russian roulette) is
-// bounce.cuh, shared with the segment kernel.  Textures, instances, the
-// directional sky, the stream path and the straggler-tail view are
-// refused by the Python wrapper (ops/trace.py) before a launch.
+// over spheres, quads, triangles and instanced meshes, shading, NEE and
+// Russian roulette) is bounce.cuh, shared with the segment kernel.
+// Textures, the directional sky, the stream path and the straggler-tail
+// view are refused by the Python wrapper (ops/trace.py) before a launch.
 //
 // What bounds it on the H100: not FLOPs and not HBM bandwidth.  A ray
 // reads the 7 values of its input once and writes 3; everything else is
 // the walk: divergent per-ray tree walks (threads of a warp sit in
 // different nodes and leaves after the first bounce) and dependent loads
-// of table columns (6-27 floats per primitive, 8 per node) that the
-// L1/L2 caches serve.  The ray state lives in registers for the whole
+// of table columns (6-27 floats per primitive, 8 per node, 24 per entered
+// instance) that the L1/L2 caches serve.  The ray state lives in registers for the whole
 // bounce loop (no memory round trip between bounces, the TPU kernel's key
 // property), and a thread exits as soon as its ray dies.  The TPU's
 // bounce-0 frustum pretest (FRUSTUM0) only gates its lockstep tile test
@@ -27,8 +27,8 @@
 namespace {
 
 constexpr int kThreads = 128;
-// Blocks per SM the plain sphere instantiation (no triangles, NEE or
-// roulette) is built for: 9 x 128 threads caps it at 56 registers, the
+// Blocks per SM the plain sphere instantiation (no triangles, instances,
+// NEE or roulette) is built for: 9 x 128 threads caps it at 56 registers, the
 // count it had before NEE and roulette joined the bounce.
 constexpr int kSphereMinBlocks = 9;
 
@@ -42,9 +42,9 @@ struct TraceArgs {
   int max_depth;
 };
 
-template <bool kTri, bool kNee, bool kRR>
-__global__ void __launch_bounds__(kThreads,
-                                  kTri || kNee || kRR ? 1 : kSphereMinBlocks)
+template <bool kTri, bool kNee, bool kRR, bool kInst>
+__global__ void __launch_bounds__(kThreads, kTri || kNee || kRR || kInst
+                                                ? 1 : kSphereMinBlocks)
     trace_kernel(const PrtScene S, const TraceArgs A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.n_rays) return;
@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(kThreads,
   // The alive value carries NEE's no-emit mark (2) from bounce to bounce.
   int alive = 1;
   for (int depth = 0; depth < A.max_depth && alive; ++depth) {
-    alive = bounce<kTri, kNee, kRR>(S, rng_base + (uint32_t)depth * kDepthStep,
-                                    depth, alive, s);
+    alive = bounce<kTri, kNee, kRR, kInst>(
+        S, rng_base + (uint32_t)depth * kDepthStep, depth, alive, s);
   }
   A.out[3 * i] = s.rr;
   A.out[3 * i + 1] = s.rg;
@@ -66,13 +66,29 @@ __global__ void __launch_bounds__(kThreads,
 
 using TraceKernel = void (*)(const PrtScene, const TraceArgs);
 // Indexed by kernel_variant().
-const TraceKernel kTraceKernels[8] = {
-    trace_kernel<false, false, false>, trace_kernel<false, false, true>,
-    trace_kernel<false, true, false>,  trace_kernel<false, true, true>,
-    trace_kernel<true, false, false>,  trace_kernel<true, false, true>,
-    trace_kernel<true, true, false>,   trace_kernel<true, true, true>};
+const TraceKernel kTraceKernels[16] = {
+    trace_kernel<false, false, false, false>,
+    trace_kernel<false, false, true, false>,
+    trace_kernel<false, true, false, false>,
+    trace_kernel<false, true, true, false>,
+    trace_kernel<true, false, false, false>,
+    trace_kernel<true, false, true, false>,
+    trace_kernel<true, true, false, false>,
+    trace_kernel<true, true, true, false>,
+    trace_kernel<false, false, false, true>,
+    trace_kernel<false, false, true, true>,
+    trace_kernel<false, true, false, true>,
+    trace_kernel<false, true, true, true>,
+    trace_kernel<true, false, false, true>,
+    trace_kernel<true, false, true, true>,
+    trace_kernel<true, true, false, true>,
+    trace_kernel<true, true, true, true>};
 
 }  // namespace
+
+// sizeof(PrtScene) as this library was built; ops/_build.py compares it
+// with its ctypes mirror at load.
+extern "C" int prt_scene_size() { return (int)sizeof(PrtScene); }
 
 // Launch on `stream` (PyTorch's current stream) without synchronising.
 // Returns cudaGetLastError() after the launch: 0 when it was accepted.

@@ -1,21 +1,41 @@
 """Scene tables for the fused engine.
 
 The counterpart of ``parallelraytracing_tpu/engines/tables.py``: the
-packed per-kind tables, acceleration tables, material table and light
-table of ops/pack.py as float32 tensors on one device, plus the host-side
-facts the trace needs (the constant sky, whether any triangle can be hit,
-whether NEE runs).  The TPU package's SMEM/VMEM placement planning has no
+packed per-kind tables, acceleration tables, material table, light
+table and, for a scene with instances, the four instance tables of
+ops/pack.py as float32 tensors on one device, plus the host-side facts
+the trace needs (the constant sky, whether any triangle can be hit,
+whether NEE runs, each instance's triangle run).  The TPU package's
+SMEM/VMEM placement planning and its hot/cold table splits have no
 Hopper analogue: every table is plain read-only device memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from parallelraytracing_tpu_torch.config import RenderConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class InstanceTables:
+    """The instance block's tables (ops/pack.pack_instance_tables) on one
+    device, and the host facts the plain versions need."""
+    itri: torch.Tensor     # (25, Nt) unique meshes' local triangles
+    iacc: torch.Tensor     # (8, Mb) their concatenated threaded trees
+    ibox: torch.Tensor     # (6, Ni) instance world boxes
+    inst: torch.Tensor     # (24, Ni) instance records
+    #: each instance's run of itri columns, ((lo, hi), ...)
+    #: (ops/pack.instance_ranges): the plain versions test an instance
+    #: against its own mesh's triangles only
+    ranges: Tuple[Tuple[int, int], ...]
+
+    @property
+    def n_inst(self) -> int:
+        return int(self.inst.shape[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +58,8 @@ class SceneTables:
     #: the scene box as ((lo xyz), (1 / extent xyz)): the frame of
     #: wavefront_fused's origin-Morton sort key (ops/pack.scene_bbox)
     bb: Tuple[Tuple[float, float, float], Tuple[float, float, float]]
+    #: the instance tables; None for a scene without instances
+    inst: Optional[InstanceTables] = None
 
 
 def build_scene_tables(scene, device, nee: bool = False):
@@ -45,18 +67,34 @@ def build_scene_tables(scene, device, nee: bool = False):
 
     Returns (SceneTables, SceneData).  `nee` is the config's request: the
     tables run NEE only when the scene has a light, as in the JAX
-    package, so a scene without one renders without it."""
+    package, so a scene without one renders without it.  A scene with
+    instances packs its unbaked base scene (SceneData without the
+    instanced triangles) and the instance tables, whose ordinals start
+    after every column of the flat kinds; lights come from the base scene
+    (instanced meshes are not emitters NEE samples)."""
     from parallelraytracing_tpu_torch.convert import tables_from_numpy
     from parallelraytracing_tpu_torch.ops.nee import extract_lights
-    from parallelraytracing_tpu_torch.ops.pack import (pack_lights_table,
+    from parallelraytracing_tpu_torch.ops.pack import (pack_instance_tables,
+                                                       pack_lights_table,
                                                        pack_scene_tables,
                                                        scene_bbox)
-    scene_data = scene.build(device)
-    host = scene_data.numpy()
+    inst = None
+    if scene.instances:
+        scene_data = scene.build(device, bake_instances=False)
+        host = scene_data.numpy()
+        ord_base = float(host["sph_valid"].shape[0]
+                         + host["quad_valid"].shape[0]
+                         + host["tri_valid"].shape[0])
+        inst = pack_instance_tables(scene._inst_meshes, scene.instances,
+                                    ord_base)
+    else:
+        scene_data = scene.build(device)
+        host = scene_data.numpy()
     tables = tables_from_numpy(
-        *pack_scene_tables(host), host["sky"], device, bb=scene_bbox(host),
+        *pack_scene_tables(host), host["sky"], device,
+        bb=scene_bbox(host, None if inst is None else inst[2]),
         lights=pack_lights_table(host),
-        nee=nee and extract_lights(host) is not None)
+        nee=nee and extract_lights(host) is not None, inst=inst)
     return tables, scene_data
 
 
@@ -68,4 +106,4 @@ def trace_tables(t: SceneTables, o, d, pix, seed: int,
                  t.tri_cl, t.mats, max_depth=cfg.max_depth, t_min=cfg.t_min,
                  t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
                  rr_depth=cfg.russian_roulette_depth, nee=t.nee,
-                 lights=t.lights)
+                 lights=t.lights, inst=t.inst)

@@ -44,6 +44,13 @@ SORT_MODES = ("octant", "origin", "")
 TRI_HEAVY = 512
 
 
+def scene_triangles(scene) -> int:
+    """The triangle count that routes a scene: its flat triangles plus
+    one copy of each unique instanced mesh (the JAX engine's count)."""
+    return len(scene._tri) + sum(len(m.indices) // 3
+                                 for m in scene._inst_meshes)
+
+
 def _part1by2(v: torch.Tensor) -> torch.Tensor:
     """Spread the low 10 bits of int32 v over 30 (x -> x00 interleave)."""
     v = v & 0x3FF
@@ -111,7 +118,7 @@ def _run_segment(tables, pix, state, scalars, n_bounces: int,
                   t.quad_cl, t.tri_cl, t.mats, n_bounces=n_bounces,
                   t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
                   tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
-                  nee=t.nee, lights=t.lights)
+                  nee=t.nee, lights=t.lights, inst=t.inst)
 
 
 def _initial_state(o, d) -> torch.Tensor:
@@ -158,21 +165,21 @@ def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
     return rad.index_copy_(0, pix.long(), state[9:12].t())
 
 
-def count_frame_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
-                     seg_fn=None) -> int:
-    """Exact ray count of one frame: the camera rays plus the rays alive
-    entering every later bounce, from one-bounce segments over the same
-    pixel-keyed streams the engines trace (compacted, never re-sorted), so
-    paths that Russian roulette ends count as the engines trace them.
-    NEE's shadow rays are not counted.  The numerator of Mrays/s."""
+def count_depth_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
+                     seg_fn=None) -> list:
+    """The rays entering each bounce of one frame (the camera rays first),
+    from one-bounce segments over the same pixel-keyed streams the engines
+    trace (compacted, never re-sorted), so paths that Russian roulette
+    ends count as the engines trace them.  NEE's shadow rays are not
+    counted."""
     seg_fn = seg_fn or segment
     r = o.shape[0]
     dev = o.device
     state = _initial_state(o, d)
     count = torch.full((1,), r, dtype=torch.int32, device=dev)
-    total = torch.zeros((1,), dtype=torch.int64, device=dev)
+    counts = []
     for depth in range(cfg.max_depth):
-        total += count
+        counts.append(count)
         state = _run_segment(tables, pix, state, _scalars(seed, depth, count),
                              1, cfg, seg_fn)
         alive = state[12] > 0.0
@@ -182,7 +189,15 @@ def count_frame_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
         count = alive.sum(dtype=torch.int32).reshape(1)
         state = state.index_select(1, order)
         pix = pix.index_select(0, order)
-    return int(total.item())
+    return [int(c) for c in torch.cat(counts).tolist()]
+
+
+def count_frame_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
+                     seg_fn=None) -> int:
+    """Exact ray count of one frame: the camera rays plus the rays alive
+    entering every later bounce (``count_depth_rays``).  The numerator of
+    Mrays/s."""
+    return sum(count_depth_rays(tables, o, d, pix, seed, cfg, seg_fn))
 
 
 @register_engine
@@ -205,14 +220,15 @@ class WavefrontFusedRenderer(Renderer):
         if cfg.qmc:
             raise NotImplementedError(
                 "QMC camera sampling: ROADMAP Queue 1 item 11 (not ported yet)")
-        # The JAX package's growing schedule for triangle-heavy scenes:
-        # compact and re-sort after bounce 2 (the sky misses) and 6, then
-        # run the tail in one segment.  The knobs stay as the user set them;
-        # the schedule this scene runs is resolved here.
+        # The JAX package's growing schedule for triangle-heavy scenes
+        # (the flat triangles and each unique instanced mesh's, counted
+        # once): compact and re-sort after bounce 2 (the sky misses) and
+        # 6, then run the tail in one segment.  The knobs stay as the user
+        # set them; the schedule this scene runs is resolved here.
         d = cfg.max_depth
         segment, schedule = self.segment, self.schedule
         if (segment is None and schedule is None
-                and len(self._scene._tri) > TRI_HEAVY):
+                and scene_triangles(self._scene) > TRI_HEAVY):
             segment = 5
             schedule = (2, 4, d - 6) if d > 10 else (2, d - 2) if d > 4 else ()
         self._lens = segment_lengths(d, 3 if segment is None else segment,

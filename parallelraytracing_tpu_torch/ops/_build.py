@@ -55,6 +55,8 @@ class PrtScene(ctypes.Structure):
         ("csize", I), ("tri_csize", I),
         ("t_min", F), ("t_cap", F), ("sky0", F), ("sky1", F), ("sky2", F),
         ("lights", P), ("n_lights", I), ("rr_depth", I),
+        ("itri", P), ("iacc", P), ("ibox", P), ("inst", P),
+        ("n_itri", I), ("n_iacc", I), ("n_inst", I),
     ]
 
 
@@ -149,9 +151,18 @@ def build(name: str) -> Path:
 @functools.lru_cache(maxsize=None)
 def load(name: str):
     """The launch function of kernel library `name`, built if needed, with
-    its ctypes signature declared."""
+    its ctypes signature declared.  Raises if the library's
+    ``sizeof(PrtScene)`` differs from the ctypes mirror's: a field added
+    on one side only would otherwise shift every pointer after it."""
     fn_name, argtypes = SIGNATURES[name]
     lib = ctypes.CDLL(str(build(name)))
+    lib.prt_scene_size.restype = ctypes.c_int
+    lib.prt_scene_size.argtypes = []
+    size = lib.prt_scene_size()
+    if size != ctypes.sizeof(PrtScene):
+        raise RuntimeError(
+            f"lib{name}: sizeof(PrtScene) is {size} in csrc/bounce.cuh but "
+            f"{ctypes.sizeof(PrtScene)} in the ctypes mirror (ops/_build.py)")
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -30,6 +30,10 @@ Acceleration tables, chosen per kind by cluster count:
 - otherwise: a linear table (6, n_cl + 1) of the union box of each run of
   CLUSTER primitives, plus the kind's root box as the last column.
 
+Instanced meshes get four more tables (``pack_instance_tables``): the
+unique meshes' local triangles, their concatenated threaded trees, the
+instances' world boxes and the instance records.
+
 The JAX package's other layouts (Karras tree, ordered tree, straggler-tail
 views, SBVH, tile-SAH, streamed big-mesh blocks, eye-ordered linear
 scans) are left out: none is on its default path, and the eye ordering
@@ -309,13 +313,18 @@ def _morton_order(mn, mx):
     return np.argsort(morton3d((cen - lo) / ext), kind="stable")
 
 
-def scene_bbox(scene: dict):
+def scene_bbox(scene: dict, ibox=None):
     """The scene's bounding box as ((lo xyz), (1 / extent xyz)): the frame
     in which wavefront_fused quantises ray origins for its sort key.  The
     union of the world boxes of every valid primitive (the role of
     ``accel/lbvh.scene_primitive_aabbs`` in the JAX package's
-    ``engines/tables.py``); the unit box when the scene is empty."""
+    ``engines/tables.py``) and of the instance world boxes ``ibox``
+    ((6, Ni), ``pack_instance_tables``) when given; the unit box when the
+    scene is empty."""
     mins, maxs = [], []
+    if ibox is not None:
+        mins.append(np.asarray(ibox)[:3].T)
+        maxs.append(np.asarray(ibox)[3:].T)
     sv = np.asarray(scene["sph_valid"])
     if sv.any():
         mn, mx = geo.sphere_aabb(
@@ -452,6 +461,151 @@ def pack_scene_tables(scene: dict):
     return (np.ascontiguousarray(sph), np.ascontiguousarray(quad),
             np.ascontiguousarray(tri), sph_cl, quad_cl, tri_cl,
             np.ascontiguousarray(mats))
+
+
+#: rows of the instance tables: local triangles, BLAS nodes, world boxes,
+#: instance records
+ITRI_ROWS, IACC_ROWS, IBOX_ROWS, INST_ROWS = 25, 8, 6, 24
+
+
+def pack_instance_tables(inst_meshes, instances, ord_base: float,
+                         ordered: bool = False, with_uv: bool = False):
+    """Host tables for the kernels' instance block, the JAX package's
+    ``pack_instance_tables`` on its default (threaded) layout, equal to
+    it bit for bit.
+
+    inst_meshes: the unique meshes; instances: (mesh index, material id,
+    4x4 world transform) records (``Scene.instances``); ord_base: the
+    first free global ordinal (the column count of the flat sphere, quad
+    and triangle kinds, pads included).
+
+    Returns float32 (itri (25, Nt), iacc (8, Mb), ibox (6, Ni),
+    inst (24, Ni)):
+    - itri: the unique meshes' triangles in mesh-local space, each mesh
+      Morton-sorted, then permuted into its tree's leaf order:
+      [ng(3) p0ng e1(3) e2(3) e2xp0(3) p0xe1(3) n0(3) n1(3) n2(3)];
+    - iacc: each mesh's binned-SAH threaded tree (the layout of
+      ``_sah_threaded_tree``), concatenated: escape links shifted to
+      global node indices (-1 ends the mesh's walk), leaf runs
+      ``lo*64 + span`` shifted by the mesh's first itri column;
+    - ibox: each instance's world box (its mesh's local root box, the 8
+      corners transformed);
+    - inst: per instance [tree root, world->local affine (12, row-major
+      3x4), local normal -> world (9, the inverse transpose), material
+      id, ordinal base].  An instanced triangle's ordinal is its
+      instance's base plus its itri column.
+
+    ``ordered`` (the near-first explicit-pointer tree) and ``with_uv``
+    (texture coordinates for image textures) are not ported."""
+    if ordered:
+        raise NotImplementedError(
+            "the ordered (near-first) instance trees: ROADMAP Queue 1 "
+            "item 13 (left out, a TPU mechanism)")
+    if with_uv:
+        raise NotImplementedError(
+            "instance texture coordinates (image textures): ROADMAP Queue 1 "
+            "item 11 (not ported yet)")
+    from parallelraytracing_tpu_torch.accel.tlas import _mesh_local_arrays
+
+    itri_cols, iacc_cols, mesh_root, mesh_bbox = [], [], [], []
+    node_off = 0
+    tri_off = 0
+    for mesh in inst_meshes:
+        v0, v1, v2, n0, n1, n2 = (a.astype(np.float64)
+                                  for a in _mesh_local_arrays(mesh))
+        mn = np.minimum(np.minimum(v0, v1), v2)
+        mx = np.maximum(np.maximum(v0, v1), v2)
+        order = _morton_order(mn, mx)
+        v0, v1, v2 = v0[order], v1[order], v2[order]
+        n0, n1, n2 = n0[order], n1[order], n2[order]
+        mn, mx = mn[order], mx[order]
+        e1 = v1 - v0
+        e2 = v2 - v0
+        ng = np.cross(e1, e2)
+        tab = np.concatenate([ng.T, (v0 * ng).sum(1)[None], e1.T, e2.T,
+                              np.cross(e2, v0).T, np.cross(v0, e1).T,
+                              n0.T, n1.T, n2.T], axis=0).astype(np.float32)
+        nt = len(v0)
+        perm, tree = _sah_threaded_tree(mn, mx, TRI_CLUSTER)
+        tab = np.ascontiguousarray(tab[:, perm])
+        tree = tree.copy()
+        tree[6] = np.where(tree[6] >= 0, tree[6] + node_off, -1.0)
+        leaf = tree[7] >= 0
+        enc = tree[7, leaf].astype(np.int64) + np.int64(tri_off) * 64
+        if enc.size and enc.max() >= (1 << 24):
+            raise ValueError(
+                f"instance BLAS leaf encoding overflows the f32 integer "
+                f"range: cumulative unique-mesh triangles {tri_off + nt} "
+                f"exceed the {1 << 18}-triangle packed cap (lo*64+span "
+                f"must stay < 2^24); decimate or split the meshes")
+        tree[7, leaf] = enc.astype(np.float32)
+        itri_cols.append(tab)
+        iacc_cols.append(tree)
+        mesh_root.append(node_off)
+        mesh_bbox.append((mn.min(0), mx.max(0)))
+        node_off += tree.shape[1]
+        tri_off += nt
+
+    itri = np.ascontiguousarray(np.concatenate(itri_cols, axis=1))
+    iacc = np.ascontiguousarray(np.concatenate(iacc_cols, axis=1))
+    ibox = np.zeros((IBOX_ROWS, len(instances)), np.float32)
+    inst = np.zeros((INST_ROWS, len(instances)), np.float32)
+    for k, (mi, mid, m4) in enumerate(instances):
+        m4 = np.asarray(m4, np.float64)
+        inv = np.linalg.inv(m4)
+        lo, hi = mesh_bbox[mi]
+        corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                            for y in (lo[1], hi[1])
+                            for z in (lo[2], hi[2])])
+        wc = corners @ m4[:3, :3].T + m4[:3, 3]
+        ibox[:3, k] = wc.min(0)
+        ibox[3:, k] = wc.max(0)
+        inst[0, k] = mesh_root[mi]
+        inst[1:13, k] = inv[:3, :4].reshape(-1)
+        inst[13:22, k] = inv[:3, :3].T.reshape(-1)
+        inst[22, k] = mid
+        inst[23, k] = ord_base + k * tri_off  # tri_off: all local triangles
+    return itri, iacc, ibox, inst
+
+
+def check_instance_layout(itri_rows: int, iacc_rows: int) -> None:
+    """Refuse instance tables of a layout the kernels do not read: the
+    JAX package's itri with texture-coordinate rows (31) and its ordered
+    trees (10-row iacc)."""
+    if itri_rows != ITRI_ROWS:
+        raise NotImplementedError(
+            f"instance texture coordinates ({itri_rows}-row itri): ROADMAP "
+            f"Queue 1 item 11 (not ported yet); want {ITRI_ROWS} rows")
+    if iacc_rows != IACC_ROWS:
+        raise NotImplementedError(
+            f"the ordered (near-first) instance trees ({iacc_rows}-row "
+            f"iacc): ROADMAP Queue 1 item 13 (left out, a TPU mechanism); "
+            f"want {IACC_ROWS} rows")
+
+
+def instance_ranges(iacc: np.ndarray, inst: np.ndarray) -> tuple:
+    """Each instance's run of itri columns, ((lo, hi), ...), read from the
+    tables themselves: a mesh's tree occupies the iacc columns from its
+    root (inst row 0) to its last leaf in preorder, the first leaf at or
+    after the root whose escape link is -1, and its triangles are the
+    union of those leaves' runs.  The plain versions test each instance
+    against its own mesh's triangles only."""
+    iacc = np.asarray(iacc)
+    ranges = []
+    for root in np.asarray(inst)[0].astype(np.int64):
+        node, lo, hi = int(root), None, None
+        while True:
+            enc = iacc[7, node]
+            if enc >= 0:
+                a = int(enc) >> 6
+                b = a + (int(enc) & 63)
+                lo = a if lo is None else min(lo, a)
+                hi = b if hi is None else max(hi, b)
+                if iacc[6, node] < 0:
+                    break
+            node += 1
+        ranges.append((lo, hi))
+    return tuple(ranges)
 
 
 #: rows of the light table

@@ -16,8 +16,8 @@ Inputs: ``pix`` (R,) int32 pixel ids keying the PCG streams; ``state``
 (13, R) float32 planes [ox oy oz dx dy dz tr tg tb rr rg rb alive];
 ``scalars`` (3,) int32 [seed, depth0, count] on the state's device (the
 kernel reads `count` there, so a frame needs no host sync between
-segments); the tables of ops/pack.py, and with ``nee`` the light table
-(as in ops/trace.py).  Returns a new (13, R) state: the 12 planes after
+segments); the tables of ops/pack.py, with ``nee`` the light table and
+with ``inst`` the instance tables (as in ops/trace.py).  Returns a new (13, R) state: the 12 planes after
 the segment and alive: 0.0 ended, 1.0 goes on, 2.0 goes on from a
 diffuse vertex under NEE (the next vertex adds no emission, whichever
 segment traces it: an incoming 2.0 is honoured).  Radiance rides the
@@ -47,7 +47,7 @@ PLANES = 13
 def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
             mats, *, n_bounces: int, t_min: float, t_max: float, sky,
             tri_live: bool, rr_depth: int = 0, nee: bool = False,
-            lights=None) -> torch.Tensor:
+            lights=None, inst=None) -> torch.Tensor:
     """Run `n_bounces` bounces over the queue; the new (13, R) state."""
     _refuse(sky)
     if state.device.type == "cpu":
@@ -55,7 +55,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                                  quad_cl, tri_cl, mats, n_bounces=n_bounces,
                                  t_min=t_min, t_max=t_max, sky=sky,
                                  tri_live=tri_live, rr_depth=rr_depth,
-                                 nee=nee, lights=lights)
+                                 nee=nee, lights=lights, inst=inst)
     if state.device.type != "cuda":
         raise ValueError(f"segment runs on cpu or cuda tensors, not {state.device}")
     r = int(state.shape[1])
@@ -66,7 +66,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
     scene = scene_arg(state.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                      lights=lights)
+                      lights=lights, inst=inst)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("segment")
@@ -86,7 +86,8 @@ segment.launches = 0
 def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
                       tri_cl, mats, *, n_bounces: int, t_min: float,
                       t_max: float, sky, tri_live: bool, rr_depth: int = 0,
-                      nee: bool = False, lights=None) -> torch.Tensor:
+                      nee: bool = False, lights=None,
+                      inst=None) -> torch.Tensor:
     """Plain PyTorch version of ``segment`` (same signature and result).
     Each bounce runs on the slots still alive; a dead slot's state is left
     as it was."""
@@ -111,7 +112,8 @@ def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
         rng_d = (rng_base[idx] + depth * rng.DEPTH_STEP) & rng.MASK32
         new, alive_out = _bounce([p[idx] for p in planes], alive[idx], rng_d,
                                  depth, sph, quad, tri if tri_live else None,
-                                 mats, t_min, t_cap, sky, lights, rr_depth)
+                                 mats, t_min, t_cap, sky, lights, rr_depth,
+                                 inst)
         for p, v in zip(planes, new):
             p[idx] = v
         alive[idx] = alive_out

@@ -1,8 +1,8 @@
 """The fused trace: every bounce of every ray in one kernel launch.
 
 The counterpart of ``pallas_trace`` (``parallelraytracing_tpu/ops/pallas_trace.py``)
-on sphere, quad and triangle scenes with the constant sky, with
-next-event estimation (NEE) and Russian roulette.  Two functions of one
+on sphere, quad, triangle and instanced-mesh scenes with the constant
+sky, with next-event estimation (NEE) and Russian roulette.  Two functions of one
 signature:
 
 - ``trace``: the wrapper.  On a CUDA tensor it launches the hand-written
@@ -11,7 +11,9 @@ signature:
   kernel launches.
 - ``trace_reference``: the plain PyTorch version, vectorised over rays.
   Its closest hit is a brute-force fold over every sphere, quad and
-  triangle column (an independent check of the kernel's tree walk);
+  triangle column, and over each instance's own mesh triangles behind
+  the instance's world-box test (an independent check of the kernel's
+  tree walks);
   everything after the fold follows the order of operations of
   ``_make_bounce_step``.  Its NEE shadow test is the closest-hit
   formulation (the light is visible iff the brute-force closest hit along
@@ -27,12 +29,14 @@ tables of ops/pack.py (or of the JAX package, via convert.py); with
 every column is sampled (as in ``pallas_trace``, which takes
 ``lights.shape[1]`` lights: pass ``nee`` only for a scene with lights,
 as engines/tables.py does).  ``rr_depth`` > 0 plays Russian roulette
-from that absolute depth on.  Returns (R, 3) float32 radiance.
+from that absolute depth on.  ``inst`` is the scene's
+``engines/tables.InstanceTables`` (the four tables of
+``pack_instance_tables`` and each instance's triangle run), or None.
+Returns (R, 3) float32 radiance.
 
 A triangle kind of never-hit pad columns (``tri_live`` False) is skipped.
-Not in this port yet, refused with NotImplementedError: instances,
-checker and image textures, the directional sky, ``depth_out`` and
-``collect_stats``.
+Not in this port yet, refused with NotImplementedError: checker and image
+textures, the directional sky, ``depth_out`` and ``collect_stats``.
 """
 
 from __future__ import annotations
@@ -45,7 +49,10 @@ import torch
 from parallelraytracing_tpu_torch.core.scene import (MAT_DIELECTRIC, MAT_EMISSIVE,
                                                   MAT_LAMBERTIAN, MAT_METAL)
 from parallelraytracing_tpu_torch.ops import ieee, rng
-from parallelraytracing_tpu_torch.ops.pack import CLUSTER, LIGHT_ROWS, TRI_CLUSTER
+from parallelraytracing_tpu_torch.ops.pack import (CLUSTER, IACC_ROWS, IBOX_ROWS,
+                                                   INST_ROWS, ITRI_ROWS,
+                                                   LIGHT_ROWS, TRI_CLUSTER,
+                                                   check_instance_layout)
 
 BIG = 3.0e38
 TWO_PI = 2.0 * math.pi
@@ -55,7 +62,6 @@ T_MAX_INF = 1e30
 CHUNK_ELEMS = 1 << 23
 
 _ROADMAP = {
-    "inst": "instances: ROADMAP Queue 1 item 10",
     "checker": "checker textures: ROADMAP Queue 1 item 11",
     "itex": "image textures: ROADMAP Queue 1 item 11",
     "depth_out": "the depth_out probe: ROADMAP Queue 1 item 17",
@@ -86,14 +92,14 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
 
     `tri_live` says whether the triangle table holds any hittable column
     (engines/tables.py and convert.py compute it on the host)."""
-    _refuse(sky, inst=inst, checker=checker, itex=itex, depth_out=depth_out,
+    _refuse(sky, checker=checker, itex=itex, depth_out=depth_out,
             collect_stats=collect_stats)
     if o.device.type == "cpu":
         return trace_reference(o, d, pix, seed, sph, quad, tri, sph_cl,
                                quad_cl, tri_cl, mats, max_depth=max_depth,
                                t_min=t_min, t_max=t_max, sky=sky,
                                tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                               lights=lights)
+                               lights=lights, inst=inst)
     if o.device.type != "cuda":
         raise ValueError(f"trace runs on cpu or cuda tensors, not {o.device}")
     r = int(o.shape[0])
@@ -104,7 +110,7 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
     scene = scene_arg(o.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                      lights=lights)
+                      lights=lights, inst=inst)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("trace")
@@ -156,14 +162,37 @@ def _light_table(nee: bool, lights):
     return lights
 
 
+def _instance_tables(device, inst):
+    """Validate the instance tables a kernel reads: (pointers, widths)
+    for ``PrtScene``, all null and 0 without instances."""
+    if inst is None:
+        return (None,) * 4 + (0,) * 3
+    check_instance_layout(inst.itri.shape[0], inst.iacc.shape[0])
+    tabs = {"itri": inst.itri, "iacc": inst.iacc, "ibox": inst.ibox,
+            "inst": inst.inst}
+    check_tensors(device, tabs, {})
+    n_inst = inst.inst.shape[1]
+    if (inst.itri.dim() != 2 or inst.iacc.dim() != 2 or n_inst < 1
+            or tuple(inst.ibox.shape) != (IBOX_ROWS, n_inst)
+            or inst.inst.shape[0] != INST_ROWS or len(inst.ranges) != n_inst):
+        raise ValueError(
+            f"instance tables: want itri ({ITRI_ROWS}, Nt), iacc "
+            f"({IACC_ROWS}, Mb), ibox ({IBOX_ROWS}, Ni), inst ({INST_ROWS}, "
+            f"Ni) with Ni >= 1 and one triangle run per instance")
+    ptr = torch.Tensor.data_ptr
+    return (ptr(inst.itri), ptr(inst.iacc), ptr(inst.ibox), ptr(inst.inst),
+            inst.itri.shape[1], inst.iacc.shape[1], n_inst)
+
+
 def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
               t_min: float, t_max: float, sky, tri_live: bool,
-              rr_depth: int = 0, nee: bool = False, lights=None):
+              rr_depth: int = 0, nee: bool = False, lights=None, inst=None):
     """Validate the tables a kernel reads and pack them into the
     ``PrtScene`` struct of csrc/bounce.cuh.  The struct holds raw device
     pointers: the tables must outlive the launch."""
     from parallelraytracing_tpu_torch.ops import _build
     lights = _light_table(nee, lights)
+    inst_arg = _instance_tables(device, inst)
     check_tensors(device, {"sph": sph, "quad": quad, "tri": tri,
                            "sph_cl": sph_cl, "quad_cl": quad_cl,
                            "tri_cl": tri_cl, "mats": mats,
@@ -192,7 +221,8 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
         ptr(mats), mats.shape[1], CLUSTER, TRI_CLUSTER,
         float(t_min), _t_cap(t_max), float(sky[0]), float(sky[1]),
         float(sky[2]), None if lights is None else ptr(lights),
-        0 if lights is None else lights.shape[1], max(int(rr_depth), 0))
+        0 if lights is None else lights.shape[1], max(int(rr_depth), 0),
+        *inst_arg)
 
 
 # ---------------------------------------------------------------------------
@@ -264,21 +294,81 @@ def _tri_hits(ox, oy, oz, dx, dy, dz, tri, t_min, t_cap):
     return t, ok, b1, b2
 
 
-def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap):
+def _safe_inv(v):
+    """1 / v with |v| clamped to >= 1e-20 (``safe_inv`` of bounce.cuh)."""
+    eps = 1e-20
+    return 1.0 / torch.where(torch.abs(v) < eps,
+                             torch.where(v < 0, -eps, eps), v)
+
+
+def _slab(box, k, ox, oy, oz, ix, iy, iz, t_min, best_t):
+    """(B,) does each ray hit column k of a (6, N) box table at a t in
+    [t_min, best_t]: ``slab_hit`` of bounce.cuh, the exact (b - o) * inv
+    form."""
+    tx0 = (box[0, k] - ox) * ix
+    ty0 = (box[1, k] - oy) * iy
+    tz0 = (box[2, k] - oz) * iz
+    tx1 = (box[3, k] - ox) * ix
+    ty1 = (box[4, k] - oy) * iy
+    tz1 = (box[5, k] - oz) * iz
+    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                     torch.minimum(ty0, ty1)),
+                       torch.clamp_min(torch.minimum(tz0, tz1), t_min))
+    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                     torch.maximum(ty0, ty1)),
+                       torch.clamp_max(torch.maximum(tz0, tz1), best_t))
+    return tf - tn >= 0.0
+
+
+def _instance_hits(ox, oy, oz, dx, dy, dz, inst, t_min, t_cap):
+    """Per instance k, the (B, n_k) hit distance, accept mask and
+    barycentrics of the world rays against the instance's own mesh
+    triangles (its run of itri columns), tested in mesh-local space with
+    the instance's world->local affine (direction not renormalised, so
+    local t is world t), and only for rays that pass the instance's
+    world-box test (the kernel's gate, at [t_min, BIG])."""
+    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    parts = []
+    for k, (lo, hi) in enumerate(inst.ranges):
+        g = inst.inst[:, k]
+        gate = _slab(inst.ibox, k, ox, oy, oz, ix, iy, iz, t_min, BIG)
+        lox = g[1] * ox + g[2] * oy + g[3] * oz + g[4]
+        loy = g[5] * ox + g[6] * oy + g[7] * oz + g[8]
+        loz = g[9] * ox + g[10] * oy + g[11] * oz + g[12]
+        ldx = g[1] * dx + g[2] * dy + g[3] * dz
+        ldy = g[5] * dx + g[6] * dy + g[7] * dz
+        ldz = g[9] * dx + g[10] * dy + g[11] * dz
+        t, ok, b1, b2 = _tri_hits(lox, loy, loz, ldx, ldy, ldz,
+                                  inst.itri[:, lo:hi], t_min, t_cap)
+        parts.append((t, ok & gate[:, None], b1, b2))
+    return parts
+
+
+def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
+                 inst=None):
     """Brute-force closest hit of B rays against every sphere, quad and
-    (when `tri` is not None) triangle: the lexicographic minimum of (t,
-    ordinal) over accepted primitives, which is what the strict-< /
-    lowest-ordinal fold computes in any visit order.
+    (when `tri` is not None) triangle, and every instance's triangles
+    (when `inst` is not None): the lexicographic minimum of (t, ordinal)
+    over accepted primitives, which is what the strict-< / lowest-ordinal
+    fold computes in any visit order.  An instanced triangle's ordinal is
+    its instance's base (row 23) plus its itri column.
 
     Returns (best_t, gx, gy, gz, front, is_sph, mid, ord): best_t = BIG
-    on a miss; the winner's raw geometry (sphere center, quad normal, or
-    the unnormalised barycentric blend of the triangle's vertex normals),
-    its front flag, kind, material id and global ordinal.  Fields of a
-    missing ray are arbitrary."""
+    on a miss; the winner's raw geometry (sphere center, quad normal, the
+    unnormalised barycentric blend of the triangle's vertex normals, or
+    for an instanced triangle that blend taken to world space by the
+    instance's rows 13-21), its front flag, kind, material id and global
+    ordinal.  Fields of a missing ray are arbitrary."""
     n_s, n_q = sph.shape[1], quad.shape[1]
     n_t = 0 if tri is None else tri.shape[1]
-    ords = torch.cat([sph[5], quad[13]] + ([tri[17]] if n_t else []))
-    step = max(1, CHUNK_ELEMS // (n_s + n_q + n_t))
+    ranges = () if inst is None else inst.ranges
+    ords = torch.cat(
+        [sph[5], quad[13]] + ([tri[17]] if n_t else [])
+        + [inst.inst[23, k] + torch.arange(lo, hi, dtype=torch.float32,
+                                           device=sph.device)
+           for k, (lo, hi) in enumerate(ranges)])
+    n_all = int(ords.shape[0])
+    step = max(1, CHUNK_ELEMS // n_all)
     outs = []
     for lo in range(0, ox.shape[0], step):
         ray = tuple(v[lo:lo + step] for v in (ox, oy, oz, dx, dy, dz))
@@ -289,6 +379,11 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap):
             tt, okt, b1, b2 = _tri_hits(*ray, tri, t_min, t_cap)
             ts.append(tt)
             oks.append(okt)
+        iparts = [] if inst is None else _instance_hits(*ray, inst, t_min,
+                                                        t_cap)
+        for ti, oki, _, _ in iparts:
+            ts.append(ti)
+            oks.append(oki)
         # A candidate must beat the fold's initial (BIG, 2^24) carry.
         t = torch.cat(ts, 1)
         ok = torch.cat(oks, 1) & (t <= BIG)
@@ -306,7 +401,7 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap):
         mid = torch.where(is_sph, sph[4, cs], quad[12, cq])
         if n_t:
             is_tri = col >= n_s + n_q
-            ct = (col - n_s - n_q).clamp(min=0)
+            ct = (col - n_s - n_q).clamp(min=0, max=n_t - 1)
             b1 = b1.gather(1, ct[:, None])[:, 0]
             b2 = b2.gather(1, ct[:, None])[:, 0]
             b0 = 1.0 - b1 - b2
@@ -316,13 +411,32 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap):
             g = [torch.where(is_tri, a, b) for a, b in zip(inrm, g)]
             front = torch.where(is_tri, ~back, front)
             mid = torch.where(is_tri, tri[16, ct], mid)
+        base = n_s + n_q + n_t
+        for k, ((_, _, ib1, ib2), (ilo, ihi)) in enumerate(zip(iparts,
+                                                                ranges)):
+            is_k = (col >= base) & (col < base + ihi - ilo)
+            c = (col - base).clamp(min=0, max=ihi - ilo - 1)
+            base += ihi - ilo
+            ib1 = ib1.gather(1, c[:, None])[:, 0]
+            ib2 = ib2.gather(1, c[:, None])[:, 0]
+            ib0 = 1.0 - ib1 - ib2
+            j = c + ilo
+            it, gk = inst.itri, inst.inst[:, k]
+            inrm = [ib0 * it[16 + a, j] + ib1 * it[19 + a, j]
+                    + ib2 * it[22 + a, j] for a in range(3)]
+            wn = [gk[13 + 3 * a] * inrm[0] + gk[14 + 3 * a] * inrm[1]
+                  + gk[15 + 3 * a] * inrm[2] for a in range(3)]
+            back = (ray[3] * wn[0] + ray[4] * wn[1] + ray[5] * wn[2]) > 0.0
+            g = [torch.where(is_k, a, b) for a, b in zip(wn, g)]
+            front = torch.where(is_k, ~back, front)
+            mid = torch.where(is_k, gk[22], mid)
         outs.append((torch.where(tmin < BIG, tmin, BIG), *g, front, is_sph,
                      mid.long(), ords[col]))
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
-                tri, t_min, t_cap):
+                tri, t_min, t_cap, inst=None):
     """Next-event estimation at B shading points (``nee_direct`` of
     csrc/bounce.cuh, pallas_trace.py l.2748-2895): pick a light from salt
     5, sample a direction toward it from salts 6 and 7, and return the
@@ -407,7 +521,7 @@ def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
     idx = torch.nonzero(cand)[:, 0]
     if idx.numel():
         sh = _closest_hit(px[idx], py[idx], pz[idx], wix[idx], wiy[idx],
-                          wiz[idx], sph, quad, tri, t_min, t_cap)
+                          wiz[idx], sph, quad, tri, t_min, t_cap, inst)
         vis[idx] = (sh[0] < BIG) & (sh[7] == lord[idx])
     w_l = (cos_s / (math.pi * torch.clamp_min(pdf_l, 1e-12))) \
         * (cand & vis).to(torch.float32)
@@ -415,17 +529,18 @@ def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
 
 
 def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
-            t_cap, sky, lights=None, rr_depth: int = 0):
+            t_cap, sky, lights=None, rr_depth: int = 0, inst=None):
     """One bounce of B alive paths at absolute depth `depth`: the new
     state and the (B,) float32 alive values after it (0 ended, 1 goes on,
     2 goes on from a diffuse vertex under NEE).  `alive` holds the values
     before it (1, or 2: emission was sampled by NEE at the previous vertex
     and is not added again).  `tri` is None when the scene has no
-    hittable triangle, `lights` None when NEE is off."""
+    hittable triangle, `lights` None when NEE is off, `inst` None without
+    instances."""
     nee = lights is not None
     ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb = state
     best_t, gx, gy, gz, fr, is_sph, mid, _ = _closest_hit(
-        ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap)
+        ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap, inst)
     hit = best_t < BIG
     is_sph_k = hit & is_sph
     gx = torch.where(hit, gx, 0.0)
@@ -473,7 +588,7 @@ def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
     if nee:  # reads the throughput before the BSDF's attenuation
         w_l, (ler, leg, leb) = _nee_direct(px, py, pz, nx, ny, nz,
                                            hit & is_lam, rng_d, lights, sph,
-                                           quad, tri, t_min, t_cap)
+                                           quad, tri, t_min, t_cap, inst)
         rr = rr + tr * m_c0 * w_l * ler
         rg = rg + tg * m_c1 * w_l * leg
         rb = rb + tb * m_c2 * w_l * leb
@@ -575,7 +690,7 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
     """Plain PyTorch version of ``trace`` (same signature and result).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
     its state unchanged, as in the TPU kernel's dead-tile exit."""
-    _refuse(sky, inst=inst, checker=checker, itex=itex, depth_out=depth_out,
+    _refuse(sky, checker=checker, itex=itex, depth_out=depth_out,
             collect_stats=collect_stats)
     lights = _light_table(nee, lights)
     r = o.shape[0]
@@ -598,7 +713,8 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
         rng_d = (rng_base[idx] + depth * rng.DEPTH_STEP) & rng.MASK32
         new, alive_out = _bounce([s[idx] for s in state], alive[idx], rng_d,
                                  depth, sph, quad, tri if tri_live else None,
-                                 mats, t_min, t_cap, sky, lights, rr_depth)
+                                 mats, t_min, t_cap, sky, lights, rr_depth,
+                                 inst)
         for s, v in zip(state, new):
             s[idx] = v
         alive[idx] = alive_out

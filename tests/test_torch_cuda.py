@@ -16,7 +16,9 @@ The segment kernel is held to the same bounds on the 13 planes of one
 segment, and the wavefront_fused and fused films on a mesh to the RMSE
 bound (the two kernels share their bounce, so 0 is expected).  With NEE
 and Russian roulette the same bounds hold, and the segment's alive plane
-(0, 1, or 2 for NEE's no-emit mark) is equal on every slot.
+(0, 1, or 2 for NEE's no-emit mark) is equal on every slot; so do they
+on an instanced scene, where the plain version tests each instance's own
+mesh triangles by brute force against the kernel's tree walks.
 """
 
 import numpy as np
@@ -284,3 +286,70 @@ def test_mesh_engines_agree(cuda, mesh_ply, attrs):
     torch.cuda.synchronize()
     assert torch.isfinite(films[0]).all()
     assert float((films[0] - films[1]).pow(2).mean().sqrt()) < FILM_RMSE
+
+
+def instanced_renderer(engine, width, height, nee=False, **cfg_kw):
+    """A renderer of `engine` on the two-mesh instanced scene of
+    tests/torch_meshes.py (the 20-triangle icosahedron and the
+    icosahedron at level 3, 1280 triangles, above TRI_HEAVY: four
+    instances, a quad light and a sphere light)."""
+    from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
+                                              Scene, create_renderer)
+    from parallelraytracing_tpu_torch.core.mesh import Mesh, subdivide
+    from torch_meshes import ICO_F, ICO_V, two_mesh_scene
+    v = np.asarray(ICO_V, np.float64)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    ico = Mesh(v.astype(np.float32), np.asarray(ICO_F, np.uint32).reshape(-1))
+    big = subdivide(make_mesh("ico2"), 1)
+    big.compute_vertex_normals()
+    film = Film(width, height, "cuda")
+    r = create_renderer(engine, "cuda")
+    r.init(film, two_mesh_scene(Scene, ico, big),
+           Camera(np.array([0.0, 6.0, 14.0]), np.array([0.0, -5.0, -14.0]),
+                  float(width), float(height), 100.0),
+           RenderConfig(width=width, height=height, nee=nee, **cfg_kw))
+    assert r._tables.inst is not None and r._tables.nee == nee
+    return r, film
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee", [False, True])
+def test_instanced_trace_kernel_matches_plain(cuda, nee):
+    """The instance block of the trace kernel (its any-hit shadow walk
+    with NEE) against the plain version's brute force over each
+    instance's own triangles."""
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    r, _ = instanced_renderer("fused", 160, 90, nee=nee, max_depth=8)
+    inputs = frame_inputs(r, 0, jitter=False)
+    k = traced(r, trace, max_depth=1)(*inputs)
+    p = traced(r, trace_reference, max_depth=1)(*inputs)
+    assert torch.isfinite(k).all() and ray_share(k, p) >= RAY_SHARE
+    rmse = film_rmse(r, 4, traced(r, trace), traced(r, trace_reference))
+    assert rmse < FILM_RMSE, rmse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee", [False, True])
+def test_instanced_segment_kernel_matches_plain(cuda, nee):
+    """One 2-bounce segment of the instanced scene: the 13 planes within
+    RAY_ATOL on RAY_SHARE of the slots, the alive plane equal on every
+    slot; then the wavefront_fused ((2, 6) at depth 8) and fused films."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, _run_segment, _scalars)
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    r, wf_film = instanced_renderer("wavefront_fused", 160, 90, nee=nee,
+                                    max_depth=8)
+    assert r.segment_lengths() == [2, 6]
+    o, d, pix, seed = frame_inputs(r, 0)
+    state = _initial_state(o, d)
+    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+    k, p = (_run_segment(r._tables, pix, state, _scalars(seed, 0, count), 2,
+                         r.config, fn) for fn in (segment, segment_reference))
+    assert torch.equal(k[12], p[12])
+    assert ray_share(k.t(), p.t()) >= RAY_SHARE
+    f, fused_film = instanced_renderer("fused", 160, 90, nee=nee, max_depth=8)
+    for _ in range(4):
+        r.progressive_render()
+        f.progressive_render()
+    diff = wf_film.hdr_average() - fused_film.hdr_average()
+    assert float(diff.pow(2).mean().sqrt()) < FILM_RMSE

@@ -1,6 +1,6 @@
-"""Meshes for the port's tests, built with numpy (no PLY files ship with
-the repo, and nothing here imports JAX, so the GPU tests can use it on a
-machine without it).
+"""Meshes and instanced scenes for the port's tests, built with numpy (no
+PLY files ship with the repo, and nothing here imports JAX, so the GPU
+tests can use it on a machine without it).
 
 Three sizes, one for each walk of the triangle kind: a tetrahedron (4
 triangles: a tiny kind, a plain loop), an octahedron (8 triangles, 2
@@ -74,3 +74,54 @@ def write_ply(path, mesh, fmt: str = "binary", normals: bool = False) -> str:
 
 def mesh_ply(tmp_path, name: str) -> str:
     return write_ply(tmp_path / f"{name}.ply", make_mesh(name))
+
+
+def tlas_scene(scene_cls, mesh, instanced: bool = True):
+    """The layout of tests/test_tlas.py around `mesh`, built with either
+    package's Scene class: three red instances turned 30 degrees apart
+    and one metal instance at twice the size, over a 30x30 ground quad,
+    under an emissive sphere.  ``instanced=False`` bakes the same
+    transforms with add_mesh."""
+    s = scene_cls(preset=None)
+    red = s.add_lambertian((0.9, 0.2, 0.2))
+    metal = s.add_metal((0.9, 0.9, 0.9), 0.05)
+    tr_red = [((1, 1, 1), (0, 30 * i, 0), (i * 3.0 - 3.0, 1, 0))
+              for i in range(3)]
+    tr_metal = [((2, 2, 2), (0, 0, 45), (0, 2, -4))]
+    _place(s, mesh, red, tr_red, instanced)
+    _place(s, mesh, metal, tr_metal, instanced)
+    s.add_quad(30, 30, s.add_lambertian((0.5, 0.5, 0.5)), None)
+    s.add_sphere(1.0, s.add_emissive((10, 10, 10)),
+                 ((1, 1, 1), (0, 0, 0), (4, 8, 4)))
+    return s
+
+
+def two_mesh_scene(scene_cls, small, big, instanced: bool = True):
+    """Two unique meshes, each instanced twice (a glass and a diffuse
+    copy of `small`, two diffuse copies of `big`), over a ground quad with
+    a quad light and a sphere light, one flat sphere beside them."""
+    s = scene_cls(preset=None)
+    glass = s.add_dielectric(1.5)
+    red = s.add_lambertian((0.8, 0.15, 0.1))
+    body = s.add_lambertian((0.7, 0.6, 0.45))
+    _place(s, small, glass, [((1.5,) * 3, (0, 30, 0), (2.5, 1.5, 1.0))],
+           instanced)
+    _place(s, big, body, [((2, 2, 2), (0, 160, 0), (-1.5, 2, -1)),
+                          ((1, 1, 1), (0, 40, 0), (-4, 1, 2))], instanced)
+    _place(s, small, red, [((1,) * 3, (30, 0, 0), (1, 1, 3.5))], instanced)
+    s.add_sphere(0.8, s.add_metal((0.9, 0.9, 0.9), 0.1),
+                 ((1, 1, 1), (0, 0, 0), (4, 0.8, -2)))
+    s.add_quad(30, 30, s.add_lambertian((0.5, 0.5, 0.52)), None)
+    s.add_quad(4, 4, s.add_emissive((6, 6, 6)),
+               ((1, 1, 1), (180, 0, 0), (0, 9, 0)))
+    s.add_sphere(1.5, s.add_emissive((9, 9, 8)),
+                 ((1, 1, 1), (0, 0, 0), (6, 9, 6)))
+    return s
+
+
+def _place(scene, mesh, mat, transforms, instanced):
+    if instanced:
+        scene.add_mesh_instances(mesh, mat, transforms)
+    else:
+        for t in transforms:
+            scene.add_mesh(mesh, mat, t)
