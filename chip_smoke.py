@@ -18,7 +18,11 @@ C wavefront_fused CORNELL --nee --rr-depth 3 (the no-emit mark and
 roulette across segments), D wavefront_fused mesh --nee (shadow walks
 through the triangle tree); then the instanced path: bench.py's
 multimesh scene (7 instances of 2 unique meshes through the kernels'
-instance block) at 1920x1080, depth 8.  Phases, one or more lines each,
+instance block) at 1920x1080, depth 8; then the scene extensions
+(checker and image textures, the gradient and sun sky, thin lens and
+QMC): T1 texture_demo and T2 sky_demo at the CLI's preset camera, depth
+20, and T3 the multimesh scene with its two icospheres in texture_demo's
+globe image, depth 8.  Phases, one or more lines each,
 each line tagged with its seconds (any failure raises and exits
 non-zero):
 
@@ -99,13 +103,28 @@ non-zero):
 16. NEE is unbiased on the card: CORNELL at 320x180, depth 20, 8 NEE
     frames against a truth of 1024 frames without NEE, with
     tests/test_nee.py's bounds (mean within 6%; RMSE to the truth < 0.6 x
-    that of 8 frames without NEE).
+    that of 8 frames without NEE);
+17. the scene extensions, kernels vs plain at 320x180 (the kernels'
+    kExt instantiations): T1 with and without NEE and with QMC + thin
+    lens, T2, T3; the trace kernel as in phase 13 and one 2-bounce
+    segment (13 planes within 1e-5 on >= 99.9% of slots, the alive plane
+    equal);
+18. the engines agree on T1 and T3: wavefront_fused and fused films over
+    16 frames at 320x180 (HDR RMSE < 1e-3, 0 expected);
+19. T1-T3 timed at 1920x1080: T1 fused, wavefront_fused, fused with the
+    thin lens (radius 0.1, focus 10), with QMC + the lens, with NEE; T2
+    and T3 fused and wavefront_fused: the kernels' times on frame 0 and
+    their bounds (the texture fetches, checker and sky of the camera
+    rays' hits added, counted by one probe launch), then the engine as in
+    phase 8 (ms/frame, Msamples/s, Mrays/s, launches, film, PNG).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
 path's timed frames, its bound on the card for the measured launch, its
 NEE, roulette and instanced comparisons, and the timed paths A-D and
-the instanced ones); the last line is {"ok": true, "device": {...}}.
+the instanced ones), and of each kernel's scene-extension
+instantiations ("trace[ext]", "segment[ext]": T1-T3); the last line is
+{"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
 
@@ -161,6 +180,19 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #: normalisation)
 SLAB_OPS, SPH_OPS, QUAD_OPS, TRI_OPS, ENTRY_OPS, SHADE_OPS = \
     26, 24, 45, 45, 60, 150
+#: float32 operations of the scene extensions, counted from
+#: csrc/bounce.cuh: an image texture's fetch (UV wrap, four texel fetches
+#: with their wrap, index and u24 decode, the bilinear blend and the
+#: albedo product), a sphere's equirectangular UV on top (atan2 and asin,
+#: each counted as 20), a checker's cell parity, the gradient and sun sky
+#: of a miss (sun power 256: nine squarings)
+TEX_OPS, SPH_UV_OPS, CHECKER_OPS, SKY_OPS = 115, 46, 16, 45
+#: the scene extensions' workloads: T1 texture_demo, T2 sky_demo (depth
+#: MAIN_DEPTH) at the CLI's preset camera, T3 the instanced multimesh
+#: scene with its two icospheres in texture_demo's globe image (depth
+#: INST_DEPTH); the lens of T1's thin-lens paths
+PRESET_EYE, PRESET_LOOK = (5.0, 5.0, 8.0), (0.0, 0.0, 0.0)
+LENS_RADIUS, FOCUS_DISTANCE = 0.1, 10.0
 
 #: the regular icosahedron: 12 closed-form vertices (0, +-1, +-phi) and
 #: cyclic permutations, 20 faces wound counter-clockwise seen from outside
@@ -194,18 +226,21 @@ def frame_inputs(renderer, frame_index: int, jitter=None):
                                                        sample_key)
     cfg = renderer.config
     jseed, seed = frame_stream_seeds(sample_key(cfg.seed, frame_index, 0))
-    o, d = raygen_ids(renderer._cam_params, renderer._ids, jseed, cfg.width,
-                      cfg.height, cfg.jitter if jitter is None else jitter)
+    o, d = raygen_ids(renderer._cam_params, renderer._ids,
+                      renderer._pixel_seed(jseed), cfg.width, cfg.height,
+                      cfg.jitter if jitter is None else jitter, cfg.lens,
+                      renderer._qpt(frame_index, 0))
     return o, d, renderer._ids, seed
 
 
 def trace_kw(tables, cfg) -> dict:
     """The trace's keyword arguments as the engines pass them (NEE,
-    Russian roulette and instances included)."""
+    Russian roulette, instances and the scene extensions included)."""
     return dict(max_depth=cfg.max_depth, t_min=cfg.t_min, t_max=cfg.t_max,
                 sky=tables.sky, tri_live=tables.tri_live, nee=tables.nee,
                 lights=tables.lights, rr_depth=cfg.russian_roulette_depth,
-                inst=tables.inst)
+                inst=tables.inst, checker=tables.checker, itex=tables.itex,
+                itex_tab=tables.itex_tab)
 
 
 def both_traces(tables, cfg, o, d, pix, seed):
@@ -364,17 +399,19 @@ def ptxas_summary(lib: str, log: Path) -> str:
     """Registers and spill stores of each kernel instantiation in an nvcc
     build log (-Xptxas -v): "tri" with the triangle fold, "sq" without,
     "+nee" with the NEE block, "+rr" with Russian roulette, "+inst" with
-    the instance block."""
+    the instance block, "+ext" with the scene extensions (textures and
+    the directional sky)."""
     if not log.exists():  # built by an earlier run, whose log is gone
         return ""
     out, tag, spill = [], lib, ""
     for ln in log.read_text().splitlines():
-        m = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])E", ln)
+        m = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
             tag = (f"{lib}[{'tri' if m.group(1) == '1' else 'sq'}"
                    f"{'+nee' if m.group(2) == '1' else ''}"
                    f"{'+rr' if m.group(3) == '1' else ''}"
-                   f"{'+inst' if m.group(4) == '1' else ''}]")
+                   f"{'+inst' if m.group(4) == '1' else ''}"
+                   f"{'+ext' if m.group(5) == '1' else ''}]")
             spill = ""
         elif "spill stores" in ln and not spill:
             spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
@@ -409,7 +446,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(r, tag: str) -> dict:
+def kernel_vs_plain(r, tag: str, label: str = "nee-vs-plain") -> dict:
     """The trace kernel against the plain version through renderer r's
     tables and config (NEE and roulette as r runs them): every ray of
     depth 1 without jitter, every ray of frame 0 at r's depth with jitter
@@ -435,7 +472,7 @@ def kernel_vs_plain(r, tag: str) -> dict:
         acc_p = acc_p + traced_on(r, trace_reference)(*inputs)
     rmse = float(((acc_k - acc_p) / NEE_FILM_FRAMES).pow(2).mean().sqrt())
     size = f"{cfg.width}x{cfg.height}"
-    phase("nee-vs-plain", f"{tag} {size}: depth 1 no jitter {share1:.6f} "
+    phase(label, f"{tag} {size}: depth 1 no jitter {share1:.6f} "
           f"of rays within {RAY_ATOL}; depth {cfg.max_depth} frame 0 "
           f"{share:.6f} within {RAY_ATOL}, max abs err {err:.3e}; "
           f"x{NEE_FILM_FRAMES} frames HDR RMSE {rmse:.3e}; trace kernel "
@@ -524,7 +561,7 @@ def timed_path(r, film, tag: str, png_dir) -> dict:
             or (not wavefront and (launches["trace"] < TIMED
                                    or launches["segment"])):
         raise AssertionError(f"{tag}: launches {launches} in {TIMED} frames")
-    phase("timed", check_film(film, r._tables.sky, tag, png_dir))
+    phase("timed", check_film(film, r._tables.sky[:3], tag, png_dir))
     return dict(engine=r.name, ms_per_frame=ms,
                 msamples_per_s=samples / ms / 1e3, mrays_per_s=rays / ms / 1e3,
                 rays=rays, launches=launches)
@@ -622,23 +659,27 @@ def table_bytes(t) -> int:
             t.lights]
     if t.inst is not None:
         tabs += [t.inst.itri, t.inst.iacc, t.inst.ibox, t.inst.inst]
+    if t.itex_tab is not None:
+        tabs.append(t.itex_tab)
     return sum(x.numel() * x.element_size() for x in tabs)
 
 
-def kernel_bound(t, segments: int, n_rays: int, ray_bytes: int) -> dict:
+def kernel_bound(t, segments: int, n_rays: int, ray_bytes: int,
+                 extra_ops: float = 0.0) -> dict:
     """The least time the card could take for one launch: the larger of
     its bytes (each ray's inputs read once and outputs written once, each
-    table read once) over the HBM rate and its operations (`segments`
-    ray segments of segment_ops each) over the float32 peak.  The walk
-    term is a lower bound: it counts the shallowest path, not the nodes
-    each ray visits."""
+    table read once, the texel rows included) over the HBM rate and its
+    operations (`segments` ray segments of segment_ops each, plus
+    `extra_ops`, the scene extensions' work of ``extension_ops``) over
+    the float32 peak.  The walk term is a lower bound: it counts the
+    shallowest path, not the nodes each ray visits."""
     nbytes = n_rays * ray_bytes + table_bytes(t)
-    ops = segments * segment_ops(t)
+    ops = segments * segment_ops(t) + extra_ops
     b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
     return dict(bound_ms=max(b_ms, f_ms),
                 bound_by="bytes" if b_ms >= f_ms else "operations",
                 bytes=nbytes, operations=ops, segments=segments,
-                ops_per_segment=segment_ops(t))
+                ops_per_segment=segment_ops(t), extension_ops=extra_ops)
 
 
 #: bytes per ray of a trace launch (o, d, pixel id in; radiance out) and
@@ -655,13 +696,33 @@ def icosahedron():
     return Mesh(v.astype(np.float32), np.asarray(ICO_F, np.uint32).reshape(-1))
 
 
-def multimesh_scene(bunny, ico):
+def equirect_uv(mesh):
+    """`mesh` (vertices on the unit sphere) with per-vertex texture
+    coordinates u = 0.5 + atan2(z, x) / 2 pi, v = 0.5 + asin(y) / pi."""
+    from parallelraytracing_tpu_torch.core.mesh import Mesh
+    v = mesh.vertices.astype(np.float64)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    uv = np.stack([0.5 + np.arctan2(v[:, 2], v[:, 0]) / (2.0 * np.pi),
+                   0.5 + np.arcsin(np.clip(v[:, 1], -1.0, 1.0)) / np.pi], 1)
+    return Mesh(mesh.vertices, mesh.indices, mesh.normals,
+                uv.astype(np.float32))
+
+
+def multimesh_scene(bunny, ico, textured: bool = False):
     """bench.py's multimesh scene (multimesh_scene), through the port's
     API: the bunny twice, the icosahedron three times in glass and twice
-    in red, over a 120x120 ground quad under an emissive sphere."""
+    in red, over a 120x120 ground quad under an emissive sphere.
+    `textured` (workload T3): the bunny's two copies in texture_demo's
+    globe image at the equirectangular texture coordinates of
+    ``equirect_uv``."""
     from parallelraytracing_tpu_torch import Scene
+    from parallelraytracing_tpu_torch.core.scene import globe_image
     s = Scene(preset=None)
-    body = s.add_lambertian((0.7, 0.6, 0.45))
+    if textured:
+        bunny = equirect_uv(bunny)
+        body = s.add_textured_lambertian(s.add_texture(globe_image()))
+    else:
+        body = s.add_lambertian((0.7, 0.6, 0.45))
     s.add_mesh_instances(bunny, body, [((6, 6, 6), (0, 160, 0), (0, 6, 0)),
                                        ((3, 3, 3), (0, 40, 0), (-12, 3, 6))])
     glass = s.add_dielectric(1.5)
@@ -901,6 +962,218 @@ def instanced_phases(ply: str, png_dir) -> dict:
     rec["paths"] = paths
     phase("instances", f"torch.cuda.max_memory_allocated() "
           f"{torch.cuda.max_memory_allocated()} bytes (phases 12-15)")
+    return rec
+
+
+def camera_hit_counts(r) -> dict:
+    """Frame 0's camera rays of renderer r by what they hit, counted by one
+    depth-1 launch of the trace kernel on a probe copy of r's tables in
+    which every material is an emitter whose emission marks it (red 1 an
+    image texture off a sphere, blue 2 an image on a sphere, green 1 a
+    checker) under a sky of blue 1.  Returns the counts of image hits off
+    spheres, image hits on spheres, checker hits and misses."""
+    import torch
+    from parallelraytracing_tpu_torch.core.scene import MAT_EMISSIVE
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    t, cfg = r._tables, r.config
+    n = t.mats.shape[1]
+    image = torch.zeros(n + 1, device="cuda")
+    checker = torch.zeros(n + 1, device="cuda")
+    for c in t.checker:
+        checker[int(c[0])] = 1.0
+    for m in t.itex:
+        image[int(m[0])] = 1.0
+    sph = t.sph.clone()
+    sph[4] = torch.where(image[sph[4].long()] > 0, float(n), sph[4])
+    mats = torch.zeros((5, n + 1), device="cuda")
+    mats[0] = MAT_EMISSIVE
+    mats[1, :n] = image[:n]
+    mats[2] = checker
+    mats[3, n] = 2.0
+    o, d, pix, seed = frame_inputs(r, 0)
+    out = trace(o, d, pix, seed, sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
+                t.tri_cl, mats, max_depth=1, t_min=cfg.t_min, t_max=cfg.t_max,
+                sky=(0.0, 0.0, 1.0), tri_live=t.tri_live, inst=t.inst)
+    return dict(image=int((out[:, 0] == 1.0).sum()),
+                sphere_image=int((out[:, 2] == 2.0).sum()),
+                checker=int((out[:, 1] == 1.0).sum()),
+                miss=int((out[:, 2] == 1.0).sum()))
+
+
+def extension_ops(r) -> tuple:
+    """(operations, hit counts): the scene extensions' work on frame 0's
+    camera rays of renderer r (camera_hit_counts), a lower bound: the
+    later bounces' textured hits and sky misses are not counted."""
+    c = camera_hit_counts(r)
+    ops = c["image"] * TEX_OPS + c["sphere_image"] * (TEX_OPS + SPH_UV_OPS) \
+        + c["checker"] * CHECKER_OPS
+    if len(r._tables.sky) == 13:
+        ops += c["miss"] * SKY_OPS
+    return float(ops), c
+
+
+def ext_kernel_record(kernel: str, ext: dict) -> dict:
+    """The kernels-line entry of the scene extensions' instantiations of
+    `kernel` (trace or segment): launches over T1's timed frames (fused
+    for the trace, wavefront_fused for the segment), the kernel's time on
+    T1's frame 0 at MAIN_W x MAIN_H and its bound there (the first segment
+    for the segment kernel), the plain version's time at CMP_W x CMP_H
+    beside the kernel's at that size, and the largest error over every
+    comparison of phase 17."""
+    cmp = ext["vs_plain"]
+    t1 = cmp["T1"][kernel]
+    if kernel == "trace":
+        path = ext["paths"]["T1_fused"]
+        timed = path["kernels"]
+        source, replaces = SOURCE, REPLACES
+    else:
+        path = ext["paths"]["T1_wavefront_fused"]
+        timed = path["kernels"]["segments"][0]
+        source, replaces = SEG_SOURCE, SEG_REPLACES
+    return {
+        "name": f"{kernel}[ext]", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": path["launches"][kernel],
+        "max_abs_err": max(c[kernel]["max_abs_err"] for c in cmp.values()),
+        "ms": timed["ms"], "plain_ms": t1["plain_ms"],
+        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "library_ms": None,
+        "size": f"the {kernel} kernel's scene-extension instantiations "
+                f"(kExt): ms, bound and launches on T1 (texture_demo) "
+                f"{MAIN_W}x{MAIN_H}, frame 0 (launches over its {TIMED} "
+                f"timed frames); plain_ms and cmp_ms on T1 at {CMP_W}x"
+                f"{CMP_H}, frame 0; max_abs_err over T1 (with and without "
+                f"NEE, QMC + thin lens), T2 and T3 at {CMP_W}x{CMP_H}; "
+                f"library_ms null: no single PyTorch call computes it",
+        "cmp_ms": t1["ms"], "bound": timed, "vs_plain": cmp,
+        "engines_agree": ext["engines_agree"],
+        "paths": {k: v for k, v in ext["paths"].items()
+                  if ("wavefront" in k) == (kernel == "segment")}}
+
+
+def extension_phases(bunny, png_dir) -> dict:
+    """Phases 17-19: the scene extensions, workloads T1 (texture_demo), T2
+    (sky_demo) and T3 (the instanced multimesh scene with its bunny
+    stand-in textured).  Raises on any miss; returns the records for the
+    kernels line."""
+    import torch
+    from parallelraytracing_tpu_torch import Scene, ScenePreset
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    ico = icosahedron()
+    t3 = multimesh_scene(bunny, ico, textured=True)
+    eye = np.asarray(PRESET_EYE, np.float64)
+    look = np.asarray(PRESET_LOOK, np.float64)
+
+    def renderer(wl, engine, width, height, **cfg_kw):
+        if wl == "T3":
+            return scene_renderer(engine, t3, INST_EYE, INST_DIR, width,
+                                  height, max_depth=INST_DEPTH, jitter=True,
+                                  **cfg_kw)
+        scene = Scene(ScenePreset({"T1": "texture_demo",
+                                   "T2": "sky_demo"}[wl]))
+        return scene_renderer(engine, scene, eye, look - eye, width, height,
+                              max_depth=MAIN_DEPTH, jitter=True, **cfg_kw)
+
+    lens = dict(lens_radius=LENS_RADIUS, focus_distance=FOCUS_DISTANCE)
+    opts = {"": {}, "nee": dict(nee=True), "lens": lens,
+            "qmc+lens": dict(qmc=True, **lens)}
+    rec = {}
+
+    # 17. kernels vs plain at CMP_W x CMP_H
+    cmp = {}
+    for wl, opt in (("T1", ""), ("T1", "nee"), ("T1", "qmc+lens"),
+                    ("T2", ""), ("T3", "")):
+        tag = f"{wl}{' ' + opt if opt else ''}"
+        r, _ = renderer(wl, "fused", CMP_W, CMP_H, **opts[opt])
+        t = r._tables
+        if not (t.checker or t.itex or len(t.sky) == 13) \
+                or (wl == "T3" and t.inst.itri.shape[0] != 31):
+            raise AssertionError(f"{tag}: the scene extensions are not on")
+        trace_rec = kernel_vs_plain(r, tag, "ext-vs-plain")
+        w_r, _ = renderer(wl, "wavefront_fused", CMP_W, CMP_H, **opts[opt])
+        k, p, s_ms, s_plain_ms = segment_both(w_r)
+        seg_rec = dict(share=ray_share(k.t(), p.t()),
+                       alive_equal=bool((k[12] == p[12]).all()),
+                       max_abs_err=float((k - p).abs().max()), ms=s_ms,
+                       plain_ms=s_plain_ms)
+        phase("ext-segment-vs-plain", f"{tag} {CMP_W}x{CMP_H}, one 2-bounce "
+              f"segment: {seg_rec['share']:.6f} of slots within {RAY_ATOL} "
+              f"on all 13 planes, alive plane equal {seg_rec['alive_equal']}"
+              f", max abs err {seg_rec['max_abs_err']:.3e}; segment kernel "
+              f"{s_ms:.3f} ms, plain {s_plain_ms:.3f} ms")
+        if seg_rec["share"] < RAY_SHARE or not seg_rec["alive_equal"]:
+            raise AssertionError(f"{tag}: segment kernel disagrees with plain")
+        cmp[tag] = dict(trace=trace_rec, segment=seg_rec)
+        del r, w_r, k, p
+    rec["vs_plain"] = cmp
+
+    # 18. the engines agree
+    agree = {}
+    for wl in ("T1", "T3"):
+        (w_r, w_film), (f_r, f_film) = (
+            renderer(wl, e, CMP_W, CMP_H) for e in ("wavefront_fused",
+                                                    "fused"))
+        for _ in range(AGREE_FRAMES):
+            w_r.progressive_render()
+            f_r.progressive_render()
+        diff = w_film.hdr_average() - f_film.hdr_average()
+        agree[wl] = dict(rmse=float(diff.pow(2).mean().sqrt()),
+                         max_abs=float(diff.abs().max()),
+                         schedule=w_r.segment_lengths())
+        phase("ext-engines-agree", f"{wl} {CMP_W}x{CMP_H} x{AGREE_FRAMES} "
+              f"frames: wavefront_fused {tuple(agree[wl]['schedule'])} vs "
+              f"fused HDR RMSE {agree[wl]['rmse']:.3e}, max abs diff "
+              f"{agree[wl]['max_abs']!r}")
+        if not agree[wl]["rmse"] < FILM_RMSE:
+            raise AssertionError(f"{wl}: wavefront_fused and fused disagree")
+        del w_r, f_r, w_film, f_film, diff
+    rec["engines_agree"] = agree
+
+    # 19. T1-T3 timed at MAIN_W x MAIN_H
+    paths = {}
+    for wl, engine, opt in (("T1", "fused", ""), ("T1", "wavefront_fused", ""),
+                            ("T1", "fused", "lens"),
+                            ("T1", "fused", "qmc+lens"),
+                            ("T1", "fused", "nee"), ("T2", "fused", ""),
+                            ("T2", "wavefront_fused", ""), ("T3", "fused", ""),
+                            ("T3", "wavefront_fused", "")):
+        tag = f"{wl}_{engine}{'_' + opt.replace('+', '_') if opt else ''}"
+        r, film = renderer(wl, engine, MAIN_W, MAIN_H, **opts[opt])
+        counts = depth_counts(r)
+        ext_ops, hits = extension_ops(r)
+        if engine == "fused":
+            inputs = frame_inputs(r, 0)
+            k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+            kern = dict(ms=k_ms, **kernel_bound(
+                r._tables, sum(counts), MAIN_W * MAIN_H, TRACE_RAY_BYTES,
+                ext_ops))
+            detail = (f"trace kernel {k_ms:.3f} ms, bound {kern['bound_ms']:.4f}"
+                      f" ms ({kern['bound_by']}), {kern['bound_ms'] / k_ms:.1%}"
+                      f" of it")
+            del inputs
+        else:
+            segs = time_segments(r)
+            depth0 = 0
+            for i, sg in enumerate(segs):
+                sg.update(kernel_bound(
+                    r._tables, sum(counts[depth0:depth0 + sg["bounces"]]),
+                    MAIN_W * MAIN_H, SEGMENT_RAY_BYTES,
+                    ext_ops if i == 0 else 0.0))
+                depth0 += sg["bounces"]
+            kern = dict(segments=segs)
+            detail = "segment kernels " + " + ".join(
+                f"{sg['ms']:.3f}" for sg in segs) + " ms, bounds " + " + ".join(
+                f"{sg['bound_ms']:.4f}" for sg in segs) + " ms"
+        phase("ext-kernels", f"{tag} {MAIN_W}x{MAIN_H} depth "
+              f"{r.config.max_depth} frame 0: {detail}; camera rays' hits "
+              f"{hits}; rays entering each bounce {counts}")
+        p = timed_path(r, film, tag, png_dir)
+        p.update(kernels=kern, hits=hits, schedule=(
+            r.segment_lengths() if engine != "fused" else None))
+        paths[tag] = p
+        del r, film
+    rec["paths"] = paths
+    phase("ext", f"torch.cuda.max_memory_allocated() "
+          f"{torch.cuda.max_memory_allocated()} bytes (phases 17-19)")
     return rec
 
 
@@ -1204,6 +1477,10 @@ def main(argv=None) -> int:
         # 12-15. the instanced path
         inst = instanced_phases(ply, args.png_dir)
 
+        # 17-19. the scene extensions (T1-T3)
+        from parallelraytracing_tpu_torch.core.mesh import load_ply
+        ext = extension_phases(load_ply(ply), args.png_dir)
+
     # 16. NEE is unbiased and lowers the error on the card
     unbiased = nee_unbiased()
 
@@ -1257,7 +1534,8 @@ def main(argv=None) -> int:
          "mesh_nee_segment": mesh_nee_seg,
          "paths": {k: paths[k] for k in "CD"},
          "instances": {"paths": {k: v for k, v in inst_paths.items()
-                                 if "wavefront" in k}}}]}))
+                                 if "wavefront" in k}}},
+        ext_kernel_record("trace", ext), ext_kernel_record("segment", ext)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,8 @@ Usage:
     python -m parallelraytracing_tpu_torch.cli --ply mesh.ply --frames 16
     python -m parallelraytracing_tpu_torch.cli --scene cornell --nee \
         --rr-depth 3 --frames 16 --out cornell.png
+    python -m parallelraytracing_tpu_torch.cli --scene texture_demo \
+        --lens-radius 0.1 --focus-distance 10 --qmc --frames 16
     python -m parallelraytracing_tpu_torch.cli --device cpu --scene cornell \
         --width 64 --height 64 --frames 4
 """
@@ -32,7 +34,10 @@ def build_argparser() -> argparse.ArgumentParser:
         description="progressive Monte Carlo path tracer (PyTorch/CUDA port)")
     p.add_argument("--scene", default="random_balls_large",
                    help="preset name (default, light_test, material_test, "
-                        "cornell, random_balls_{small,medium,large})")
+                        "cornell, random_balls_{small,medium,large}, or the "
+                        "extension demos: texture_demo (checker floor, "
+                        "image-textured quad and sphere; pairs well with "
+                        "--lens-radius), sky_demo (gradient + sun sky))")
     p.add_argument("--ply", default=None,
                    help="render a PLY mesh (the showcase scene) instead of "
                         "a preset")
@@ -61,6 +66,16 @@ def build_argparser() -> argparse.ArgumentParser:
                         "directly at diffuse hits (in-kernel in fused and "
                         "wavefront_fused; much lower variance on "
                         "emissive-lit scenes)")
+    p.add_argument("--lens-radius", type=float, default=0.0,
+                   help="thin-lens aperture radius in world units (0 = "
+                        "pinhole, the reference's camera): defocus blur")
+    p.add_argument("--focus-distance", type=float, default=10.0,
+                   help="focal-plane distance along the view direction "
+                        "(with --lens-radius > 0)")
+    p.add_argument("--qmc", action="store_true",
+                   help="QMC camera sampling: jitter and aperture draws "
+                        "rotate a shared Halton point per pixel instead of "
+                        "independent uniforms")
     p.add_argument("--rr-depth", type=int, default=0, metavar="D",
                    help="Russian roulette: stochastically terminate "
                         "low-throughput paths after D bounces, unbiased "
@@ -115,7 +130,9 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth, samples_per_frame=args.spp,
                        jitter=not args.no_jitter, seed=args.seed,
-                       nee=args.nee, russian_roulette_depth=args.rr_depth,
+                       nee=args.nee, lens_radius=args.lens_radius,
+                       focus_distance=args.focus_distance, qmc=args.qmc,
+                       russian_roulette_depth=args.rr_depth,
                        firefly_clamp=args.clamp)
     if args.ply:
         from parallelraytracing_tpu_torch.core.scene import ply_showcase_scene

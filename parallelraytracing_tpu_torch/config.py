@@ -51,10 +51,12 @@ class RenderConfig:
     nee: bool = False
     #: firefly clamp on per-sample radiance (0 = off)
     firefly_clamp: float = 0.0
-    #: thin-lens aperture radius and focus distance (not in this port yet)
+    #: thin-lens aperture radius and focus distance in world units (0: a
+    #: pinhole, the reference's camera)
     lens_radius: float = 0.0
     focus_distance: float = 10.0
-    #: QMC camera sampling (not in this port yet)
+    #: QMC camera sampling: jitter and aperture draws rotate a shared
+    #: Halton point per pixel instead of independent uniforms
     qmc: bool = False
 
     @property

@@ -18,32 +18,25 @@ from parallelraytracing_tpu_torch.core.scene import SceneData
 from parallelraytracing_tpu_torch.engines.tables import InstanceTables, SceneTables
 from parallelraytracing_tpu_torch.ops.pack import (LIGHT_ROWS, check_instance_layout,
                                                    instance_ranges)
-
-#: SceneData fields of the JAX package with no counterpart here yet (sky
-#: models and textures, ROADMAP Queue 1 item 11)
-_EXTENSIONS = ("sky_top", "sun", "mat_tex", "mat_tex_param", "tex_atlas",
-               "tex_size", "tri_uv0", "tri_uv1", "tri_uv2")
-
+from parallelraytracing_tpu_torch.ops.trace import _check_sky
 
 def scene_data_from_numpy(arrays: dict, device) -> SceneData:
     """SceneData on `device` from the JAX package's SceneData fields as
-    numpy, keyed by field name (e.g. ``{f: np.asarray(getattr(sd, f))}``).
-    Extension fields must be absent or None."""
-    used = [k for k in _EXTENSIONS if arrays.get(k) is not None]
-    if used:
-        raise NotImplementedError(
-            f"SceneData fields {used}: ROADMAP Queue 1 item 11 (not ported yet)")
+    numpy, keyed by field name (e.g. ``{f: np.asarray(getattr(sd, f))}``);
+    an extension field that is absent or None stays None."""
     return SceneData(**{
-        f.name: torch.from_numpy(np.array(arrays[f.name])).to(device)
+        f.name: (None if arrays.get(f.name) is None
+                 else torch.from_numpy(np.array(arrays[f.name])).to(device))
         for f in dataclasses.fields(SceneData)})
 
 
 def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
                       device, bb=((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),
-                      lights=None, nee: bool = False,
-                      inst=None) -> SceneTables:
+                      lights=None, nee: bool = False, inst=None,
+                      checker=(), itex=(), itex_tab=None) -> SceneTables:
     """SceneTables on `device` from packed host tables (either package's
-    ``pack_scene_tables``), the sky 3-tuple and the scene box ``bb`` =
+    ``pack_scene_tables``), the sky spec (3 floats, or the 13-tuple of
+    ``engines/tables.sky_spec``) and the scene box ``bb`` =
     ((lo), (1 / extent)) of the sort key (the JAX engine tables' ``bb``;
     it only orders the wavefront queue, never changes an image).
     `lights` is either package's ``pack_lights_table`` (default: the
@@ -53,7 +46,10 @@ def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
     ``pack_instance_tables`` output (itri, iacc, ibox, inst), or None for
     a scene without instances; take the JAX package's unsplit (25, Nt)
     itri from ``pack_instance_tables``, not the engine tables' ``inst[0]``,
-    which may be only the 16-row hot half of a hot/cold split."""
+    which may be only the 16-row hot half of a hot/cold split.
+    ``checker`` and ``itex`` are the engine tables' material specs and
+    ``itex_tab`` the texel rows of ``pack_kernel_textures`` (None without
+    image textures)."""
     def dev(a):
         return torch.from_numpy(
             np.array(a, dtype=np.float32, order="C")).to(device)
@@ -72,7 +68,16 @@ def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
     return SceneTables(
         sph=dev(sph), quad=dev(quad), tri=dev(tri), sph_cl=dev(sph_cl),
         quad_cl=dev(quad_cl), tri_cl=dev(tri_cl), mats=dev(mats),
-        sky=tuple(float(s) for s in np.asarray(sky, np.float32)),
-        tri_live=bool(np.any(tri[0:3] != 0.0)), lights=dev(lights),
-        nee=bool(nee), bb=tuple(tuple(float(x) for x in v) for v in bb),
-        inst=inst)
+        sky=_sky(sky), tri_live=bool(np.any(tri[0:3] != 0.0)),
+        lights=dev(lights), nee=bool(nee),
+        bb=tuple(tuple(float(x) for x in v) for v in bb), inst=inst,
+        checker=tuple(tuple(float(x) for x in c) for c in checker),
+        itex=tuple((float(m), int(o), int(h), int(w)) for m, o, h, w in itex),
+        itex_tab=None if itex_tab is None else dev(itex_tab))
+
+
+def _sky(sky) -> tuple:
+    """A sky spec with its colors rounded to float32; the sun power of a
+    13-value spec stays an integer."""
+    return _check_sky(tuple(float(np.float32(s)) for s in sky[:12])
+                      + tuple(sky[12:]))

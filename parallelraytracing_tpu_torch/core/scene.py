@@ -12,9 +12,13 @@ The seven reference presets are replicated, including the mt19937(1337)
 layout of the RANDOM_BALLS variants, so ``build()`` gives the same arrays
 as the JAX package; ``add_mesh`` and ``ply_showcase_scene`` give its mesh
 scenes, and ``add_mesh_instances`` its instanced ones (kept as records,
-world-baked only by ``build(bake_instances=True)``).  Sky models and
-textures are not in this port yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+world-baked only by ``build(bake_instances=True)``).  The scene
+extensions are the JAX package's too: ``set_sky`` (gradient and sun
+sky), ``add_checker`` (procedural checker albedo), ``add_texture`` /
+``add_textured_lambertian`` (image textures, sampled at the hit's UV),
+mesh texture coordinates, and the ``texture_demo`` and ``sky_demo``
+presets.  Their ``SceneData`` fields are present only when used, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from parallelraytracing_tpu_torch.config import DEFAULT_SKY
 from parallelraytracing_tpu_torch.core import geometry as geo
 from parallelraytracing_tpu_torch.core.host_rng import UniformSceneRng
+from parallelraytracing_tpu_torch.ops.textures import TEX_CHECKER, TEX_IMAGE_BASE
 
 # Material type codes (order matches the reference MatType enum).
 MAT_LAMBERTIAN = 0
@@ -36,13 +41,11 @@ MAT_METAL = 1
 MAT_DIELECTRIC = 2
 MAT_EMISSIVE = 3
 
-_SCENE_EXTENSIONS = "ROADMAP Queue 1 item 11 (scene extensions)"
-
-
 class ScenePreset(enum.Enum):
     """The reference's preset enum (src/core/scene.h:6-20) plus the JAX
-    package's two extension demos, which need features this port does
-    not have yet (building them raises)."""
+    package's two extension demos: ``texture_demo`` (checker floor, image
+    textures on a quad and a sphere) and ``sky_demo`` (gradient and sun
+    sky over specular spheres)."""
 
     DEFAULT = "default"
     LIGHT_TEST = "light_test"
@@ -88,11 +91,30 @@ class SceneData:
     mat_ior: torch.Tensor     # (Nm,)
     mat_emit: torch.Tensor    # (Nm,3)
 
-    sky: torch.Tensor  # (3,)
+    sky: torch.Tensor  # (3,) constant sky, or the gradient's bottom
+
+    # Scene extensions, None when unused (the JAX package's optional
+    # fields): sky_top the gradient's top color; sun (9,) = [dir(3),
+    # color(3), power, 0, 0]; mat_tex per material 0 none, 1 checker,
+    # >= 2 image (id + 2), with mat_tex_param [cell scale, odd rgb];
+    # tex_atlas (T, TH, TW, 3) zero-padded images of true size tex_size
+    # (T, 2) (h, w); tri_uv0..2 (Nt, 2) texture coordinates (image
+    # scenes).
+    sky_top: Optional[torch.Tensor] = None
+    sun: Optional[torch.Tensor] = None
+    mat_tex: Optional[torch.Tensor] = None
+    mat_tex_param: Optional[torch.Tensor] = None
+    tex_atlas: Optional[torch.Tensor] = None
+    tex_size: Optional[torch.Tensor] = None
+    tri_uv0: Optional[torch.Tensor] = None
+    tri_uv1: Optional[torch.Tensor] = None
+    tri_uv2: Optional[torch.Tensor] = None
 
     def numpy(self) -> dict:
-        """Every field as a host numpy array, keyed by field name."""
-        return {f.name: getattr(self, f.name).cpu().numpy()
+        """Every field as a host numpy array (None where unused), keyed by
+        field name."""
+        return {f.name: (None if getattr(self, f.name) is None
+                         else getattr(self, f.name).cpu().numpy())
                 for f in dataclasses.fields(self)}
 
 
@@ -117,6 +139,9 @@ class Scene:
         self._mat_rough: List[float] = []
         self._mat_ior: List[float] = []
         self._mat_emit: List[np.ndarray] = []
+        self._mat_tex: List[int] = []
+        self._mat_tex_param: List[np.ndarray] = []
+        self._textures: List[np.ndarray] = []  # (H, W, 3) images
 
         self._sph: List[Tuple[np.ndarray, float, int]] = []
         self._quad: List[Tuple] = []
@@ -133,36 +158,85 @@ class Scene:
         self.sky_light_intensity = 1.0
         self.use_sky_intensity = False
         self.sky_color = np.array(DEFAULT_SKY, dtype=np.float64)
+        # set_sky: None keeps the constant sky
+        self.sky_top: Optional[np.ndarray] = None
+        self.sun_spec: Optional[Tuple[np.ndarray, np.ndarray, int]] = None
 
         if preset is not None:
             _PRESET_BUILDERS[preset](self)
 
-    # ------------------------------------------------ not in this port yet
-    def set_sky(self, *args, **kw) -> None:
-        raise NotImplementedError(
-            f"Scene.set_sky (gradient + sun sky): {_SCENE_EXTENSIONS}")
+    # ----------------------------------------------------------------- sky
+    def set_sky(self, bottom=None, top=None, sun_direction=None,
+                sun_color=None, sun_power: int = 32) -> None:
+        """The sky model (the reference hardcodes one constant sky):
 
-    def add_checker(self, *args, **kw) -> int:
-        raise NotImplementedError(
-            f"Scene.add_checker (procedural texture): {_SCENE_EXTENSIONS}")
-
-    def add_texture(self, *args, **kw) -> int:
-        raise NotImplementedError(
-            f"Scene.add_texture (image texture): {_SCENE_EXTENSIONS}")
-
-    def add_textured_lambertian(self, *args, **kw) -> int:
-        raise NotImplementedError(
-            f"Scene.add_textured_lambertian: {_SCENE_EXTENSIONS}")
+        - bottom: the horizon color (replaces sky_color; alone, the sky
+          stays constant);
+        - top: the zenith color, enabling the gradient
+          lerp(bottom, top, 0.5 * (d_hat.y + 1));
+        - sun_direction / sun_color / sun_power: a sun disc
+          color * max(d_hat . dir, 0) ** power added on top; the power is
+          a positive integer (the kernels raise to it by squaring)."""
+        if bottom is not None:
+            self.sky_color = np.asarray(bottom, dtype=np.float64)
+        self.sky_top = (None if top is None
+                        else np.asarray(top, dtype=np.float64))
+        if sun_direction is None:
+            self.sun_spec = None
+            return
+        d = np.asarray(sun_direction, dtype=np.float64)
+        n = np.linalg.norm(d)
+        if n < 1e-12:
+            raise ValueError("set_sky: sun_direction must be non-zero")
+        c = np.asarray(sun_color if sun_color is not None else (1.0, 1.0, 1.0),
+                       dtype=np.float64)
+        p = int(sun_power)
+        if p < 1:
+            raise ValueError("set_sky: sun_power must be a positive integer")
+        self.sun_spec = (d / n, c, p)
 
     # ------------------------------------------------------------ materials
     def _add_material(self, mtype: int, albedo=(0, 0, 0), rough=0.0,
-                      ior=1.0, emit=(0, 0, 0)) -> int:
+                      ior=1.0, emit=(0, 0, 0), tex=0,
+                      tex_param=(0.0, 0.0, 0.0, 0.0)) -> int:
         self._mat_type.append(mtype)
         self._mat_albedo.append(np.asarray(albedo, dtype=np.float64))
         self._mat_rough.append(float(rough))
         self._mat_ior.append(float(ior))
         self._mat_emit.append(np.asarray(emit, dtype=np.float64))
+        self._mat_tex.append(int(tex))
+        self._mat_tex_param.append(np.asarray(tex_param, dtype=np.float64))
         return len(self._mat_type) - 1
+
+    def add_checker(self, even, odd, scale: float = 1.0) -> int:
+        """A Lambertian with a 3D checker albedo: cells of world-space size
+        1/scale alternate between `even` and `odd` (position-based, no
+        texture coordinates needed)."""
+        odd = np.asarray(odd, dtype=np.float64)
+        return self._add_material(
+            MAT_LAMBERTIAN, albedo=even, tex=TEX_CHECKER,
+            tex_param=(float(scale), odd[0], odd[1], odd[2]))
+
+    def add_texture(self, image) -> int:
+        """Register an (H, W, 3) float image; returns its texture id for
+        add_textured_lambertian."""
+        img = np.asarray(image, dtype=np.float64)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"add_texture: want an (H, W, 3) image, got "
+                             f"{img.shape}")
+        self._textures.append(img)
+        return len(self._textures) - 1
+
+    def add_textured_lambertian(self, texture_id: int) -> int:
+        """A Lambertian whose albedo is the image texture `texture_id`,
+        sampled bilinearly with repeat wrap at the hit's UV (quad
+        half-extent coordinates, a triangle's interpolated texture
+        coordinates, a sphere's equirectangular map)."""
+        if not 0 <= texture_id < len(self._textures):
+            raise ValueError(f"add_textured_lambertian: no texture "
+                             f"{texture_id}")
+        return self._add_material(MAT_LAMBERTIAN, albedo=(1.0, 1.0, 1.0),
+                                  tex=TEX_IMAGE_BASE + texture_id)
 
     def add_lambertian(self, albedo) -> int:
         return self._add_material(MAT_LAMBERTIAN, albedo=albedo)
@@ -198,7 +272,8 @@ class Scene:
         self._quad.append((center, u, v, n, material))
 
     def add_triangle(self, v0, v1, v2, n0=None, n1=None, n2=None,
-                     material: int = 0, transform: TransformSpec = None) -> None:
+                     material: int = 0, transform: TransformSpec = None,
+                     uv0=None, uv1=None, uv2=None) -> None:
         m = _resolve_transform(transform)
         inv = np.linalg.inv(m)
         w0 = geo.transform_point(m, v0)
@@ -213,13 +288,15 @@ class Scene:
             wn0 = geo.transform_normal(inv, n0)
             wn1 = geo.transform_normal(inv, n1)
             wn2 = geo.transform_normal(inv, n2)
-        self._tri.append((w0, w1, w2, wn0, wn1, wn2, material))
+        self._tri.append((w0, w1, w2, wn0, wn1, wn2, material, uv0, uv1, uv2))
 
     def add_mesh(self, mesh, material: int,
                  transform: TransformSpec = None) -> None:
         """Add every triangle of a Mesh (core/mesh.py), baked to world
         space; vertex normals go through the inverse transpose and are
-        renormalised, and a mesh without them gets flat face normals."""
+        renormalised, and a mesh without them gets flat face normals.  The
+        mesh's per-vertex texture coordinates, when it has them, go with
+        each triangle."""
         m = _resolve_transform(transform)
         inv = np.linalg.inv(m)
         verts = np.asarray(mesh.vertices, dtype=np.float64)
@@ -231,15 +308,20 @@ class Scene:
             nrm = nrm / np.maximum(lens, 1e-30)
         else:
             nrm = None
+        uv = (np.asarray(mesh.texcoords, dtype=np.float64)
+              if mesh.texcoords is not None
+              and len(mesh.texcoords) == len(verts) else None)
         for (a, b, c) in idx:
+            uvs = (uv[a], uv[b], uv[c]) if uv is not None else (None,) * 3
             if nrm is not None:
                 self._tri.append((w[a], w[b], w[c], nrm[a], nrm[b], nrm[c],
-                                  material))
+                                  material, *uvs))
             else:
                 gn = np.cross(w[b] - w[a], w[c] - w[a])
                 ln = np.linalg.norm(gn)
                 gn = gn / ln if ln > 0 else np.array([0.0, 1.0, 0.0])
-                self._tri.append((w[a], w[b], w[c], gn, gn, gn, material))
+                self._tri.append((w[a], w[b], w[c], gn, gn, gn, material,
+                                  *uvs))
 
     def add_mesh_instances(self, mesh, material: int,
                            transforms: Sequence[TransformSpec]) -> None:
@@ -286,7 +368,10 @@ class Scene:
         """Compile to SceneData on `device`.  float64 host values round to
         float32 in numpy, as the JAX package's build does.  The instances
         are world-baked after the other triangles unless
-        `bake_instances` is False (the engines' base scene)."""
+        `bake_instances` is False (the engines' base scene).  The
+        extension fields are filled only when the scene uses them: the
+        texture fields when a material is textured, the atlas and the
+        triangles' texture coordinates when one is an image."""
         def f32(x):
             a = np.asarray(x, dtype=np.float64).astype(np.float32)
             return torch.from_numpy(a).to(device)
@@ -304,12 +389,37 @@ class Scene:
                             if bake_instances and self._instances else [])
         tri = tris or [(np.zeros(3), np.zeros(3), np.zeros(3),
                         np.array([0, 1.0, 0]), np.array([0, 1.0, 0]),
-                        np.array([0, 1.0, 0]), 0)]
+                        np.array([0, 1.0, 0]), 0, None, None, None)]
         if not self._mat_type:
             self._add_material(MAT_LAMBERTIAN, albedo=(0.5, 0.5, 0.5))
 
+        ext = {}
+        if any(self._mat_tex):
+            ext["mat_tex"] = i32(self._mat_tex)
+            ext["mat_tex_param"] = f32(self._mat_tex_param)
+        if any(t >= TEX_IMAGE_BASE for t in self._mat_tex):
+            th = max(t.shape[0] for t in self._textures)
+            tw = max(t.shape[1] for t in self._textures)
+            atlas = np.zeros((len(self._textures), th, tw, 3))
+            size = np.zeros((len(self._textures), 2), np.int64)
+            for i, img in enumerate(self._textures):
+                atlas[i, :img.shape[0], :img.shape[1]] = img
+                size[i] = img.shape[:2]
+            ext["tex_atlas"] = f32(atlas)
+            ext["tex_size"] = i32(size)
+            for k in range(3):
+                ext[f"tri_uv{k}"] = f32([
+                    np.zeros(2) if t[7 + k] is None
+                    else np.asarray(t[7 + k], np.float64) for t in tri])
+
         sky_scale = (self.sky_light_intensity
                      if self.use_sky_intensity else 1.0)
+        if self.sky_top is not None:
+            ext["sky_top"] = f32(self.sky_top * sky_scale)
+        if self.sun_spec is not None:
+            sd, sc, power = self.sun_spec
+            ext["sun"] = f32(np.concatenate([sd, sc * sky_scale,
+                                             [float(power), 0.0, 0.0]]))
         return SceneData(
             sph_center=f32([s[0] for s in sph]),
             sph_radius=f32([s[1] for s in sph]),
@@ -335,6 +445,7 @@ class Scene:
             mat_ior=f32(self._mat_ior),
             mat_emit=f32(self._mat_emit),
             sky=f32(self.sky_color * sky_scale),
+            **ext,
         )
 
 
@@ -433,9 +544,68 @@ def _init_cornell(scene: Scene) -> None:
     scene.add_quad(10, 10, light, _t((1, 1, 1), (90, 0, 0), (0, 9, 0)))
 
 
-def _needs_extensions(scene: Scene) -> None:
-    raise NotImplementedError(
-        f"the texture_demo and sky_demo presets: {_SCENE_EXTENSIONS}")
+def _init_texture_demo(scene: Scene) -> None:
+    """The JAX package's extension demo: a checkered ground plane, a row
+    of Lambertian / metal / dielectric spheres at staggered depths, an
+    emissive sphere, a 32x32 procedural plaid image on a back-wall quad
+    and a 96x48 latitude-band globe image on a sphere."""
+    floor = scene.add_checker((0.85, 0.85, 0.85), (0.12, 0.15, 0.2),
+                              scale=0.8)
+    scene.add_quad(60, 60, floor, None)
+    mirror = scene.add_metal((0.9, 0.9, 0.95), 0.02)
+    glass = scene.add_dielectric(1.5)
+    for i, z in enumerate((-6.0, -2.0, 2.0, 6.0)):
+        tint = scene.add_lambertian((0.8, 0.25 + 0.15 * i, 0.2))
+        scene.add_sphere(1.0, tint, ((1, 1, 1), (0, 0, 0), (-2.5, 1.0, z)))
+        scene.add_sphere(1.0, mirror if i % 2 else glass,
+                         ((1, 1, 1), (0, 0, 0), (2.5, 1.0, z)))
+    light = scene.add_emissive((6, 6, 6))
+    scene.add_sphere(2.0, light, ((1, 1, 1), (0, 0, 0), (0.0, 12.0, 0.0)))
+    scene.add_quad(6, 4, scene.add_textured_lambertian(
+        scene.add_texture(plaid_image())),
+        ((1, 1, 1), (90, 0, 0), (0.0, 4.0, -9.0)))
+    scene.add_sphere(1.4, scene.add_textured_lambertian(
+        scene.add_texture(globe_image())),
+        ((1, 1, 1), (0, 25, 0), (0.0, 1.4, -4.0)))
+
+
+def plaid_image() -> np.ndarray:
+    """texture_demo's 32x32 procedural plaid, (32, 32, 3) float64."""
+    yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    return np.stack([
+        0.15 + 0.8 * ((xx // 8 + yy // 8) % 2),
+        0.2 + 0.6 * np.abs(np.sin(xx * 0.4)),
+        0.25 + 0.7 * (yy / 31.0)], axis=2)
+
+
+def globe_image() -> np.ndarray:
+    """texture_demo's 96x48 latitude-band globe, (48, 96, 3) float64."""
+    gy, gx = np.meshgrid(np.arange(48), np.arange(96), indexing="ij")
+    return np.stack([
+        0.2 + 0.6 * (np.sin(gy * np.pi / 12.0) > 0),
+        0.3 + 0.5 * ((gx // 12) % 2),
+        0.7 - 0.5 * np.abs(gy / 47.0 - 0.5) * 2.0], axis=2)
+
+
+def _init_sky_demo(scene: Scene) -> None:
+    """The JAX package's extension demo: the gradient sky with a sun disc
+    of power 256 over a mirror, a glass and a brushed-metal sphere and a
+    row of six diffuse ones on a gray floor."""
+    scene.set_sky(bottom=(1.0, 1.0, 1.0), top=(0.35, 0.55, 0.95),
+                  sun_direction=(0.45, 0.65, 0.35),
+                  sun_color=(14.0, 12.0, 9.0), sun_power=256)
+    ground = scene.add_lambertian((0.55, 0.55, 0.55))
+    scene.add_quad(80, 80, ground, None)
+    mirror = scene.add_metal((0.95, 0.95, 0.95), 0.02)
+    brushed = scene.add_metal((0.8, 0.65, 0.4), 0.25)
+    glass = scene.add_dielectric(1.5)
+    scene.add_sphere(2.0, mirror, ((1, 1, 1), (0, 0, 0), (-4.5, 2.0, 0)))
+    scene.add_sphere(2.0, glass, ((1, 1, 1), (0, 0, 0), (0.0, 2.0, 1.5)))
+    scene.add_sphere(2.0, brushed, ((1, 1, 1), (0, 0, 0), (4.5, 2.0, 0)))
+    for i in range(6):
+        tint = scene.add_lambertian((0.25 + 0.1 * i, 0.4, 0.7 - 0.08 * i))
+        scene.add_sphere(0.7, tint, ((1, 1, 1), (0, 0, 0),
+                                     (-5.0 + 2.0 * i, 0.7, 4.5)))
 
 
 def ply_showcase_scene(path: str):
@@ -464,6 +634,6 @@ _PRESET_BUILDERS = {
     ScenePreset.RANDOM_BALLS_SMALL: lambda s: _init_random_balls(s, 100),
     ScenePreset.RANDOM_BALLS_MEDIUM: lambda s: _init_random_balls(s, 400),
     ScenePreset.RANDOM_BALLS_LARGE: lambda s: _init_random_balls(s, 800),
-    ScenePreset.TEXTURE_DEMO: _needs_extensions,
-    ScenePreset.SKY_DEMO: _needs_extensions,
+    ScenePreset.TEXTURE_DEMO: _init_texture_demo,
+    ScenePreset.SKY_DEMO: _init_sky_demo,
 }

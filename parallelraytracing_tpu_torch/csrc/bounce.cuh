@@ -6,15 +6,16 @@
 // queue), so the two run the same arithmetic and render the same bits.
 //
 // The counterpart of parallelraytracing_tpu/ops/pallas_trace.py
-// _make_bounce_step on its constant-sky, untextured subset: the sphere,
-// quad and triangle closest-hit bodies (sph_body, quad_body,
-// make_tri_body), the three per-kind walks of `clustered` (threaded SAH
-// tree, linear cluster scan behind a root pretest, plain loop for tiny
-// kinds), the instance block (inst_body: a linear scan of the instances'
-// world boxes, each entered instance's tree walked by its mesh-local
-// ray), the deferred shading normal, sky, emission, next-event
-// estimation with its any-hit shadow walk, the branchless Lambertian /
-// metal / dielectric block, Russian roulette and the PCG streams.
+// _make_bounce_step: the sphere, quad and triangle closest-hit bodies
+// (sph_body, quad_body, make_tri_body), the three per-kind walks of
+// `clustered` (threaded SAH tree, linear cluster scan behind a root
+// pretest, plain loop for tiny kinds), the instance block (inst_body: a
+// linear scan of the instances' world boxes, each entered instance's tree
+// walked by its mesh-local ray), the deferred shading normal, the scene
+// extensions (image textures with the sphere's equirectangular map, the
+// checker, the gradient and sun sky), emission, next-event estimation
+// with its any-hit shadow walk, the branchless Lambertian / metal /
+// dielectric block, Russian roulette and the PCG streams.
 //
 // The tables are the JAX package's (C, N) column layout in read-only
 // global memory (every table of the repo's scenes fits in the H100's
@@ -30,8 +31,10 @@
 // moves last bits, and a path tracer turns a last-bit difference at a
 // grazing hit into a different path.  Division and sqrtf are IEEE-rounded
 // (nvcc's default -prec-div=true -prec-sqrt=true), the TPU kernel's rsqrt
-// is written 1.0f / sqrtf(x), and sin and cos are taken in float64 and
-// rounded to float: the plain versions compute the same (ops/ieee.py).
+// is written 1.0f / sqrtf(x), and sin, cos, atan2 and asin are taken in
+// float64 and rounded to float: the plain versions compute the same
+// (ops/ieee.py).  (The TPU kernel takes atan2 and asin from polynomials,
+// vpu_atan2 / vpu_asin, a workaround for Mosaic, within ~1e-7 rad.)
 
 #pragma once
 
@@ -57,7 +60,11 @@ struct PrtScene {
   int csize;      // primitives per linear cluster, sphere and quad kinds
   int tri_csize;  // primitives per linear cluster, triangle kind
   float t_min, t_cap;  // t_cap = t_max, or +inf when t_max >= 1e30
-  float sky0, sky1, sky2;
+  // The sky spec (engines/tables.sky_spec): bottom(3) top(3) sun
+  // direction(3) sun color(3) power; sky_mode 0 the constant sky[0..2],
+  // 1 the gradient, 2 the gradient and the sun.
+  float sky[13];
+  int sky_mode;
   const float* lights;  // (28, n_lights): ops/pack.pack_lights_table
   int n_lights;         // 0: NEE off
   int rr_depth;         // Russian roulette from this absolute depth; 0: off
@@ -70,6 +77,15 @@ struct PrtScene {
   const float* ibox;  // (6, n_inst)
   const float* inst;  // (24, n_inst)
   int n_itri, n_iacc, n_inst;
+  // Textures (ops/trace.texture_table, ops/pack.pack_kernel_textures):
+  // per material [kind (0 none, 1 checker, 2 image), then a checker's
+  // scale and odd rgb, or an image's first texel row, height, width,
+  // 1/height, 1/width], null without textures; the packed u24 texel rows,
+  // null without images, whose presence also says the triangle tables
+  // carry texture coordinates (tri rows 27-32, itri rows 25-30).  The
+  // wrapper checks every image's rows against the table's height.
+  const float* mtex;  // (6, n_mats)
+  const float* itex;  // (Rt, 128)
 };
 
 namespace {
@@ -77,6 +93,12 @@ namespace {
 constexpr float kBig = 3.0e38f;
 constexpr float kPi = (float)3.14159265358979323846;
 constexpr float kTwoPi = (float)(2.0 * 3.14159265358979323846);
+// The float32 roundings of the float64 constants the TPU kernel uses.
+constexpr float kInvTwoPi = (float)(1.0 / (2.0 * 3.14159265358979323846));
+constexpr float kInvPi = (float)(1.0 / 3.14159265358979323846);
+constexpr float kCheckerOff = (float)0.3183098861;  // ops/textures.py
+constexpr float kInv255 = (float)(1.0 / 255.0);
+constexpr int kTexLanes = 128;
 constexpr uint32_t kSaltStep = 0x9E3779B9u;
 constexpr uint32_t kDepthStep = 0x85EBCA6Bu;
 constexpr int kLambertian = 0;
@@ -100,11 +122,25 @@ struct Ray {
 
 // Closest-hit carry: the raw winner geometry (sphere center, quad normal,
 // or the triangle's unnormalised interpolated normal) and the winner's
-// compressed material record.
-struct Hit {
+// compressed material record; with kExt (textured or directional-sky
+// scenes) also its material id and texture coordinates (a sphere's are
+// computed after the fold).  The carry lives in memory across the
+// non-inlined walks, so the instantiations without kExt get a carry
+// without those fields.
+struct HitBase {
   static constexpr bool kAnyHit = false;
   float t, gx, gy, gz, c0, c1, c2, extra, ord;
   int front, is_sph, mtype;
+};
+template <bool kExt>
+struct Hit : HitBase {
+  static constexpr bool kUV = false;
+};
+template <>
+struct Hit<true> : HitBase {
+  static constexpr bool kUV = true;
+  int mid;
+  float u, v;
 };
 
 // Any-hit carry of a shadow ray, seeded with its light's own (t, ord): a
@@ -113,6 +149,7 @@ struct Hit {
 // (the per-ray form of the TPU's "best_t -> -BIG").
 struct Occluder {
   static constexpr bool kAnyHit = true;
+  static constexpr bool kUV = false;
   float t, ord;
 };
 
@@ -168,12 +205,14 @@ __device__ __forceinline__ bool beats(float t, float ordv, const Carry& h) {
   return t < h.t || (t == h.t && ordv < h.ord);
 }
 
-// Record a winner: the closest-hit carry takes its geometry and material;
-// an any-hit carry is occluded.
+// Record a winner: the closest-hit carry takes its geometry and material
+// (and with kUV its material id and texture coordinates u, v); an any-hit
+// carry is occluded.
 template <class Carry>
 __device__ __forceinline__ void take(const PrtScene& S, float t, float ordv,
                                      float mid, float gx, float gy, float gz,
-                                     int front, int is_sph, Carry& h) {
+                                     int front, int is_sph, float u, float v,
+                                     Carry& h) {
   if constexpr (Carry::kAnyHit) {
     h.t = -kBig;
   } else {
@@ -191,6 +230,11 @@ __device__ __forceinline__ void take(const PrtScene& S, float t, float ordv,
     h.c1 = ld(S.mats, 2 * n + mi);
     h.c2 = ld(S.mats, 3 * n + mi);
     h.extra = ld(S.mats, 4 * n + mi);
+    if constexpr (Carry::kUV) {
+      h.mid = mi;
+      h.u = u;
+      h.v = v;
+    }
   }
 }
 
@@ -214,6 +258,16 @@ __device__ __forceinline__ bool sphere_t(float ox, float oy, float oz,
   return (disc >= 0.0f) && (t >= t_min) && (t <= t_cap);
 }
 
+// A quad hit's half-extent coordinate along the scaled edge s (us or vs)
+// with offset c (cu or cv): (o.s) + t (d.s) - c.
+__device__ __forceinline__ float quad_coord(float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float sx, float sy, float sz,
+                                            float c, float t) {
+  return (ox * sx + oy * sy + oz * sz) + t * (dx * sx + dy * sy + dz * sz)
+      - c;
+}
+
 // The quad test's hit distance and in-extent test from the plane
 // constants n, cn and the scaled edges us, cu, vs, cv; `on` is o.n (its
 // sign gives the front flag).  Shared with the NEE block's quad light.
@@ -230,10 +284,8 @@ __device__ __forceinline__ bool quad_t(float ox, float oy, float oz,
   bool denom_ok = fabsf(dn) >= 1e-8f;
   float inv_dn = denom_ok ? 1.0f / dn : 0.0f;
   t = (cn - on) * inv_dn;
-  float a = (ox * usx + oy * usy + oz * usz)
-      + t * (dx * usx + dy * usy + dz * usz) - cu;
-  float b = (ox * vsx + oy * vsy + oz * vsz)
-      + t * (dx * vsx + dy * vsy + dz * vsz) - cv;
+  float a = quad_coord(ox, oy, oz, dx, dy, dz, usx, usy, usz, cu, t);
+  float b = quad_coord(ox, oy, oz, dx, dy, dz, vsx, vsy, vsz, cv, t);
   return denom_ok && (t > t_min) && (a * a < 1.0f) && (b * b < 1.0f)
       && (t <= t_cap);
 }
@@ -252,7 +304,7 @@ __device__ __forceinline__ void sphere_test(const PrtScene& S, int j,
   }
   float ordv = ld(s, 5 * n + j);
   if (!beats(t, ordv, h)) return;
-  take(S, t, ordv, ld(s, 4 * n + j), cx, cy, cz, fr, 1, h);
+  take(S, t, ordv, ld(s, 4 * n + j), cx, cy, cz, fr, 1, 0.0f, 0.0f, h);
 }
 
 template <class Carry>
@@ -272,7 +324,19 @@ __device__ __forceinline__ void quad_test(const PrtScene& S, int j,
   }
   float ordv = ld(q, 13 * n + j);
   if (!beats(t, ordv, h)) return;
-  take(S, t, ordv, ld(q, 12 * n + j), qnx, qny, qnz, on - cn > 0.0f, 0, h);
+  float u = 0.0f, v = 0.0f;
+  if constexpr (Carry::kUV) {
+    // the winner's half-extent coordinates (as quad_t computed them) to
+    // texture coordinates: u = (a + 1) / 2
+    u = 0.5f + 0.5f * quad_coord(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                                 ld(q, 4 * n + j), ld(q, 5 * n + j),
+                                 ld(q, 6 * n + j), ld(q, 7 * n + j), t);
+    v = 0.5f + 0.5f * quad_coord(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                                 ld(q, 8 * n + j), ld(q, 9 * n + j),
+                                 ld(q, 10 * n + j), ld(q, 11 * n + j), t);
+  }
+  take(S, t, ordv, ld(q, 12 * n + j), qnx, qny, qnz, on - cn > 0.0f, 0, u, v,
+       h);
 }
 
 // Moller-Trumbore through triple products (pallas_trace.py make_tri_body):
@@ -306,7 +370,8 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ q, int n,
 
 // A flat triangle: the winner carries the raw barycentric blend of the
 // vertex normals and the front flag !(d.n_interp > 0); the normal is
-// normalised once, after the fold.
+// normalised once, after the fold.  With texture coordinates (rows 27-32,
+// image scenes) the kUV carry takes their barycentric blend.
 template <class Carry>
 __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
                                          const Ray& r, Carry& h) {
@@ -327,7 +392,14 @@ __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
     float inz = b0 * ld(q, 20 * n + j) + b1 * ld(q, 23 * n + j)
         + b2 * ld(q, 26 * n + j);
     bool back = (r.dx * inx + r.dy * iny + r.dz * inz) > 0.0f;
-    take(S, t, ordv, ld(q, 16 * n + j), inx, iny, inz, !back, 0, h);
+    float u = 0.0f, v = 0.0f;
+    if (Carry::kUV && S.itex) {
+      u = b0 * ld(q, 27 * n + j) + b1 * ld(q, 29 * n + j)
+          + b2 * ld(q, 31 * n + j);
+      v = b0 * ld(q, 28 * n + j) + b1 * ld(q, 30 * n + j)
+          + b2 * ld(q, 32 * n + j);
+    }
+    take(S, t, ordv, ld(q, 16 * n + j), inx, iny, inz, !back, 0, u, v, h);
   }
 }
 
@@ -336,8 +408,9 @@ __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
 // instance's local ray `lr`, whose t is world t.  The winner carries the
 // world normal (rows 13-21 of the instance record, the inverse transpose,
 // applied to the interpolated local normal), the front flag
-// !(world d . that normal > 0), the instance's material (row 22) and the
-// ordinal row 23 + j; the shadow ray's any-hit carry reads only t and the
+// !(world d . that normal > 0), the instance's material (row 22), the
+// ordinal row 23 + j and, with texture coordinates (itri rows 25-30), their
+// barycentric blend; the shadow ray's any-hit carry reads only t and the
 // ordinal.
 template <class Carry>
 __device__ __forceinline__ void itri_test(const PrtScene& S, int k, int j,
@@ -368,7 +441,14 @@ __device__ __forceinline__ void itri_test(const PrtScene& S, int k, int j,
     float wnz = ld(I, 19 * ni) * inx + ld(I, 20 * ni) * iny
         + ld(I, 21 * ni) * inz;
     bool back = (r.dx * wnx + r.dy * wny + r.dz * wnz) > 0.0f;
-    take(S, t, ordv, ld(I, 22 * ni), wnx, wny, wnz, !back, 0, h);
+    float u = 0.0f, v = 0.0f;
+    if (Carry::kUV && S.itex) {
+      u = b0 * ld(q, 25 * n + j) + b1 * ld(q, 27 * n + j)
+          + b2 * ld(q, 29 * n + j);
+      v = b0 * ld(q, 26 * n + j) + b1 * ld(q, 28 * n + j)
+          + b2 * ld(q, 30 * n + j);
+    }
+    take(S, t, ordv, ld(I, 22 * ni), wnx, wny, wnz, !back, 0, u, v, h);
   }
 }
 
@@ -604,6 +684,110 @@ __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
   s.rb = s.rb + s.tb * c2 * w_l * row(17);
 }
 
+// The sky along a missed ray's direction d (pallas_trace.py l.2706-2735):
+// sky_mode 1 the gradient lerp(bottom, top, 0.5 * (d_hat.y + 1)), mode 2
+// plus the sun color * max(d_hat . sun_dir, 0) ** power, the power taken
+// by square-and-multiply over its bits (the TPU kernel's static binary
+// exponentiation, the same multiplies in the same order).
+__device__ __forceinline__ void sky_radiance(const PrtScene& S, float dx,
+                                             float dy, float dz, float& k0,
+                                             float& k1, float& k2) {
+  const float inv_l = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  const float tmix = 0.5f * (dy * inv_l + 1.0f);
+  k0 = S.sky[0] + tmix * (S.sky[3] - S.sky[0]);
+  k1 = S.sky[1] + tmix * (S.sky[4] - S.sky[1]);
+  k2 = S.sky[2] + tmix * (S.sky[5] - S.sky[2]);
+  if (S.sky_mode == 2) {
+    float base = fmaxf((dx * S.sky[6] + dy * S.sky[7] + dz * S.sky[8])
+                       * inv_l, 0.0f);
+    float w = 1.0f;
+    for (int p = (int)S.sky[12]; p; p >>= 1) {
+      if (p & 1) w = w * base;
+      base = base * base;
+    }
+    k0 = k0 + w * S.sky[9];
+    k1 = k1 + w * S.sky[10];
+    k2 = k2 + w * S.sky[11];
+  }
+}
+
+// val mod ext for the texture's repeat wrap, with inv = float32(1 / ext).
+__device__ __forceinline__ float tex_wrap(float val, float ext, float inv) {
+  return val - ext * floorf(val * inv);
+}
+
+// Texel (yi, xi) of an image whose rows start at `tex`, decoded from its
+// packed r * 65536 + g * 256 + b to [0, 1] (pallas_trace.py l.2655-2672).
+// One indexed load at row * width + column: the TPU kernel's loop over the
+// texel rows with a lane gather is its way to the same word.
+__device__ __forceinline__ void tex_fetch(const float* __restrict__ tex,
+                                          float yi, float xi, float thf,
+                                          float twf, float ith, float itw,
+                                          float& r, float& g, float& b) {
+  const int idx = (int)(tex_wrap(yi, thf, ith) * twf + tex_wrap(xi, twf, itw));
+  const float val = ld(tex, idx);
+  const float r8 = floorf(val * (1.0f / 65536.0f));
+  const float rem = val - r8 * 65536.0f;
+  const float g8 = floorf(rem * (1.0f / 256.0f));
+  const float b8 = rem - g8 * 256.0f;
+  r = r8 * kInv255;
+  g = g8 * kInv255;
+  b = b8 * kInv255;
+}
+
+// The albedo h.c of hit h after its material's texture (pallas_trace.py
+// l.2612-2704), before emission, NEE and attenuation read it: an image
+// multiplies it by its bilinear, repeat-wrapped sample at the hit's UV (a
+// sphere's from the outward p - c, whatever the front flag:
+// u = 0.5 + atan2(z, x) / 2pi, v = 0.5 - asin(y_hat) / pi); a checker
+// replaces it by the odd color where the world cell's parity is odd.  The
+// material's row of S.mtex says which (a material has at most one
+// texture, so the lookup stands for the TPU kernel's unrolled loops).
+__device__ __forceinline__ void texture_albedo(const PrtScene& S, float px,
+                                               float py, float pz, float nrx,
+                                               float nry, float nrz,
+                                               float n_ilen, Hit<true>& h) {
+  const int nm = S.n_mats;
+  const float* __restrict__ T = S.mtex + h.mid;
+  const float kind = ld(T, 0);
+  if (kind == 2.0f) {
+    float u = h.u, v = h.v;
+    if (h.is_sph) {
+      u = 0.5f + (float)atan2((double)nrz, (double)nrx) * kInvTwoPi;
+      v = 0.5f - (float)asin((double)fminf(fmaxf(nry * n_ilen, -1.0f),
+                                           1.0f)) * kInvPi;
+    }
+    const float uw = u - floorf(u);
+    const float vw = v - floorf(v);
+    const float thf = ld(T, 2 * nm), twf = ld(T, 3 * nm);
+    const float ith = ld(T, 4 * nm), itw = ld(T, 5 * nm);
+    const float* __restrict__ tex = S.itex + (int)ld(T, nm) * kTexLanes;
+    const float x = uw * twf - 0.5f;
+    const float y = (1.0f - vw) * thf - 0.5f;
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float fx = x - x0, fy = y - y0;
+    float r00, g00, b00, r01, g01, b01, r10, g10, b10, r11, g11, b11;
+    tex_fetch(tex, y0, x0, thf, twf, ith, itw, r00, g00, b00);
+    tex_fetch(tex, y0, x0 + 1.0f, thf, twf, ith, itw, r01, g01, b01);
+    tex_fetch(tex, y0 + 1.0f, x0, thf, twf, ith, itw, r10, g10, b10);
+    tex_fetch(tex, y0 + 1.0f, x0 + 1.0f, thf, twf, ith, itw, r11, g11, b11);
+    const float ex = 1.0f - fx, ey = 1.0f - fy;
+    h.c0 = ((r00 * ex + r01 * fx) * ey + (r10 * ex + r11 * fx) * fy) * h.c0;
+    h.c1 = ((g00 * ex + g01 * fx) * ey + (g10 * ex + g11 * fx) * fy) * h.c1;
+    h.c2 = ((b00 * ex + b01 * fx) * ey + (b10 * ex + b11 * fx) * fy) * h.c2;
+  } else if (kind == 1.0f) {
+    const float cs = ld(T, nm);
+    const float cell = floorf(px * cs + kCheckerOff)
+        + floorf(py * cs + kCheckerOff) + floorf(pz * cs + kCheckerOff);
+    const float odd = cell - 2.0f * floorf(cell * 0.5f);
+    if (odd > 0.5f) {
+      h.c0 = ld(T, 2 * nm);
+      h.c1 = ld(T, 3 * nm);
+      h.c2 = ld(T, 4 * nm);
+    }
+  }
+}
+
 // One bounce of path `s` at absolute depth `depth` with the bounce's
 // stream word rng_d.  `alive_in` is the path's alive value (1, or 2 when
 // NEE sampled the light at the previous, diffuse vertex: its emission is
@@ -615,26 +799,31 @@ __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
 // changes.  kTri is whether the scene has live triangles (S.n_tri > 0),
 // kNee whether NEE is on (S.n_lights > 0), kRR whether Russian roulette
 // is (S.rr_depth > 0), kInst whether the scene has instances
-// (S.n_inst > 0): the kernels are instantiated each way
+// (S.n_inst > 0), kExt whether it has textures or the directional sky
+// (S.mtex or S.sky_mode): the kernels are instantiated each way
 // (kernel_variant), so a sphere scene without NEE or roulette runs code
-// without the triangle fold, the instance block, the NEE block and the
-// roulette, each of which costs every ray registers or spills.  Forced
-// inline, so each kernel's bounce loop compiles as one body.
-template <bool kTri, bool kNee, bool kRR, bool kInst>
+// without the triangle fold, the instance block, the NEE block, the
+// roulette and the scene extensions, each of which costs every ray
+// registers or spills.  Forced inline, so each kernel's bounce loop
+// compiles as one body.  Textured materials are Lambertian (the Scene
+// builds them so), so an emitter's record is read untextured.
+template <bool kTri, bool kNee, bool kRR, bool kInst, bool kExt>
 __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
                                       int depth, int alive_in, PathState& s) {
   const float ox = s.ox, oy = s.oy, oz = s.oz;
   const float dx = s.dx, dy = s.dy, dz = s.dz;
   Ray r{ox, oy, oz, dx, dy, dz, safe_inv(dx), safe_inv(dy), safe_inv(dz),
         oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
-  Hit h{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, (float)(1 << 24),
-        0, 0, 0};
+  Hit<kExt> h{{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+               (float)(1 << 24), 0, 0, 0}};
   fold_scene<kTri, kInst>(S, r, h);
 
   if (!(h.t < kBig)) {  // miss: sky * throughput, the path ends
-    s.rr = s.rr + s.tr * S.sky0;
-    s.rg = s.rg + s.tg * S.sky1;
-    s.rb = s.rb + s.tb * S.sky2;
+    float k0 = S.sky[0], k1 = S.sky[1], k2 = S.sky[2];
+    if (kExt && S.sky_mode) sky_radiance(S, dx, dy, dz, k0, k1, k2);
+    s.rr = s.rr + s.tr * k0;
+    s.rg = s.rg + s.tg * k1;
+    s.rb = s.rb + s.tb * k2;
     return 0;
   }
   if (h.mtype == kEmissive) {  // emission; an emitter does not scatter
@@ -661,6 +850,12 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   float nx = nrx * sgn_n;
   float ny = nry * sgn_n;
   float nz = nrz * sgn_n;
+
+  // The albedo is read where it is used: held in registers from here it
+  // would cost the plain sphere instantiation spills.
+  if constexpr (kExt) {
+    if (S.mtex) texture_albedo(S, px, py, pz, nrx, nry, nrz, n_ilen, h);
+  }
 
   if (kNee && h.mtype == kLambertian) {
     nee_direct<kTri, kInst>(S, rng_d, px, py, pz, nx, ny, nz, h.c0, h.c1,
@@ -753,11 +948,23 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   return (kNee && alive && h.mtype == kLambertian) ? 2 : alive;
 }
 
-// The instantiation <kTri, kNee, kRR, kInst> a scene needs, as an index
-// kInst * 8 + kTri * 4 + kNee * 2 + kRR into a kernel's table of 16.
+// The instantiation <kTri, kNee, kRR, kInst, kExt> a scene needs, as an
+// index kExt * 16 + kInst * 8 + kTri * 4 + kNee * 2 + kRR into a kernel's
+// table of 32.
 inline int kernel_variant(const PrtScene& S) {
-  return (S.n_inst > 0) * 8 + (S.n_tri > 0) * 4 + (S.n_lights > 0) * 2
-      + (S.rr_depth > 0);
+  return (S.mtex != nullptr || S.sky_mode != 0) * 16 + (S.n_inst > 0) * 8
+      + (S.n_tri > 0) * 4 + (S.n_lights > 0) * 2 + (S.rr_depth > 0);
 }
+
+// A kernel's table of its 32 instantiations K<kTri, kNee, kRR, kInst,
+// kExt>, in kernel_variant's order.
+#define PRT_VARIANTS4(K, kInst, kExt)                                   \
+  K<false, false, false, kInst, kExt>, K<false, false, true, kInst, kExt>, \
+      K<false, true, false, kInst, kExt>, K<false, true, true, kInst, kExt>, \
+      K<true, false, false, kInst, kExt>, K<true, false, true, kInst, kExt>, \
+      K<true, true, false, kInst, kExt>, K<true, true, true, kInst, kExt>
+#define PRT_VARIANTS(K)                                                 \
+  {PRT_VARIANTS4(K, false, false), PRT_VARIANTS4(K, true, false),        \
+   PRT_VARIANTS4(K, false, true), PRT_VARIANTS4(K, true, true)}
 
 }  // namespace

@@ -3,8 +3,11 @@
 //
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_segment (the
 // kernel body _make_segment_kernel.kernel) on the same subset as the trace
-// kernel, instances included: the bounce is bounce.cuh, shared with trace.cu, so a path
-// traced in segments gets the same bits as one traced in a single launch.
+// kernel, instances, textures and the directional sky included: the
+// bounce is bounce.cuh, shared with trace.cu, so a path traced in segments
+// gets the same bits as one traced in a single launch.  A hit's material
+// id and texture coordinates live inside one bounce: the state stays 13
+// planes.
 //
 // The state is 13 planes of R floats, (13, R) row-major: origin (3),
 // direction (3), throughput (3), radiance (3) and alive (0, 1, or 2 when
@@ -36,7 +39,7 @@ struct SegmentArgs {
   int n_bounces;
 };
 
-template <bool kTri, bool kNee, bool kRR, bool kInst>
+template <bool kTri, bool kNee, bool kRR, bool kInst, bool kExt>
 __global__ void __launch_bounds__(kThreads)
     segment_kernel(const PrtScene S, const SegmentArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
   int alive = alive_in > 1.5f ? 2 : 1;
   for (int b = 0; b < A.n_bounces && alive; ++b) {
     const int depth = depth0 + b;
-    alive = bounce<kTri, kNee, kRR, kInst>(
+    alive = bounce<kTri, kNee, kRR, kInst, kExt>(
         S, rng_base + (uint32_t)depth * kDepthStep, depth, alive, s);
   }
   out[0] = s.ox;
@@ -80,23 +83,7 @@ __global__ void __launch_bounds__(kThreads)
 
 using SegmentKernel = void (*)(const PrtScene, const SegmentArgs);
 // Indexed by kernel_variant().
-const SegmentKernel kSegmentKernels[16] = {
-    segment_kernel<false, false, false, false>,
-    segment_kernel<false, false, true, false>,
-    segment_kernel<false, true, false, false>,
-    segment_kernel<false, true, true, false>,
-    segment_kernel<true, false, false, false>,
-    segment_kernel<true, false, true, false>,
-    segment_kernel<true, true, false, false>,
-    segment_kernel<true, true, true, false>,
-    segment_kernel<false, false, false, true>,
-    segment_kernel<false, false, true, true>,
-    segment_kernel<false, true, false, true>,
-    segment_kernel<false, true, true, true>,
-    segment_kernel<true, false, false, true>,
-    segment_kernel<true, false, true, true>,
-    segment_kernel<true, true, false, true>,
-    segment_kernel<true, true, true, true>};
+const SegmentKernel kSegmentKernels[32] = PRT_VARIANTS(segment_kernel);
 
 }  // namespace
 

@@ -2,19 +2,19 @@
 // launch, one thread per ray.
 //
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_trace (the
-// kernel body _make_trace_kernel.kernel driving _make_bounce_step) on its
-// constant-sky, untextured subset; the bounce itself (closest-hit fold
-// over spheres, quads, triangles and instanced meshes, shading, NEE and
-// Russian roulette) is bounce.cuh, shared with the segment kernel.
-// Textures, the directional sky, the stream path and the straggler-tail
-// view are refused by the Python wrapper (ops/trace.py) before a launch.
+// kernel body _make_trace_kernel.kernel driving _make_bounce_step); the
+// bounce itself (closest-hit fold over spheres, quads, triangles and
+// instanced meshes, textures and the directional sky, shading, NEE and
+// Russian roulette) is bounce.cuh, shared with the segment kernel.  The
+// stream path, depth_out and collect_stats are refused by the Python
+// wrapper (ops/trace.py) before a launch.
 //
 // What bounds it on the H100: not FLOPs and not HBM bandwidth.  A ray
 // reads the 7 values of its input once and writes 3; everything else is
 // the walk: divergent per-ray tree walks (threads of a warp sit in
 // different nodes and leaves after the first bounce) and dependent loads
-// of table columns (6-27 floats per primitive, 8 per node, 24 per entered
-// instance) that the L1/L2 caches serve.  The ray state lives in registers for the whole
+// of table columns (6-33 floats per primitive, 8 per node, 24 per entered
+// instance, 4 texels per textured hit) that the L1/L2 caches serve.  The ray state lives in registers for the whole
 // bounce loop (no memory round trip between bounces, the TPU kernel's key
 // property), and a thread exits as soon as its ray dies.  The TPU's
 // bounce-0 frustum pretest (FRUSTUM0) only gates its lockstep tile test
@@ -28,8 +28,9 @@ namespace {
 
 constexpr int kThreads = 128;
 // Blocks per SM the plain sphere instantiation (no triangles, instances,
-// NEE or roulette) is built for: 9 x 128 threads caps it at 56 registers, the
-// count it had before NEE and roulette joined the bounce.
+// NEE, roulette or scene extensions) is built for: 9 x 128 threads caps it
+// at 56 registers, the count it had before NEE and roulette joined the
+// bounce.
 constexpr int kSphereMinBlocks = 9;
 
 struct TraceArgs {
@@ -42,9 +43,10 @@ struct TraceArgs {
   int max_depth;
 };
 
-template <bool kTri, bool kNee, bool kRR, bool kInst>
-__global__ void __launch_bounds__(kThreads, kTri || kNee || kRR || kInst
-                                                ? 1 : kSphereMinBlocks)
+template <bool kTri, bool kNee, bool kRR, bool kInst, bool kExt>
+__global__ void __launch_bounds__(kThreads,
+                                  kTri || kNee || kRR || kInst || kExt
+                                      ? 1 : kSphereMinBlocks)
     trace_kernel(const PrtScene S, const TraceArgs A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.n_rays) return;
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(kThreads, kTri || kNee || kRR || kInst
   // The alive value carries NEE's no-emit mark (2) from bounce to bounce.
   int alive = 1;
   for (int depth = 0; depth < A.max_depth && alive; ++depth) {
-    alive = bounce<kTri, kNee, kRR, kInst>(
+    alive = bounce<kTri, kNee, kRR, kInst, kExt>(
         S, rng_base + (uint32_t)depth * kDepthStep, depth, alive, s);
   }
   A.out[3 * i] = s.rr;
@@ -66,23 +68,7 @@ __global__ void __launch_bounds__(kThreads, kTri || kNee || kRR || kInst
 
 using TraceKernel = void (*)(const PrtScene, const TraceArgs);
 // Indexed by kernel_variant().
-const TraceKernel kTraceKernels[16] = {
-    trace_kernel<false, false, false, false>,
-    trace_kernel<false, false, true, false>,
-    trace_kernel<false, true, false, false>,
-    trace_kernel<false, true, true, false>,
-    trace_kernel<true, false, false, false>,
-    trace_kernel<true, false, true, false>,
-    trace_kernel<true, true, false, false>,
-    trace_kernel<true, true, true, false>,
-    trace_kernel<false, false, false, true>,
-    trace_kernel<false, false, true, true>,
-    trace_kernel<false, true, false, true>,
-    trace_kernel<false, true, true, true>,
-    trace_kernel<true, false, false, true>,
-    trace_kernel<true, false, true, true>,
-    trace_kernel<true, true, false, true>,
-    trace_kernel<true, true, true, true>};
+const TraceKernel kTraceKernels[32] = PRT_VARIANTS(trace_kernel);
 
 }  // namespace
 

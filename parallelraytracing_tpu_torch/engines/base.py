@@ -30,6 +30,7 @@ class Renderer(abc.ABC):
         self._cam_params: Optional[torch.Tensor] = None
         self._config: Optional[RenderConfig] = None
         self._frame_index: int = 0
+        self._qseed: Optional[int] = None
 
     # ----------------------------------------------------------- lifecycle
     def init(self, film: Film, scene: Scene, camera: Camera,
@@ -40,6 +41,11 @@ class Renderer(abc.ABC):
         self._film = film
         self._config = config or RenderConfig(width=film.width, height=film.height)
         self._scene = scene
+        # QMC camera sampling: the frame-independent rotation seed, shared
+        # by every engine so their films stay bit-identical with QMC on
+        from parallelraytracing_tpu_torch.ops.rays import qmc_rotation_seed
+        self._qseed = (qmc_rotation_seed(self._config.seed)
+                       if self._config.qmc else None)
         self.set_camera(camera)
         self._frame_index = 0
         self._post_init()
@@ -47,6 +53,20 @@ class Renderer(abc.ABC):
 
     def _post_init(self) -> None:
         """Hook for engine-specific setup (e.g. table packing)."""
+
+    def _pixel_seed(self, jseed: int) -> int:
+        """The raygen's pixel seed: the frame's jitter seed, or under QMC
+        the frame-independent rotation seed."""
+        return jseed if self._qseed is None else self._qseed
+
+    def _qpt(self, frame_index: int, s: int):
+        """The (4,) Halton point of sample s of this frame (None unless
+        QMC): global sample index frame * spp + s, so the progressive
+        accumulation walks the sequence in order."""
+        if self._qseed is None:
+            return None
+        from parallelraytracing_tpu_torch.ops.rays import halton_qpt
+        return halton_qpt(frame_index * self.config.samples_per_frame + s)
 
     def film_layout(self):
         """Engine-preferred film storage layout (inv, slots), or None for

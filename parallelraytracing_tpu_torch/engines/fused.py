@@ -29,10 +29,12 @@ from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
 
 
 def raygen_ids(cam_params, ids, jseed: int, width: int, height: int,
-               jitter: bool, lens=None):
-    """Camera rays (o, d) for an explicit pixel-id vector."""
+               jitter: bool, lens=None, qpt=None):
+    """Camera rays (o, d) for an explicit pixel-id vector: pixel-keyed
+    jitter and lens draws under `jseed`, rotated by the Halton point
+    `qpt` under QMC."""
     return generate_camera_rays_ids(cam_params, width, height, ids, jitter,
-                                    pix_seed=jseed, lens=lens)
+                                    pix_seed=jseed, lens=lens, qpt=qpt)
 
 
 def _part1by1(v: np.ndarray) -> np.ndarray:
@@ -68,9 +70,6 @@ class FusedRenderer(Renderer):
     def _post_init(self) -> None:
         from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
         cfg = self.config
-        if cfg.qmc:
-            raise NotImplementedError(
-                "QMC camera sampling: ROADMAP Queue 1 item 11 (not ported yet)")
         self._tables, self._scene_data = build_scene_tables(
             self._scene, self.device, nee=cfg.nee)
         perm, inv = morton_pixel_perm(cfg.width, cfg.height)
@@ -85,14 +84,18 @@ class FusedRenderer(Renderer):
 
     def _trace_ids(self, ids, frame_index: int) -> torch.Tensor:
         """One frame's mean radiance for an explicit pixel-id vector (in
-        that order); a pixel's streams depend only on (pixel, frame)."""
+        that order); a pixel's streams depend only on (pixel, frame).
+        Under QMC the jitter and lens draws rotate the sample's Halton
+        point under the shared rotation seed; the path seed stays the
+        frame's."""
         from parallelraytracing_tpu_torch.engines.tables import trace_tables
         cfg = self.config
         acc = None
         for s in range(cfg.samples_per_frame):
             jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
-            o, d = raygen_ids(self._cam_params, ids, jseed, cfg.width,
-                              cfg.height, cfg.jitter, cfg.lens)
+            o, d = raygen_ids(self._cam_params, ids, self._pixel_seed(jseed),
+                              cfg.width, cfg.height, cfg.jitter, cfg.lens,
+                              self._qpt(frame_index, s))
             rad = trace_tables(self._tables, o, d, ids, s0, cfg)
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

@@ -118,7 +118,8 @@ def _run_segment(tables, pix, state, scalars, n_bounces: int,
                   t.quad_cl, t.tri_cl, t.mats, n_bounces=n_bounces,
                   t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
                   tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
-                  nee=t.nee, lights=t.lights, inst=t.inst)
+                  nee=t.nee, lights=t.lights, inst=t.inst, checker=t.checker,
+                  itex=t.itex, itex_tab=t.itex_tab)
 
 
 def _initial_state(o, d) -> torch.Tensor:
@@ -217,9 +218,6 @@ class WavefrontFusedRenderer(Renderer):
     def _post_init(self) -> None:
         from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
         cfg = self.config
-        if cfg.qmc:
-            raise NotImplementedError(
-                "QMC camera sampling: ROADMAP Queue 1 item 11 (not ported yet)")
         # The JAX package's growing schedule for triangle-heavy scenes
         # (the flat triangles and each unique instanced mesh's, counted
         # once): compact and re-sort after bounce 2 (the sky misses) and
@@ -248,8 +246,9 @@ class WavefrontFusedRenderer(Renderer):
         acc = None
         for s in range(cfg.samples_per_frame):
             jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
-            o, d = raygen_ids(self._cam_params, self._ids, jseed, cfg.width,
-                              cfg.height, cfg.jitter, cfg.lens)
+            o, d = raygen_ids(self._cam_params, self._ids,
+                              self._pixel_seed(jseed), cfg.width, cfg.height,
+                              cfg.jitter, cfg.lens, self._qpt(frame_index, s))
             rad = segmented_trace(self._tables, o, d, self._ids, s0, cfg,
                                   sort_rays=self.sort_rays,
                                   schedule=tuple(self._lens))

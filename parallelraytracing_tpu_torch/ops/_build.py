@@ -53,10 +53,11 @@ class PrtScene(ctypes.Structure):
         ("n_tri", I), ("tri_cl_rows", I), ("tri_cl_cols", I),
         ("mats", P), ("n_mats", I),
         ("csize", I), ("tri_csize", I),
-        ("t_min", F), ("t_cap", F), ("sky0", F), ("sky1", F), ("sky2", F),
+        ("t_min", F), ("t_cap", F), ("sky", F * 13), ("sky_mode", I),
         ("lights", P), ("n_lights", I), ("rr_depth", I),
         ("itri", P), ("iacc", P), ("ibox", P), ("inst", P),
         ("n_itri", I), ("n_iacc", I), ("n_inst", I),
+        ("mtex", P), ("itex", P),
     ]
 
 

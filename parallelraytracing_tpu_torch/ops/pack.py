@@ -10,7 +10,9 @@ so either package's tables can feed either trace.
     sph  (6, Ns):  cx cy cz r2 mid ord
     quad (14, Nq): n(3) cn us(3) cu vs(3) cv mid ord
     tri  (27, Nt): ng(3) p0ng e1(3) e2(3) e2xp0(3) p0xe1(3) mid ord
-                   n0(3) n1(3) n2(3)
+                   n0(3) n1(3) n2(3); a scene with image textures
+                   (``tri_uv0`` in its arrays) adds rows 27-32, the
+                   texture coordinates u0 v0 u1 v1 u2 v2 (33 rows)
     mats (5, Nm):  mtype c(3) extra — c is the emission of an emissive
                    material and the albedo otherwise; extra is roughness
                    (metal), IoR (dielectric) or 1.
@@ -32,7 +34,8 @@ Acceleration tables, chosen per kind by cluster count:
 
 Instanced meshes get four more tables (``pack_instance_tables``): the
 unique meshes' local triangles, their concatenated threaded trees, the
-instances' world boxes and the instance records.
+instances' world boxes and the instance records.  Image textures are
+packed as rows of 128 texels (``pack_kernel_textures``).
 
 The JAX package's other layouts (Karras tree, ordered tree, straggler-tail
 views, SBVH, tile-SAH, streamed big-mesh blocks, eye-ordered linear
@@ -48,6 +51,7 @@ import numpy as np
 
 from parallelraytracing_tpu_torch.core import geometry as geo
 from parallelraytracing_tpu_torch.core.scene import MAT_DIELECTRIC, MAT_EMISSIVE, MAT_METAL
+from parallelraytracing_tpu_torch.ops.textures import TEX_IMAGE_BASE
 
 #: primitives per leaf / linear cluster, sphere and quad kinds
 CLUSTER = 24
@@ -447,13 +451,17 @@ def pack_scene_tables(scene: dict):
     # Invalid triangles: a zero geometric normal makes div == 0 -> miss.
     ng = np.where(tvd[:, None], ng, 0.0)
     p0ng = np.where(tvd, p0ng, 0.0)
-    tri = np.concatenate([
+    tri_rows = [
         ng.T, p0ng[None], e1.T, e2.T, e2xp0.T, p0xe1.T,
         mat_cols(np.asarray(scene["tri_mat"])[t_ord]),
         (t_ord + n_sph_full + n_quad_full).astype(np.float32)[None],
         np.asarray(scene["tri_n0"], np.float32)[t_ord].T,
         np.asarray(scene["tri_n1"], np.float32)[t_ord].T,
-        np.asarray(scene["tri_n2"], np.float32)[t_ord].T], axis=0)
+        np.asarray(scene["tri_n2"], np.float32)[t_ord].T]
+    if scene.get("tri_uv0") is not None:
+        tri_rows += [np.asarray(scene[f"tri_uv{k}"], np.float32)[t_ord].T
+                     for k in range(3)]
+    tri = np.concatenate(tri_rows, axis=0)
     t_mn2 = np.where(tvd[:, None], t_mn[t_ord], np.float64(1.0))
     t_mx2 = np.where(tvd[:, None], t_mx[t_ord], np.float64(-1.0))
     tri, tri_cl = _accelerate(tri, t_mn2, t_mx2, TRI_CLUSTER)
@@ -463,9 +471,12 @@ def pack_scene_tables(scene: dict):
             np.ascontiguousarray(mats))
 
 
+#: rows of the triangle table, without and with texture coordinates
+TRI_ROWS, TRI_UV_ROWS = 27, 33
 #: rows of the instance tables: local triangles, BLAS nodes, world boxes,
-#: instance records
+#: instance records; and of the local triangles with texture coordinates
 ITRI_ROWS, IACC_ROWS, IBOX_ROWS, INST_ROWS = 25, 8, 6, 24
+ITRI_UV_ROWS = 31
 
 
 def pack_instance_tables(inst_meshes, instances, ord_base: float,
@@ -479,11 +490,14 @@ def pack_instance_tables(inst_meshes, instances, ord_base: float,
     first free global ordinal (the column count of the flat sphere, quad
     and triangle kinds, pads included).
 
-    Returns float32 (itri (25, Nt), iacc (8, Mb), ibox (6, Ni),
+    Returns float32 (itri (25 or 31, Nt), iacc (8, Mb), ibox (6, Ni),
     inst (24, Ni)):
     - itri: the unique meshes' triangles in mesh-local space, each mesh
       Morton-sorted, then permuted into its tree's leaf order:
       [ng(3) p0ng e1(3) e2(3) e2xp0(3) p0xe1(3) n0(3) n1(3) n2(3)];
+      ``with_uv`` (a scene with image textures) adds rows 25-30
+      [u0 v0 u1 v1 u2 v2], the mesh's texture coordinates (zeros for a
+      mesh without them);
     - iacc: each mesh's binned-SAH threaded tree (the layout of
       ``_sah_threaded_tree``), concatenated: escape links shifted to
       global node indices (-1 ends the mesh's walk), leaf runs
@@ -495,16 +509,11 @@ def pack_instance_tables(inst_meshes, instances, ord_base: float,
       id, ordinal base].  An instanced triangle's ordinal is its
       instance's base plus its itri column.
 
-    ``ordered`` (the near-first explicit-pointer tree) and ``with_uv``
-    (texture coordinates for image textures) are not ported."""
+    ``ordered`` (the near-first explicit-pointer tree) is not ported."""
     if ordered:
         raise NotImplementedError(
             "the ordered (near-first) instance trees: ROADMAP Queue 1 "
             "item 13 (left out, a TPU mechanism)")
-    if with_uv:
-        raise NotImplementedError(
-            "instance texture coordinates (image textures): ROADMAP Queue 1 "
-            "item 11 (not ported yet)")
     from parallelraytracing_tpu_torch.accel.tlas import _mesh_local_arrays
 
     itri_cols, iacc_cols, mesh_root, mesh_bbox = [], [], [], []
@@ -522,10 +531,18 @@ def pack_instance_tables(inst_meshes, instances, ord_base: float,
         e1 = v1 - v0
         e2 = v2 - v0
         ng = np.cross(e1, e2)
-        tab = np.concatenate([ng.T, (v0 * ng).sum(1)[None], e1.T, e2.T,
-                              np.cross(e2, v0).T, np.cross(v0, e1).T,
-                              n0.T, n1.T, n2.T], axis=0).astype(np.float32)
         nt = len(v0)
+        rows = [ng.T, (v0 * ng).sum(1)[None], e1.T, e2.T, np.cross(e2, v0).T,
+                np.cross(v0, e1).T, n0.T, n1.T, n2.T]
+        if with_uv:
+            tc = mesh.texcoords
+            if tc is not None and len(tc):
+                tc = np.asarray(tc, np.float64)
+                tri_idx = np.asarray(mesh.indices, np.int64).reshape(-1, 3)
+                rows += [tc[tri_idx[:, k]][order].T for k in range(3)]
+            else:
+                rows += [np.zeros((2, nt))] * 3
+        tab = np.concatenate(rows, axis=0).astype(np.float32)
         perm, tree = _sah_threaded_tree(mn, mx, TRI_CLUSTER)
         tab = np.ascontiguousarray(tab[:, perm])
         tree = tree.copy()
@@ -569,13 +586,12 @@ def pack_instance_tables(inst_meshes, instances, ord_base: float,
 
 
 def check_instance_layout(itri_rows: int, iacc_rows: int) -> None:
-    """Refuse instance tables of a layout the kernels do not read: the
-    JAX package's itri with texture-coordinate rows (31) and its ordered
-    trees (10-row iacc)."""
-    if itri_rows != ITRI_ROWS:
-        raise NotImplementedError(
-            f"instance texture coordinates ({itri_rows}-row itri): ROADMAP "
-            f"Queue 1 item 11 (not ported yet); want {ITRI_ROWS} rows")
+    """Refuse instance tables of a layout the kernels do not read: an itri
+    of other than 25 rows (31 with texture coordinates) and the JAX
+    package's ordered trees (10-row iacc)."""
+    if itri_rows not in (ITRI_ROWS, ITRI_UV_ROWS):
+        raise ValueError(f"itri has {itri_rows} rows: want {ITRI_ROWS}, or "
+                         f"{ITRI_UV_ROWS} with texture coordinates")
     if iacc_rows != IACC_ROWS:
         raise NotImplementedError(
             f"the ordered (near-first) instance trees ({iacc_rows}-row "
@@ -606,6 +622,56 @@ def instance_ranges(iacc: np.ndarray, inst: np.ndarray) -> tuple:
             node += 1
         ranges.append((lo, hi))
     return tuple(ranges)
+
+
+#: texels per row of the packed texture table
+TEX_LANES = 128
+#: the largest image side the kernels take (the JAX package's KTEX_MAX,
+#: kept for parity: its kernels fetch a texel by a loop over the rows)
+KTEX_MAX = 128
+
+
+def pack_kernel_textures(scene: dict):
+    """The image textures of a scene's arrays for the kernels, the JAX
+    package's ``pack_kernel_textures`` bit for bit.
+
+    Returns (itex, rows):
+    - itex: ((material id, first row, height, width), ...) for every
+      image-textured material, in material order;
+    - rows: (Rt, 128) float32: each texture quantised to 8 bits a channel
+      and packed r * 65536 + g * 256 + b (exact integers below 2**24),
+      texels row-major, 128 to a row, each texture starting a new row
+      (a texture used by several materials is packed once).
+
+    Raises NotImplementedError for an image above KTEX_MAX texels on a
+    side."""
+    mat_tex = np.asarray(scene["mat_tex"])
+    atlas = np.asarray(scene["tex_atlas"])
+    size = np.asarray(scene["tex_size"])
+    chunks, tex_off, itex = [], {}, []
+    off = 0
+    for mid, tex in enumerate(mat_tex):
+        if tex < TEX_IMAGE_BASE:
+            continue
+        tid = int(tex - TEX_IMAGE_BASE)
+        th, tw = int(size[tid, 0]), int(size[tid, 1])
+        if th > KTEX_MAX or tw > KTEX_MAX:
+            raise NotImplementedError(
+                f"image texture {tid} is {th}x{tw}: the kernels take at most "
+                f"{KTEX_MAX}x{KTEX_MAX} (the JAX package's KTEX_MAX); larger "
+                f"images: ROADMAP Queue 1 item 14 (the jnp engines' atlas)")
+        if tid not in tex_off:
+            img = np.clip(np.round(atlas[tid, :th, :tw] * 255.0), 0.0, 255.0)
+            packed = (img[..., 0] * 65536.0 + img[..., 1] * 256.0
+                      + img[..., 2]).reshape(-1)
+            packed = np.concatenate([packed,
+                                     np.zeros((-len(packed)) % TEX_LANES)])
+            rows = packed.reshape(-1, TEX_LANES).astype(np.float32)
+            tex_off[tid] = off
+            chunks.append(rows)
+            off += rows.shape[0]
+        itex.append((float(mid), int(tex_off[tid]), th, tw))
+    return tuple(itex), np.concatenate(chunks, axis=0)
 
 
 #: rows of the light table

@@ -16,8 +16,11 @@ Inputs: ``pix`` (R,) int32 pixel ids keying the PCG streams; ``state``
 (13, R) float32 planes [ox oy oz dx dy dz tr tg tb rr rg rb alive];
 ``scalars`` (3,) int32 [seed, depth0, count] on the state's device (the
 kernel reads `count` there, so a frame needs no host sync between
-segments); the tables of ops/pack.py, with ``nee`` the light table and
-with ``inst`` the instance tables (as in ops/trace.py).  Returns a new (13, R) state: the 12 planes after
+segments); the tables of ops/pack.py, with ``nee`` the light table, with
+``inst`` the instance tables, and the sky spec and the ``checker`` /
+``itex`` / ``itex_tab`` textures (as in ops/trace.py).  The material id
+and texture coordinates of a hit live inside one bounce only: the state
+stays 13 planes.  Returns a new (13, R) state: the 12 planes after
 the segment and alive: 0.0 ended, 1.0 goes on, 2.0 goes on from a
 diffuse vertex under NEE (the next vertex adds no emission, whichever
 segment traces it: an incoming 2.0 is honoured).  Radiance rides the
@@ -35,8 +38,9 @@ import ctypes
 import torch
 
 from parallelraytracing_tpu_torch.ops import rng
-from parallelraytracing_tpu_torch.ops.trace import (_bounce, _light_table,
-                                                    _refuse, _t_cap,
+from parallelraytracing_tpu_torch.ops.trace import (_bounce, _check_sky,
+                                                    _check_textures,
+                                                    _light_table, _t_cap,
                                                     check_tensors, scene_arg,
                                                     stream_of)
 
@@ -47,15 +51,17 @@ PLANES = 13
 def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
             mats, *, n_bounces: int, t_min: float, t_max: float, sky,
             tri_live: bool, rr_depth: int = 0, nee: bool = False,
-            lights=None, inst=None) -> torch.Tensor:
+            lights=None, inst=None, checker=(), itex=(),
+            itex_tab=None) -> torch.Tensor:
     """Run `n_bounces` bounces over the queue; the new (13, R) state."""
-    _refuse(sky)
     if state.device.type == "cpu":
         return segment_reference(pix, state, scalars, sph, quad, tri, sph_cl,
                                  quad_cl, tri_cl, mats, n_bounces=n_bounces,
                                  t_min=t_min, t_max=t_max, sky=sky,
                                  tri_live=tri_live, rr_depth=rr_depth,
-                                 nee=nee, lights=lights, inst=inst)
+                                 nee=nee, lights=lights, inst=inst,
+                                 checker=checker, itex=itex,
+                                 itex_tab=itex_tab)
     if state.device.type != "cuda":
         raise ValueError(f"segment runs on cpu or cuda tensors, not {state.device}")
     r = int(state.shape[1])
@@ -66,7 +72,8 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
     scene = scene_arg(state.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                      lights=lights, inst=inst)
+                      lights=lights, inst=inst, checker=checker, itex=itex,
+                      itex_tab=itex_tab)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("segment")
@@ -86,18 +93,18 @@ segment.launches = 0
 def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
                       tri_cl, mats, *, n_bounces: int, t_min: float,
                       t_max: float, sky, tri_live: bool, rr_depth: int = 0,
-                      nee: bool = False, lights=None,
-                      inst=None) -> torch.Tensor:
+                      nee: bool = False, lights=None, inst=None, checker=(),
+                      itex=(), itex_tab=None) -> torch.Tensor:
     """Plain PyTorch version of ``segment`` (same signature and result).
     Each bounce runs on the slots still alive; a dead slot's state is left
     as it was."""
-    _refuse(sky)
     lights = _light_table(nee, lights)
+    sky = _check_sky(sky)
+    _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
     seed, depth0, count = (int(v) for v in scalars.tolist())
     r = state.shape[1]
     dev = state.device
     t_cap = _t_cap(t_max)
-    sky = tuple(float(s) for s in sky)
     out = state.clone()
     planes = [out[k] for k in range(PLANES - 1)]
     alive = out[12]
@@ -113,7 +120,7 @@ def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
         new, alive_out = _bounce([p[idx] for p in planes], alive[idx], rng_d,
                                  depth, sph, quad, tri if tri_live else None,
                                  mats, t_min, t_cap, sky, lights, rr_depth,
-                                 inst)
+                                 inst, checker, itex, itex_tab)
         for p, v in zip(planes, new):
             p[idx] = v
         alive[idx] = alive_out

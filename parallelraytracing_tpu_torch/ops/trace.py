@@ -1,9 +1,9 @@
 """The fused trace: every bounce of every ray in one kernel launch.
 
 The counterpart of ``pallas_trace`` (``parallelraytracing_tpu/ops/pallas_trace.py``)
-on sphere, quad, triangle and instanced-mesh scenes with the constant
-sky, with next-event estimation (NEE) and Russian roulette.  Two functions of one
-signature:
+on sphere, quad, triangle and instanced-mesh scenes, with next-event
+estimation (NEE), Russian roulette and the scene extensions: checker and
+image textures and the directional sky.  Two functions of one signature:
 
 - ``trace``: the wrapper.  On a CUDA tensor it launches the hand-written
   kernel ``csrc/trace.cu`` (built at first use, ops/_build.py) or raises;
@@ -24,7 +24,14 @@ signature:
 
 Rays: o, d (R, 3) float32; pix (R,) int32 pixel ids keying the PCG
 streams; seed the frame's int32 path seed.  Tables: the (C, N) float32
-tables of ops/pack.py (or of the JAX package, via convert.py); with
+tables of ops/pack.py (or of the JAX package, via convert.py); ``sky``
+the constant sky (3 floats) or the 13-tuple of
+``engines/tables.sky_spec`` (gradient and sun); ``checker`` the checker
+materials ((material id, cell scale, odd r, g, b), ...) and ``itex`` the
+image-textured ones ((material id, first row, height, width), ...) of
+``pack_kernel_textures``, whose (Rt, 128) texel rows are ``itex_tab``
+(the triangle tables then carry texture coordinates: tri 33 rows, itri
+31); with
 ``nee`` the (28, Nl) light table of ``pack_lights_table`` too, whose
 every column is sampled (as in ``pallas_trace``, which takes
 ``lights.shape[1]`` lights: pass ``nee`` only for a scene with lights,
@@ -35,15 +42,17 @@ from that absolute depth on.  ``inst`` is the scene's
 Returns (R, 3) float32 radiance.
 
 A triangle kind of never-hit pad columns (``tri_live`` False) is skipped.
-Not in this port yet, refused with NotImplementedError: checker and image
-textures, the directional sky, ``depth_out`` and ``collect_stats``.
+Not in this port yet, refused with NotImplementedError: ``depth_out`` and
+``collect_stats``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
+import numpy as np
 import torch
 
 from parallelraytracing_tpu_torch.core.scene import (MAT_DIELECTRIC, MAT_EMISSIVE,
@@ -51,8 +60,12 @@ from parallelraytracing_tpu_torch.core.scene import (MAT_DIELECTRIC, MAT_EMISSIV
 from parallelraytracing_tpu_torch.ops import ieee, rng
 from parallelraytracing_tpu_torch.ops.pack import (CLUSTER, IACC_ROWS, IBOX_ROWS,
                                                    INST_ROWS, ITRI_ROWS,
-                                                   LIGHT_ROWS, TRI_CLUSTER,
+                                                   ITRI_UV_ROWS, KTEX_MAX,
+                                                   LIGHT_ROWS, TEX_LANES,
+                                                   TRI_CLUSTER, TRI_ROWS,
+                                                   TRI_UV_ROWS,
                                                    check_instance_layout)
+from parallelraytracing_tpu_torch.ops.textures import CHECKER_OFFSET
 
 BIG = 3.0e38
 TWO_PI = 2.0 * math.pi
@@ -60,22 +73,38 @@ TWO_PI = 2.0 * math.pi
 T_MAX_INF = 1e30
 #: rays x primitives per chunk of the plain version's brute-force fold
 CHUNK_ELEMS = 1 << 23
+#: float32 constants of the sphere's equirectangular map and the checker
+#: (the JAX kernel's float32 roundings of the same float64 values)
+INV_TWO_PI = float(np.float32(1.0 / (2.0 * math.pi)))
+INV_PI = float(np.float32(1.0 / math.pi))
+CHECKER_OFF = float(np.float32(CHECKER_OFFSET))
+INV_255 = float(np.float32(1.0 / 255.0))
+#: rows of the per-material texture table the kernels read
+#: (``texture_table``)
+MTEX_ROWS = 6
 
 _ROADMAP = {
-    "checker": "checker textures: ROADMAP Queue 1 item 11",
-    "itex": "image textures: ROADMAP Queue 1 item 11",
     "depth_out": "the depth_out probe: ROADMAP Queue 1 item 17",
     "collect_stats": "collect_stats counters: ROADMAP Queue 1 item 17",
 }
 
 
-def _refuse(sky, **features) -> None:
+def _refuse(**features) -> None:
     for name, value in features.items():
         if value:
             raise NotImplementedError(f"{_ROADMAP[name]} (not ported yet)")
-    if len(sky) != 3:
-        raise NotImplementedError(
-            "the directional sky: ROADMAP Queue 1 item 11 (not ported yet)")
+
+
+def _check_sky(sky) -> tuple:
+    """The sky spec as Python numbers: 3 colors, or the 13-tuple of
+    ``engines/tables.sky_spec`` whose last entry is the sun's integer
+    power."""
+    if len(sky) == 3:
+        return tuple(float(s) for s in sky)
+    if len(sky) == 13 and int(sky[12]) == sky[12] and int(sky[12]) >= 0:
+        return tuple(float(s) for s in sky[:12]) + (int(sky[12]),)
+    raise ValueError(f"sky spec of {len(sky)} values: want the constant sky "
+                     f"(3) or the gradient and sun spec (13, integer power)")
 
 
 def _t_cap(t_max: float) -> float:
@@ -85,21 +114,21 @@ def _t_cap(t_max: float) -> float:
 def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
           mats, *, max_depth: int, t_min: float, t_max: float, sky,
           tri_live: bool, rr_depth: int = 0, nee: bool = False,
-          lights=None, inst=None, checker=(), itex=(),
+          lights=None, inst=None, checker=(), itex=(), itex_tab=None,
           depth_out: bool = False,
           collect_stats: bool = False) -> torch.Tensor:
     """Trace R rays through up to `max_depth` bounces; (R, 3) radiance.
 
     `tri_live` says whether the triangle table holds any hittable column
     (engines/tables.py and convert.py compute it on the host)."""
-    _refuse(sky, checker=checker, itex=itex, depth_out=depth_out,
-            collect_stats=collect_stats)
+    _refuse(depth_out=depth_out, collect_stats=collect_stats)
     if o.device.type == "cpu":
         return trace_reference(o, d, pix, seed, sph, quad, tri, sph_cl,
                                quad_cl, tri_cl, mats, max_depth=max_depth,
                                t_min=t_min, t_max=t_max, sky=sky,
                                tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                               lights=lights, inst=inst)
+                               lights=lights, inst=inst, checker=checker,
+                               itex=itex, itex_tab=itex_tab)
     if o.device.type != "cuda":
         raise ValueError(f"trace runs on cpu or cuda tensors, not {o.device}")
     r = int(o.shape[0])
@@ -110,7 +139,8 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
     scene = scene_arg(o.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                      lights=lights, inst=inst)
+                      lights=lights, inst=inst, checker=checker, itex=itex,
+                      itex_tab=itex_tab)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("trace")
@@ -184,24 +214,86 @@ def _instance_tables(device, inst):
             inst.itri.shape[1], inst.iacc.shape[1], n_inst)
 
 
+def _check_textures(checker, itex, itex_tab, tri, inst, n_mats: int) -> None:
+    """Validate the texture specs against the tables: material ids in
+    range, image textures within KTEX_MAX and within the texel rows, and
+    texture coordinates in the triangle tables when an image is used."""
+    for c in checker:
+        if len(c) != 5 or not 0 <= int(c[0]) < n_mats:
+            raise ValueError(f"checker entry {c}: want (material id < "
+                             f"{n_mats}, scale, r, g, b)")
+    if not itex:
+        return
+    if itex_tab is None or itex_tab.dim() != 2 \
+            or itex_tab.shape[1] != TEX_LANES:
+        raise ValueError(f"image textures need their (Rt, {TEX_LANES}) texel "
+                         f"rows as itex_tab (ops/pack.pack_kernel_textures)")
+    for mid, toff, th, tw in itex:
+        rows = -(-int(th) * int(tw) // TEX_LANES)
+        if (not 0 <= int(mid) < n_mats or not 0 < th <= KTEX_MAX
+                or not 0 < tw <= KTEX_MAX or toff < 0
+                or toff + rows > itex_tab.shape[0]):
+            raise ValueError(f"itex entry {(mid, toff, th, tw)}: want a "
+                             f"material id < {n_mats} and an image of at "
+                             f"most {KTEX_MAX}x{KTEX_MAX} inside itex_tab "
+                             f"({itex_tab.shape[0]} rows)")
+    if tri.shape[0] != TRI_UV_ROWS or (
+            inst is not None and inst.itri.shape[0] != ITRI_UV_ROWS):
+        raise ValueError(f"image textures need texture coordinates: tri of "
+                         f"{TRI_UV_ROWS} rows and itri of {ITRI_UV_ROWS}")
+
+
+@functools.lru_cache(maxsize=32)
+def texture_table(checker: tuple, itex: tuple, n_mats: int,
+                  device: torch.device) -> torch.Tensor:
+    """The per-material texture table the kernels read, (6, n_mats)
+    float32 on `device` (cached: built once per scene and device).  Row 0
+    is the kind (0 none, 1 checker, 2 image); a checker's rows 1-4 its
+    cell scale and odd color; an image's rows 1-5 its first texel row,
+    height, width, 1/height and 1/width (float32 of the float64
+    quotients, the JAX kernel's constants).  A material has at most one
+    texture, so one lookup by material id stands for the JAX kernel's
+    unrolled loops over the checker and image lists."""
+    lut = np.zeros((MTEX_ROWS, n_mats), np.float32)
+    for mid, scale, r, g, b in checker:
+        lut[:5, int(mid)] = (1.0, scale, r, g, b)
+    for mid, toff, th, tw in itex:
+        lut[:, int(mid)] = (2.0, toff, th, tw, 1.0 / th, 1.0 / tw)
+    return torch.from_numpy(lut).to(device)
+
+
+def sky_mode(sky: tuple) -> int:
+    """How the kernels shade a miss: 0 the constant sky, 1 the gradient,
+    2 the gradient and the sun (a sun of color 0 is left out, as the JAX
+    kernel leaves it out)."""
+    if len(sky) == 3:
+        return 0
+    return 2 if any(sky[9:12]) else 1
+
+
 def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
               t_min: float, t_max: float, sky, tri_live: bool,
-              rr_depth: int = 0, nee: bool = False, lights=None, inst=None):
+              rr_depth: int = 0, nee: bool = False, lights=None, inst=None,
+              checker=(), itex=(), itex_tab=None):
     """Validate the tables a kernel reads and pack them into the
     ``PrtScene`` struct of csrc/bounce.cuh.  The struct holds raw device
     pointers: the tables must outlive the launch."""
     from parallelraytracing_tpu_torch.ops import _build
+    sky = _check_sky(sky)
     lights = _light_table(nee, lights)
     inst_arg = _instance_tables(device, inst)
     check_tensors(device, {"sph": sph, "quad": quad, "tri": tri,
                            "sph_cl": sph_cl, "quad_cl": quad_cl,
                            "tri_cl": tri_cl, "mats": mats,
-                           **({} if lights is None else {"lights": lights})},
+                           **({} if lights is None else {"lights": lights}),
+                           **({} if not itex else {"itex_tab": itex_tab})},
                   {})
-    if (sph.shape[0] != 6 or quad.shape[0] != 14 or tri.shape[0] != 27
+    if (sph.shape[0] != 6 or quad.shape[0] != 14
+            or tri.shape[0] not in (TRI_ROWS, TRI_UV_ROWS)
             or mats.shape[0] != 5):
-        raise ValueError("tables: want sph (6,N), quad (14,N), tri (27,N), "
-                         "mats (5,N)")
+        raise ValueError("tables: want sph (6,N), quad (14,N), tri (27,N) "
+                         "or (33,N), mats (5,N)")
+    _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
     # Each kind's linear table has one column per run of its own cluster
     # size (TRI_CLUSTER for triangles) plus the root pretest column.
     for name, cl, n, csize in (("sph_cl", sph_cl, sph.shape[1], CLUSTER),
@@ -213,16 +305,23 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
             raise ValueError(f"{name} {tuple(cl.shape)}: want an (8, M) "
                              f"tree or a (6, {n_cl + 1}) linear table")
     ptr = torch.Tensor.data_ptr
+    textured = bool(checker) or bool(itex)
+    mtex = (texture_table(tuple(tuple(float(x) for x in c) for c in checker),
+                          tuple((float(m), int(o), int(h), int(w))
+                                for m, o, h, w in itex),
+                          int(mats.shape[1]), device) if textured else None)
     return _build.PrtScene(
         ptr(sph), ptr(sph_cl), sph.shape[1], *sph_cl.shape,
         ptr(quad), ptr(quad_cl), quad.shape[1], *quad_cl.shape,
         ptr(tri), ptr(tri_cl), tri.shape[1] if tri_live else 0,
         *tri_cl.shape,
         ptr(mats), mats.shape[1], CLUSTER, TRI_CLUSTER,
-        float(t_min), _t_cap(t_max), float(sky[0]), float(sky[1]),
-        float(sky[2]), None if lights is None else ptr(lights),
+        float(t_min), _t_cap(t_max),
+        (ctypes.c_float * 13)(*(sky + (0.0,) * 10)[:13]),
+        sky_mode(sky), None if lights is None else ptr(lights),
         0 if lights is None else lights.shape[1], max(int(rr_depth), 0),
-        *inst_arg)
+        *inst_arg, None if mtex is None else ptr(mtex),
+        ptr(itex_tab) if itex else None)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +347,8 @@ def _sphere_hits(ox, oy, oz, dx, dy, dz, sph, t_min, t_cap):
 
 
 def _quad_hits(ox, oy, oz, dx, dy, dz, quad, t_min, t_cap):
-    """(B, Nq) hit distance, accept mask and front flag of every quad."""
+    """(B, Nq) hit distance, accept mask, front flag and half-extent
+    coordinates a, b of every quad."""
     qnx, qny, qnz, cn = quad[0], quad[1], quad[2], quad[3]
     usx, usy, usz, cu = quad[4], quad[5], quad[6], quad[7]
     vsx, vsy, vsz, cv = quad[8], quad[9], quad[10], quad[11]
@@ -265,7 +365,7 @@ def _quad_hits(ox, oy, oz, dx, dy, dz, quad, t_min, t_cap):
         + t * (dx * vsx + dy * vsy + dz * vsz) - cv
     ok = denom_ok & (t > t_min) & (a * a < 1.0) & (b * b < 1.0) & (t <= t_cap)
     fr = on - cn > 0.0
-    return t, ok, fr
+    return t, ok, fr, a, b
 
 
 def _tri_hits(ox, oy, oz, dx, dy, dz, tri, t_min, t_cap):
@@ -345,7 +445,7 @@ def _instance_hits(ox, oy, oz, dx, dy, dz, inst, t_min, t_cap):
 
 
 def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
-                 inst=None):
+                 inst=None, uv: bool = False):
     """Brute-force closest hit of B rays against every sphere, quad and
     (when `tri` is not None) triangle, and every instance's triangles
     (when `inst` is not None): the lexicographic minimum of (t, ordinal)
@@ -353,12 +453,16 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
     fold computes in any visit order.  An instanced triangle's ordinal is
     its instance's base (row 23) plus its itri column.
 
-    Returns (best_t, gx, gy, gz, front, is_sph, mid, ord): best_t = BIG
-    on a miss; the winner's raw geometry (sphere center, quad normal, the
-    unnormalised barycentric blend of the triangle's vertex normals, or
-    for an instanced triangle that blend taken to world space by the
-    instance's rows 13-21), its front flag, kind, material id and global
-    ordinal.  Fields of a missing ray are arbitrary."""
+    Returns (best_t, gx, gy, gz, front, is_sph, mid, ord, u, v): best_t
+    = BIG on a miss; the winner's raw geometry (sphere center, quad
+    normal, the unnormalised barycentric blend of the triangle's vertex
+    normals, or for an instanced triangle that blend taken to world space
+    by the instance's rows 13-21), its front flag, kind, material id and
+    global ordinal; with `uv` its texture coordinates (a quad's 0.5 +
+    0.5 a, 0.5 + 0.5 b, a triangle's barycentric blend of its rows 27-32,
+    an instanced triangle's of itri rows 25-30, 0 for a sphere, whose
+    map the bounce computes), else zeros.  Fields of a missing ray are
+    arbitrary."""
     n_s, n_q = sph.shape[1], quad.shape[1]
     n_t = 0 if tri is None else tri.shape[1]
     ranges = () if inst is None else inst.ranges
@@ -373,7 +477,7 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
     for lo in range(0, ox.shape[0], step):
         ray = tuple(v[lo:lo + step] for v in (ox, oy, oz, dx, dy, dz))
         ts, oks, frs = _sphere_hits(*ray, sph, t_min, t_cap)
-        tq, okq, frq = _quad_hits(*ray, quad, t_min, t_cap)
+        tq, okq, frq, qa, qb = _quad_hits(*ray, quad, t_min, t_cap)
         ts, oks = [ts, tq], [oks, okq]
         if n_t:
             tt, okt, b1, b2 = _tri_hits(*ray, tri, t_min, t_cap)
@@ -399,6 +503,13 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
             1, col.clamp(max=n_s + n_q - 1)[:, None])[:, 0]
         g = [torch.where(is_sph, sph[k, cs], quad[k, cq]) for k in range(3)]
         mid = torch.where(is_sph, sph[4, cs], quad[12, cq])
+        u = v = torch.zeros_like(tmin)
+        if uv:
+            is_q = (col >= n_s) & (col < n_s + n_q)
+            u = torch.where(is_q, 0.5 + 0.5 * qa.gather(1, cq[:, None])[:, 0],
+                            u)
+            v = torch.where(is_q, 0.5 + 0.5 * qb.gather(1, cq[:, None])[:, 0],
+                            v)
         if n_t:
             is_tri = col >= n_s + n_q
             ct = (col - n_s - n_q).clamp(min=0, max=n_t - 1)
@@ -411,6 +522,11 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
             g = [torch.where(is_tri, a, b) for a, b in zip(inrm, g)]
             front = torch.where(is_tri, ~back, front)
             mid = torch.where(is_tri, tri[16, ct], mid)
+            if uv:
+                u = torch.where(is_tri, b0 * tri[27, ct] + b1 * tri[29, ct]
+                                + b2 * tri[31, ct], u)
+                v = torch.where(is_tri, b0 * tri[28, ct] + b1 * tri[30, ct]
+                                + b2 * tri[32, ct], v)
         base = n_s + n_q + n_t
         for k, ((_, _, ib1, ib2), (ilo, ihi)) in enumerate(zip(iparts,
                                                                 ranges)):
@@ -430,8 +546,13 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
             g = [torch.where(is_k, a, b) for a, b in zip(wn, g)]
             front = torch.where(is_k, ~back, front)
             mid = torch.where(is_k, gk[22], mid)
+            if uv:
+                u = torch.where(is_k, ib0 * it[25, j] + ib1 * it[27, j]
+                                + ib2 * it[29, j], u)
+                v = torch.where(is_k, ib0 * it[26, j] + ib1 * it[28, j]
+                                + ib2 * it[30, j], v)
         outs.append((torch.where(tmin < BIG, tmin, BIG), *g, front, is_sph,
-                     mid.long(), ords[col]))
+                     mid.long(), ords[col], u, v))
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
@@ -528,19 +649,116 @@ def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
     return w_l, (ler, leg, leb)
 
 
+def _sky_radiance(sky, dx, dy, dz):
+    """The sky seen along directions d: the constant sky, or (13-tuple
+    spec) the gradient lerp(bottom, top, 0.5 * (d_hat.y + 1)) plus the
+    sun color * max(d_hat . sun_dir, 0) ** power, the power taken by
+    square-and-multiply over its bits (the JAX kernel's static binary
+    exponentiation)."""
+    if len(sky) == 3:
+        return sky
+    b = [float(np.float32(x)) for x in sky[:3]]
+    top = [float(np.float32(x)) for x in sky[3:6]]
+    inv_l = ieee.rsqrt(dx * dx + dy * dy + dz * dz)
+    tmix = 0.5 * (dy * inv_l + 1.0)
+    sk = [b[k] + tmix * float(np.float32(top[k] - b[k])) for k in range(3)]
+    if sky_mode(sky) == 2:
+        sd0, sd1, sd2, sc0, sc1, sc2 = sky[6:12]
+        cosang = torch.clamp_min((dx * sd0 + dy * sd1 + dz * sd2) * inv_l,
+                                 0.0)
+        w, p, base = torch.ones_like(cosang), int(sky[12]), cosang
+        while p:
+            if p & 1:
+                w = w * base
+            base, p = base * base, p >> 1
+        sk = [sk[0] + w * sc0, sk[1] + w * sc1, sk[2] + w * sc2]
+    return sk
+
+
+def _wrap(val, ext: float, inv: float):
+    """val mod ext for the texture's repeat wrap, inv = float32(1 / ext)
+    (``tex_wrap`` of bounce.cuh)."""
+    return val - ext * torch.floor(val * inv)
+
+
+def _texture_albedo(hit, mid, u, v, px, py, pz, is_sph_k, nrx, nry, nrz,
+                    n_ilen, m_c, checker, itex, itex_tab):
+    """The albedo (3 x (B,)) after the material's texture, in the JAX
+    kernel's order (pallas_trace.py l.2612-2704): an image texture
+    multiplies the albedo by its bilinear, repeat-wrapped sample at the
+    hit's UV (a sphere's equirectangular map from its outward normal,
+    whatever the front flag), then a checker replaces it by the odd color
+    in odd cells.  Only hits of the material change."""
+    m_c0, m_c1, m_c2 = m_c
+    if itex:
+        s_u = 0.5 + ieee.atan2(nrz, nrx) * INV_TWO_PI
+        s_v = 0.5 - ieee.asin(torch.clamp(nry * n_ilen, -1.0, 1.0)) * INV_PI
+        u_c = torch.where(is_sph_k, s_u, u)
+        v_c = torch.where(is_sph_k, s_v, v)
+        u_w = u_c - torch.floor(u_c)
+        v_w = v_c - torch.floor(v_c)
+        flat = itex_tab.reshape(-1)
+    for cm, toff, th, tw in itex:
+        sel = hit & (mid == int(cm))
+        if not bool(sel.any()):
+            continue
+        thf, twf = float(th), float(tw)
+        inv_h, inv_w = (float(np.float32(1.0 / e)) for e in (thf, twf))
+        x = u_w * twf - 0.5
+        y = (1.0 - v_w) * thf - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = x - x0
+        fy = y - y0
+
+        def fetch(yi, xi):
+            idx = (_wrap(yi, thf, inv_h) * twf
+                   + _wrap(xi, twf, inv_w)).to(torch.int64)
+            val = flat[torch.where(sel, idx, 0) + int(toff) * TEX_LANES]
+            r8 = torch.floor(val * (1.0 / 65536.0))
+            rem = val - r8 * 65536.0
+            g8 = torch.floor(rem * (1.0 / 256.0))
+            b8 = rem - g8 * 256.0
+            return r8 * INV_255, g8 * INV_255, b8 * INV_255
+
+        c00 = fetch(y0, x0)
+        c01 = fetch(y0, x0 + 1.0)
+        c10 = fetch(y0 + 1.0, x0)
+        c11 = fetch(y0 + 1.0, x0 + 1.0)
+        smp = [(c00[k] * (1.0 - fx) + c01[k] * fx) * (1.0 - fy)
+               + (c10[k] * (1.0 - fx) + c11[k] * fx) * fy for k in range(3)]
+        m_c0 = torch.where(sel, smp[0] * m_c0, m_c0)
+        m_c1 = torch.where(sel, smp[1] * m_c1, m_c1)
+        m_c2 = torch.where(sel, smp[2] * m_c2, m_c2)
+    for cm, cs, c2r, c2g, c2b in checker:
+        cs = float(np.float32(cs))
+        cell = (torch.floor(px * cs + CHECKER_OFF)
+                + torch.floor(py * cs + CHECKER_OFF)
+                + torch.floor(pz * cs + CHECKER_OFF))
+        odd = cell - 2.0 * torch.floor(cell * 0.5)
+        selc = hit & (mid == int(cm)) & (odd > 0.5)
+        m_c0 = torch.where(selc, float(np.float32(c2r)), m_c0)
+        m_c1 = torch.where(selc, float(np.float32(c2g)), m_c1)
+        m_c2 = torch.where(selc, float(np.float32(c2b)), m_c2)
+    return m_c0, m_c1, m_c2
+
+
 def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
-            t_cap, sky, lights=None, rr_depth: int = 0, inst=None):
+            t_cap, sky, lights=None, rr_depth: int = 0, inst=None,
+            checker=(), itex=(), itex_tab=None):
     """One bounce of B alive paths at absolute depth `depth`: the new
     state and the (B,) float32 alive values after it (0 ended, 1 goes on,
     2 goes on from a diffuse vertex under NEE).  `alive` holds the values
     before it (1, or 2: emission was sampled by NEE at the previous vertex
     and is not added again).  `tri` is None when the scene has no
     hittable triangle, `lights` None when NEE is off, `inst` None without
-    instances."""
+    instances.  `sky` is a spec of ``_check_sky``; the textures of
+    `checker` and `itex` apply before emission, NEE and attenuation."""
     nee = lights is not None
     ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb = state
-    best_t, gx, gy, gz, fr, is_sph, mid, _ = _closest_hit(
-        ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap, inst)
+    best_t, gx, gy, gz, fr, is_sph, mid, _, u, v = _closest_hit(
+        ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap, inst,
+        uv=bool(itex))
     hit = best_t < BIG
     is_sph_k = hit & is_sph
     gx = torch.where(hit, gx, 0.0)
@@ -567,13 +785,18 @@ def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
     nx = nrx * sgn_n
     ny = nry * sgn_n
     nz = nrz * sgn_n
+    if checker or itex:
+        m_c0, m_c1, m_c2 = _texture_albedo(
+            hit, mid, u, v, px, py, pz, is_sph_k, nrx, nry, nrz, n_ilen,
+            (m_c0, m_c1, m_c2), checker, itex, itex_tab)
 
     # miss: sky * throughput; emission before the scatter test, not added
     # again at a vertex whose light NEE sampled at the previous one
     mw = (~hit).to(torch.float32)
-    rr = rr + mw * tr * sky[0]
-    rg = rg + mw * tg * sky[1]
-    rb = rb + mw * tb * sky[2]
+    sk = _sky_radiance(sky, dx, dy, dz)
+    rr = rr + mw * tr * sk[0]
+    rg = rg + mw * tg * sk[1]
+    rb = rb + mw * tb * sk[2]
     lw = hit.to(torch.float32) * (m_type == MAT_EMISSIVE).to(torch.float32)
     if nee:
         lw = lw * (alive <= 1.5).to(torch.float32)
@@ -685,18 +908,18 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
                     tri_cl, mats, *, max_depth: int, t_min: float,
                     t_max: float, sky, tri_live: bool, rr_depth: int = 0,
                     nee: bool = False, lights=None, inst=None, checker=(),
-                    itex=(), depth_out: bool = False,
+                    itex=(), itex_tab=None, depth_out: bool = False,
                     collect_stats: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``trace`` (same signature and result).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
     its state unchanged, as in the TPU kernel's dead-tile exit."""
-    _refuse(sky, checker=checker, itex=itex, depth_out=depth_out,
-            collect_stats=collect_stats)
+    _refuse(depth_out=depth_out, collect_stats=collect_stats)
     lights = _light_table(nee, lights)
+    sky = _check_sky(sky)
+    _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
     r = o.shape[0]
     dev = o.device
     t_cap = _t_cap(t_max)
-    sky = tuple(float(s) for s in sky)
     ones = torch.ones(r, dtype=torch.float32, device=dev)
     zeros = torch.zeros(r, dtype=torch.float32, device=dev)
     state = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
@@ -714,7 +937,7 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
         new, alive_out = _bounce([s[idx] for s in state], alive[idx], rng_d,
                                  depth, sph, quad, tri if tri_live else None,
                                  mats, t_min, t_cap, sky, lights, rr_depth,
-                                 inst)
+                                 inst, checker, itex, itex_tab)
         for s, v in zip(state, new):
             s[idx] = v
         alive[idx] = alive_out

@@ -18,7 +18,10 @@ bound (the two kernels share their bounce, so 0 is expected).  With NEE
 and Russian roulette the same bounds hold, and the segment's alive plane
 (0, 1, or 2 for NEE's no-emit mark) is equal on every slot; so do they
 on an instanced scene, where the plain version tests each instance's own
-mesh triangles by brute force against the kernel's tree walks.
+mesh triangles by brute force against the kernel's tree walks, and on the
+scene extensions (checker and image textures, the directional sky, thin
+lens and QMC raygen, textured instances), whose float64 atan2 / asin the
+plain version takes the same way as the kernel.
 """
 
 import numpy as np
@@ -75,20 +78,23 @@ def frame_inputs(r, frame_index, jitter=None):
                                                        sample_key)
     cfg = r.config
     jseed, seed = frame_stream_seeds(sample_key(cfg.seed, frame_index, 0))
-    o, d = raygen_ids(r._cam_params, r._ids, jseed, cfg.width, cfg.height,
-                      cfg.jitter if jitter is None else jitter)
+    o, d = raygen_ids(r._cam_params, r._ids, r._pixel_seed(jseed), cfg.width,
+                      cfg.height, cfg.jitter if jitter is None else jitter,
+                      cfg.lens, r._qpt(frame_index, 0))
     return o, d, r._ids, seed
 
 
 def traced(r, fn, max_depth=None):
     """fn (trace or trace_reference) on renderer r's tables and config
-    (NEE and Russian roulette as the renderer runs them)."""
+    (NEE, Russian roulette, instances and textures as the renderer runs
+    them)."""
     t, cfg = r._tables, r.config
     return lambda o, d, pix, seed: fn(
         o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl,
         t.mats, max_depth=max_depth or cfg.max_depth, t_min=cfg.t_min,
         t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=t.nee,
-        lights=t.lights, rr_depth=cfg.russian_roulette_depth)
+        lights=t.lights, rr_depth=cfg.russian_roulette_depth, inst=t.inst,
+        checker=t.checker, itex=t.itex, itex_tab=t.itex_tab)
 
 
 def ray_share(k, p):
@@ -353,3 +359,82 @@ def test_instanced_segment_kernel_matches_plain(cuda, nee):
         f.progressive_render()
     diff = wf_film.hdr_average() - fused_film.hdr_average()
     assert float(diff.pow(2).mean().sqrt()) < FILM_RMSE
+
+
+def extension_renderer(name, engine, width, height, **cfg_kw):
+    """A renderer of `engine` on one of the scene-extension scenes: the
+    texture_demo and sky_demo presets at the CLI's preset camera, or the
+    textured instances of tests/torch_meshes.py."""
+    from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
+                                              Scene, ScenePreset,
+                                              create_renderer)
+    from parallelraytracing_tpu_torch.core.mesh import Mesh
+    from parallelraytracing_tpu_torch.core.scene import globe_image
+    from torch_meshes import ICO_F, ICO_V, textured_instance_scene
+    if name == "instances":
+        v = np.asarray(ICO_V, np.float64)
+        v = v / np.linalg.norm(v, axis=1, keepdims=True)
+        ico = Mesh(v.astype(np.float32),
+                   np.asarray(ICO_F, np.uint32).reshape(-1))
+        big = make_mesh("ico2")
+        big.compute_vertex_normals()
+        scene = textured_instance_scene(Scene, ico, big, globe_image())
+        eye, look = np.array([0.0, 6.0, 14.0]), np.array([0.0, 1.0, 0.0])
+    else:
+        scene = Scene(ScenePreset(name))
+        eye, look = np.array([5.0, 5.0, 8.0]), np.zeros(3)
+    film = Film(width, height, "cuda")
+    r = create_renderer(engine, "cuda")
+    r.init(film, scene, Camera(eye, look - eye, float(width), float(height),
+                               100.0),
+           RenderConfig(width=width, height=height, **cfg_kw))
+    return r, film
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg_kw", [
+    ("texture_demo", dict()), ("texture_demo", dict(nee=True)),
+    ("texture_demo", dict(lens_radius=0.1, qmc=True)),
+    ("sky_demo", dict()), ("instances", dict(nee=True))])
+def test_extension_kernels_match_plain(cuda, name, cfg_kw):
+    """The textured and sky instantiations of both kernels against their
+    plain versions: the trace at depth 1 without jitter and one 2-bounce
+    segment (every ray or slot within RAY_ATOL on RAY_SHARE of them, the
+    alive plane equal), and 4 frames of the trace at depth 8 (RMSE)."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, _run_segment, _scalars)
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    r, _ = extension_renderer(name, "fused", 160, 90, max_depth=8, **cfg_kw)
+    assert r._tables.checker or r._tables.itex or len(r._tables.sky) == 13
+    inputs = frame_inputs(r, 0, jitter=False)
+    k = traced(r, trace, max_depth=1)(*inputs)
+    p = traced(r, trace_reference, max_depth=1)(*inputs)
+    assert torch.isfinite(k).all() and ray_share(k, p) >= RAY_SHARE
+    rmse = film_rmse(r, 4, traced(r, trace), traced(r, trace_reference))
+    assert rmse < FILM_RMSE, rmse
+    w, _ = extension_renderer(name, "wavefront_fused", 160, 90, max_depth=8,
+                              **cfg_kw)
+    o, d, pix, seed = frame_inputs(w, 0)
+    state = _initial_state(o, d)
+    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+    ks, ps = (_run_segment(w._tables, pix, state, _scalars(seed, 0, count), 2,
+                           w.config, fn) for fn in (segment, segment_reference))
+    assert torch.equal(ks[12], ps[12])
+    assert ray_share(ks.t(), ps.t()) >= RAY_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["texture_demo", "instances"])
+def test_extension_engines_agree(cuda, name):
+    """wavefront_fused renders the fused engine's film of a textured scene
+    on the card (RMSE bound, 0 expected)."""
+    films = []
+    for engine in ("fused", "wavefront_fused"):
+        r, film = extension_renderer(name, engine, 96, 64, max_depth=8)
+        for _ in range(4):
+            r.progressive_render()
+        films.append(film.hdr_average())
+    torch.cuda.synchronize()
+    assert torch.isfinite(films[0]).all()
+    assert float((films[0] - films[1]).pow(2).mean().sqrt()) < FILM_RMSE

@@ -95,6 +95,9 @@ def test_scene_data_equals_jax(name, bake):
     jscene = make_scene(name, J.Scene)
     want = jscene.build(bake_instances=bake)
     for f in FIELDS:
+        if getattr(want, f) is None:  # an extension field left unused
+            assert got[f] is None, f
+            continue
         b = np.asarray(getattr(want, f))
         assert got[f].dtype == b.dtype, f
         np.testing.assert_array_equal(got[f], b, err_msg=f)
@@ -334,24 +337,27 @@ def test_kernel_scene_struct_carries_instances():
 
 
 def test_remaining_refusals_raise():
-    """Instances run; what stays refused raises NotImplementedError: the
-    ordered instance trees, instance texture coordinates (also when JAX
-    tables with uv rows come through convert), textures and the
-    directional sky in the trace."""
+    """Instances run, and so do their texture coordinates (with_uv: the
+    31-row itri, also when the JAX package's comes through convert) and a
+    checker on an instanced scene; what stays refused raises: the ordered
+    instance trees (NotImplementedError), an itri of another row count
+    and image textures on instance tables without texture coordinates
+    (ValueError), and the depth_out probe."""
     scene = make_scene("tlas", T.Scene)
-    for kw, item in ((dict(ordered=True), "item 13"),
-                     (dict(with_uv=True), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            pack_instance_tables(scene._inst_meshes, scene.instances, 3.0,
-                                 **kw)
-    itri, iacc, ibox, inst = pack_instance_tables(scene._inst_meshes,
-                                                  scene.instances, 3.0)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        pack_instance_tables(scene._inst_meshes, scene.instances, 3.0,
+                             ordered=True)
+    itri, iacc, ibox, inst = pack_instance_tables(
+        scene._inst_meshes, scene.instances, 3.0, with_uv=True)
+    assert itri.shape == (31, 20) and not itri[25:].any()  # no texcoords
     t, _ = build_scene_tables(scene, "cpu")
     args = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    carried = convert.tables_from_numpy(*(a.numpy() for a in args), t.sky,
+                                        "cpu", inst=(itri, iacc, ibox, inst))
+    assert carried.inst.itri.shape == (31, 20)
+    with pytest.raises(ValueError, match="itri"):
         convert.tables_from_numpy(*(a.numpy() for a in args), t.sky, "cpu",
-                                  inst=(np.zeros((31, 20), np.float32), iacc,
-                                        ibox, inst))
+                                  inst=(itri[:28], iacc, ibox, inst))
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, -1.0, 0.0]]).repeat(4, 1)
     pix = torch.arange(4, dtype=torch.int32)
@@ -359,7 +365,10 @@ def test_remaining_refusals_raise():
               tri_live=False, inst=t.inst)
     for fn in (trace, trace_reference):
         assert fn(o, d, pix, 1, *args, **kw).shape == (4, 3)
-        for extra in (dict(checker=((1.0,),)), dict(itex=((1,),)),
-                      dict(sky=(0.1,) * 13)):
-            with pytest.raises(NotImplementedError):
-                fn(o, d, pix, 1, *args, **{**kw, **extra})
+        assert fn(o, d, pix, 1, *args, **kw,
+                  checker=((0.0, 2.0, 0.1, 0.2, 0.3),)).shape == (4, 3)
+        with pytest.raises(ValueError, match="texture coordinates"):
+            fn(o, d, pix, 1, *args, **kw, itex=((0.0, 0, 4, 4),),
+               itex_tab=torch.zeros((1, 128)))
+        with pytest.raises(NotImplementedError):
+            fn(o, d, pix, 1, *args, **kw, depth_out=True)

@@ -69,9 +69,16 @@ def test_camera_rays_match_jax(jitter):
 
 
 def test_lens_and_qmc_raygen_raise():
+    """Thin-lens and QMC raygen run (tests/test_torch_textures.py holds
+    them to the JAX package).  A lens without a pixel seed samples its
+    center, a pinhole, as in the JAX package; QMC's Halton point and the
+    jitter without a pixel seed raise."""
     p = torch.from_numpy(default_camera(8, 8).ray_params())
     ids = torch.arange(64, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        rays.generate_camera_rays_ids(p, 8, 8, ids, False, lens=(0.1, 5.0))
-    with pytest.raises(NotImplementedError):
+    o, d = rays.generate_camera_rays_ids(p, 8, 8, ids, False, lens=(0.1, 5.0))
+    o0, d0 = rays.generate_camera_rays_ids(p, 8, 8, ids, False)
+    assert torch.equal(o, o0) and float((d - d0).abs().max()) < 1e-6
+    with pytest.raises(ValueError, match="pix_seed"):
         rays.generate_camera_rays_ids(p, 8, 8, ids, False, qpt=np.zeros(4))
+    with pytest.raises(ValueError, match="pix_seed"):
+        rays.generate_camera_rays_ids(p, 8, 8, ids, True)

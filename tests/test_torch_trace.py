@@ -81,10 +81,18 @@ def test_features_outside_the_slice_raise():
     args = (o, d, pix, 1, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
             t.tri_cl, t.mats)
     kw = dict(max_depth=2, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=False)
+    sun_sky = (1.0, 1.0, 1.0, 0.3, 0.5, 0.9, 0.0, 1.0, 0.0, 4.0, 3.0, 2.0, 8)
     for fn in (trace, trace_reference):
         assert fn(*args, **kw).shape == (4, 3)
-        for extra in (dict(checker=((1.0,),)),
-                      dict(itex=((1,),)), dict(depth_out=True),
-                      dict(collect_stats=True), dict(sky=(0.1,) * 13)):
+        # the checker and the directional sky run now
+        for extra in (dict(checker=((1.0, 0.5, 0.1, 0.2, 0.3),)),
+                      dict(sky=sun_sky)):
+            assert fn(*args, **{**kw, **extra}).shape == (4, 3)
+        for extra in (dict(depth_out=True), dict(collect_stats=True)):
             with pytest.raises(NotImplementedError):
+                fn(*args, **{**kw, **extra})
+        # malformed specs: an image texture without its texel rows, a sky
+        # of neither 3 nor 13 values
+        for extra in (dict(itex=((1.0, 0, 4, 4),)), dict(sky=(0.1,) * 5)):
+            with pytest.raises(ValueError):
                 fn(*args, **{**kw, **extra})

@@ -6,7 +6,10 @@ Three sizes, one for each walk of the triangle kind: a tetrahedron (4
 triangles: a tiny kind, a plain loop), an octahedron (8 triangles, 2
 clusters of TRI_CLUSTER: the linear scan) and the icosahedron from its 12
 closed-form vertices at level 2 (320 triangles: the threaded SAH tree).
-All have their vertices on the unit sphere and outward winding."""
+All have their vertices on the unit sphere and outward winding.  The
+textured scenes give a mesh equirectangular texture coordinates
+(``with_equirect_uv``) and take their images from the port's
+``texture_demo`` recipes (``plaid_image``, ``globe_image``)."""
 
 import numpy as np
 
@@ -125,3 +128,93 @@ def _place(scene, mesh, mat, transforms, instanced):
     else:
         for t in transforms:
             scene.add_mesh(mesh, mat, t)
+
+
+def with_equirect_uv(mesh: tmesh.Mesh) -> tmesh.Mesh:
+    """`mesh` (vertices on the unit sphere) with per-vertex texture
+    coordinates u = 0.5 + atan2(z, x) / 2 pi, v = 0.5 + asin(y) / pi."""
+    v = mesh.vertices.astype(np.float64)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    uv = np.stack([0.5 + np.arctan2(v[:, 2], v[:, 0]) / (2.0 * np.pi),
+                   0.5 + np.arcsin(np.clip(v[:, 1], -1.0, 1.0)) / np.pi], 1)
+    return tmesh.Mesh(mesh.vertices, mesh.indices, mesh.normals,
+                      uv.astype(np.float32))
+
+
+def image_scene(scene_cls, image):
+    """bench.py's textured fidelity scene (a 6x6 image quad tilted 60
+    degrees over a 40x40 ground quad, sky-lit) with the 16x16 image of
+    bench's recipe replaced by `image`, plus an image-textured triangle
+    with explicit texture coordinates and a small emissive sphere (so NEE
+    reads the textured albedo)."""
+    s = scene_cls(preset=None)
+    tm = s.add_textured_lambertian(s.add_texture(image))
+    s.add_quad(6, 6, tm, ((1, 1, 1), (60, 0, 0), (0, 4, -4)))
+    s.add_quad(40, 40, s.add_lambertian((0.5, 0.5, 0.52)), None)
+    s.add_triangle((-5.0, 0.5, 1.0), (-1.0, 0.5, 2.0), (-3.0, 4.5, 0.0),
+                   material=tm, uv0=(0.0, 0.0), uv1=(1.5, 0.0),
+                   uv2=(0.7, 1.25))
+    s.add_sphere(0.6, s.add_emissive((8, 8, 7)),
+                 ((1, 1, 1), (0, 0, 0), (3, 5, 2)))
+    return s
+
+
+def bench_image() -> np.ndarray:
+    """bench.py's 16x16 test image of its textured fidelity scene."""
+    yy, xx = np.mgrid[0:16, 0:16]
+    return np.stack([(xx % 8) / 7.0, (yy % 8) / 7.0,
+                     ((xx + yy) % 16) / 15.0], axis=-1)
+
+
+def textured_sphere_scene(scene_cls, image):
+    """A globe: an image-textured sphere turned 25 degrees, a checker
+    floor, a plain sphere inside the view, under an emissive sphere."""
+    s = scene_cls(preset=None)
+    s.add_quad(30, 30, s.add_checker((0.8, 0.8, 0.8), (0.1, 0.2, 0.3),
+                                     scale=0.7), None)
+    s.add_sphere(1.6, s.add_textured_lambertian(s.add_texture(image)),
+                 ((1, 1, 1), (0, 25, 0), (0.0, 1.6, 0.0)))
+    s.add_sphere(0.8, s.add_metal((0.9, 0.8, 0.7), 0.1),
+                 ((1, 1, 1), (0, 0, 0), (2.6, 0.8, 1.0)))
+    s.add_sphere(1.0, s.add_emissive((7, 7, 6)),
+                 ((1, 1, 1), (0, 0, 0), (-3, 6, 3)))
+    return s
+
+
+def checker_scene(scene_cls):
+    """A checker floor and a checker sphere (two checker materials) with a
+    glass and a diffuse sphere, under an emissive sphere and the constant
+    sky."""
+    s = scene_cls(preset=None)
+    s.add_quad(40, 40, s.add_checker((0.85, 0.85, 0.85), (0.12, 0.15, 0.2),
+                                     scale=0.8), None)
+    s.add_sphere(1.2, s.add_checker((0.9, 0.3, 0.2), (0.2, 0.3, 0.9),
+                                    scale=2.5),
+                 ((1, 1, 1), (0, 0, 0), (-1.5, 1.2, 0.0)))
+    s.add_sphere(1.0, s.add_dielectric(1.5), ((1, 1, 1), (0, 0, 0),
+                                               (1.5, 1.0, 1.0)))
+    s.add_sphere(0.7, s.add_lambertian((0.3, 0.7, 0.3)),
+                 ((1, 1, 1), (0, 0, 0), (0.5, 0.7, -2.0)))
+    s.add_sphere(1.5, s.add_emissive((6, 6, 6)), ((1, 1, 1), (0, 0, 0),
+                                                  (0, 9, 0)))
+    return s
+
+
+def textured_instance_scene(scene_cls, small, big, image,
+                            instanced: bool = True):
+    """two_mesh_scene's layout with the big mesh's two copies in an image
+    texture (both meshes carry equirectangular texture coordinates)."""
+    s = scene_cls(preset=None)
+    glass = s.add_dielectric(1.5)
+    red = s.add_lambertian((0.8, 0.15, 0.1))
+    body = s.add_textured_lambertian(s.add_texture(image))
+    small, big = with_equirect_uv(small), with_equirect_uv(big)
+    _place(s, small, glass, [((1.5,) * 3, (0, 30, 0), (2.5, 1.5, 1.0))],
+           instanced)
+    _place(s, big, body, [((2, 2, 2), (0, 160, 0), (-1.5, 2, -1)),
+                          ((1, 1, 1), (0, 40, 0), (-4, 1, 2))], instanced)
+    _place(s, small, red, [((1,) * 3, (30, 0, 0), (1, 1, 3.5))], instanced)
+    s.add_quad(30, 30, s.add_lambertian((0.5, 0.5, 0.52)), None)
+    s.add_sphere(1.5, s.add_emissive((9, 9, 8)),
+                 ((1, 1, 1), (0, 0, 0), (6, 9, 6)))
+    return s
