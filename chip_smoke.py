@@ -5,6 +5,10 @@
 
     python3 chip_smoke.py --png-dir renders   # also keep the PNGs
 
+    python3 chip_smoke.py --big-level 8       # add phase 22 (1.3M triangles)
+
+    python3 chip_smoke.py --stream-sweep      # and the stream chunk sweep
+
 Drives the port's main paths through the entry points a user calls, at
 1920x1080, depth 20, 1 spp per frame, jitter on: the fused engine on
 RANDOM_BALLS_LARGE (808 spheres + one ground quad), and the
@@ -22,15 +26,19 @@ instance block) at 1920x1080, depth 8; then the scene extensions
 (checker and image textures, the gradient and sun sky, thin lens and
 QMC): T1 texture_demo and T2 sky_demo at the CLI's preset camera, depth
 20, and T3 the multimesh scene with its two icospheres in texture_demo's
-globe image, depth 8.  Phases, one or more lines each,
+globe image, depth 8; then a big mesh on the stream route: bench.py's
+big-mesh scene with icospheres of 81,920, 327,680 and (with --big-level
+8) 1,310,720 triangles for its subdivided dragon scan, at 960x540, depth
+8.  Phases, one or more lines each,
 each line tagged with its seconds (any failure raises and exits
 non-zero):
 
 1. probe: the card, its power limit, the torch and CUDA versions;
 2. build: the trace and segment kernels from csrc/ with nvcc (sm_90a),
    one nvcc each, started together; ptxas registers and spill stores of
-   each instantiation (with and without the triangle fold, NEE,
-   roulette);
+   each of the 48 instantiations (without triangles, with the dense
+   triangle fold or the stream route's walk, with and without NEE,
+   roulette, instances, the scene extensions);
 3. kernel vs plain PyTorch version on the card: at 320x180 on
    RANDOM_BALLS_LARGE and MATERIAL_TEST, depth 1 without jitter (winning
    radiance per ray within 1e-5 on >= 99.9% of rays) and depth 20 with
@@ -116,14 +124,42 @@ non-zero):
     and T3 fused and wavefront_fused: the kernels' times on frame 0 and
     their bounds (the texture fetches, checker and sky of the camera
     rays' hits added, counted by one probe launch), then the engine as in
-    phase 8 (ms/frame, Msamples/s, Mrays/s, launches, film, PNG).
+    phase 8 (ms/frame, Msamples/s, Mrays/s, launches, film, PNG);
+20. the stream route at level 6 (81,920 triangles, above the default
+    threshold of 24,576): the stream instantiations of both kernels
+    against their plain versions on 4,096 random camera rays, with and
+    without NEE (the trace at depth 1 without jitter and at depth 8,
+    within 1e-5 on >= 99.9% of rays; one 2-bounce segment on all 13
+    planes, the alive plane equal), then on every camera ray of a frame
+    (the trace at depth 1 without jitter, one 2-bounce segment over the
+    full queue, the same bounds); the films of 4 frames at 960x540, depth
+    8, at chunk 64 against dense and against chunk 128 on both engines,
+    bit for bit; the fused trace kernel's time, streamed and dense; with
+    --stream-sweep also the same frames one bounce at a time through the
+    segment kernel, dense against chunks 64, 128 and 256: every slot that
+    differs equals the plain version in one of the two layouts (a tree
+    culled a hit grazing a vertex on a box face), on at most 1e-5 of the
+    segments;
+21. level 7 (327,680 triangles, past the dense layout's 2^18 cap): the
+    scene's build and pack seconds and table bytes, phase 20's
+    kernel-vs-plain checks, the two engines' films (HDR RMSE < 1e-3, 0
+    expected), wavefront_fused and fused with and without NEE timed as
+    in phase 15 (kernel times and bounds on frame 0, ms/frame, Mrays/s),
+    torch.cuda.max_memory_allocated(); with --stream-sweep then the
+    chunks 64, 128 and 256: pack seconds, the fused trace kernel, its
+    frame and the segments;
+22. with --big-level 8, phase 21 without the chunks at level 8
+    (1,310,720 triangles).  The renderers of one scene share its packed
+    tables (``shared_tables``).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
 path's timed frames, its bound on the card for the measured launch, its
 NEE, roulette and instanced comparisons, and the timed paths A-D and
-the instanced ones), and of each kernel's scene-extension
-instantiations ("trace[ext]", "segment[ext]": T1-T3); the last line is
+the instanced ones), of each kernel's scene-extension
+instantiations ("trace[ext]", "segment[ext]": T1-T3) and of its stream
+instantiations ("trace[stream]", "segment[stream]": phases 20-22); the
+last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -131,6 +167,7 @@ Exits non-zero without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -187,6 +224,19 @@ SLAB_OPS, SPH_OPS, QUAD_OPS, TRI_OPS, ENTRY_OPS, SHADE_OPS = \
 #: each counted as 20), a checker's cell parity, the gradient and sun sky
 #: of a miss (sun power 256: nine squarings)
 TEX_OPS, SPH_UV_OPS, CHECKER_OPS, SKY_OPS = 115, 46, 16, 45
+#: the stream route's workloads: bench's big-mesh scene (big_mesh_scene)
+#: at 960x540, depth 8, its camera, the rays of each kernel-vs-plain
+#: comparison, the frames of each film comparison, and the chunks timed
+BIG_W, BIG_H, BIG_DEPTH = 960, 540, 8
+BIG_EYE, BIG_DIR = (0.0, 14.0, 28.0), (0.0, -7.0, -28.0)
+BIG_RAYS, BIG_FRAMES = 4096, 4
+#: the second chunk whose level-6 films must equal the default chunk's,
+#: and the chunks of --stream-sweep
+ALT_CHUNK, CHUNK_SWEEP = 128, (64, 128, 256)
+#: --stream-sweep's layout check: the largest share of ray segments whose
+#: state may differ between the dense layout and a chunk's (measured: 0
+#: or 1 of 3,590,072)
+LAYOUT_SHARE = 1e-5
 #: the scene extensions' workloads: T1 texture_demo, T2 sky_demo (depth
 #: MAIN_DEPTH) at the CLI's preset camera, T3 the instanced multimesh
 #: scene with its two icospheres in texture_demo's globe image (depth
@@ -240,7 +290,7 @@ def trace_kw(tables, cfg) -> dict:
                 sky=tables.sky, tri_live=tables.tri_live, nee=tables.nee,
                 lights=tables.lights, rr_depth=cfg.russian_roulette_depth,
                 inst=tables.inst, checker=tables.checker, itex=tables.itex,
-                itex_tab=tables.itex_tab)
+                itex_tab=tables.itex_tab, stream=tables.stream)
 
 
 def both_traces(tables, cfg, o, d, pix, seed):
@@ -397,17 +447,18 @@ def check_film(film, sky, tag: str, png_dir) -> str:
 
 def ptxas_summary(lib: str, log: Path) -> str:
     """Registers and spill stores of each kernel instantiation in an nvcc
-    build log (-Xptxas -v): "tri" with the triangle fold, "sq" without,
-    "+nee" with the NEE block, "+rr" with Russian roulette, "+inst" with
-    the instance block, "+ext" with the scene extensions (textures and
-    the directional sky)."""
+    build log (-Xptxas -v): "tri" with the dense triangle fold,
+    "tri-stream" with the stream route's two-level walk, "sq" without
+    triangles, "+nee" with the NEE block, "+rr" with Russian roulette,
+    "+inst" with the instance block, "+ext" with the scene extensions
+    (textures and the directional sky)."""
     if not log.exists():  # built by an earlier run, whose log is gone
         return ""
     out, tag, spill = [], lib, ""
     for ln in log.read_text().splitlines():
-        m = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E", ln)
+        m = re.search(r"ILi([012])ELb([01])ELb([01])ELb([01])ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
-            tag = (f"{lib}[{'tri' if m.group(1) == '1' else 'sq'}"
+            tag = (f"{lib}[{('sq', 'tri', 'tri-stream')[int(m.group(1))]}"
                    f"{'+nee' if m.group(2) == '1' else ''}"
                    f"{'+rr' if m.group(3) == '1' else ''}"
                    f"{'+inst' if m.group(4) == '1' else ''}"
@@ -601,26 +652,59 @@ def depth_counts(r) -> list:
     return count_depth_rays(r._tables, *frame_inputs(r, 0), r.config)
 
 
-def tree_walk_shape(cl, roots=(0,)):
-    """(fewest nodes on a root-to-leaf path, mean leaf span) of a threaded
-    (8, M) table: a node's first child is the next column and a child's
+def tree_depths(cl, roots=(0,)) -> np.ndarray:
+    """The depth of each column of a threaded (8, M) table, 0 for a column
+    no walk reaches: a node's first child is the next column and a child's
     next sibling its escape link, so one pass in column order gives every
     node's depth.  `roots` are the trees' first columns (the instance
     table holds one tree per unique mesh)."""
-    cl = cl.cpu().numpy()
-    depth = np.zeros(cl.shape[1], np.int64)
+    m = cl.shape[1]
+    depth = np.zeros(m, np.int64)
     for root in roots:
         depth[int(root)] = 1
-    for n in range(cl.shape[1]):
-        leaf = cl[7, n] >= 0
-        if not leaf and n + 1 < cl.shape[1] and not depth[n + 1]:
+    is_leaf = (cl[7] >= 0).tolist()
+    escs = cl[6].astype(np.int64).tolist()
+    for n in range(m):
+        if not depth[n]:  # a column no walk reaches (a chunk's pad)
+            continue
+        if not is_leaf[n] and n + 1 < m and not depth[n + 1]:
             depth[n + 1] = depth[n] + 1
-        esc = int(cl[6, n])
+        esc = escs[n]
         if esc >= 0 and not depth[esc]:
             depth[esc] = depth[n]
-    leaves = cl[7] >= 0
+    return depth
+
+
+def tree_walk_shape(cl, roots=(0,)):
+    """(fewest nodes on a root-to-leaf path, mean leaf span) of a threaded
+    (8, M) table whose trees start at the columns `roots`."""
+    cl = cl.cpu().numpy() if hasattr(cl, "cpu") else np.asarray(cl)
+    depth = tree_depths(cl, roots)
+    leaves = (cl[7] >= 0) & (depth > 0)
     spans = cl[7, leaves].astype(np.int64) & 63
     return int(depth[leaves].min()), float(spans.mean())
+
+
+def stream_minis(t):
+    """(mini-trees, roots) of a stream route's tables: the (8, n_chunks x
+    node_rows) mini-trees with their chunk-local escape links taken to
+    global columns, and the first column of each chunk a top-tree leaf
+    enters."""
+    st = t.stream
+    top = t.tri_cl.cpu().numpy()
+    enc = top[7][top[7] >= 0].astype(np.int64)
+    roots = np.unique(enc >> st.shift) * st.node_rows
+    mini = st.mini.cpu().numpy().copy()
+    base = (np.arange(mini.shape[1]) // st.node_rows) * st.node_rows
+    mini[6] = np.where(mini[6] >= 0, mini[6] + base, -1.0)
+    return mini, roots
+
+
+def stream_walk_shape(t):
+    """(fewest top-tree nodes to a leaf, fewest mini-tree nodes to a
+    mini-leaf, mean mini-leaf span) of a stream route's tables."""
+    d_mini, span = tree_walk_shape(*stream_minis(t))
+    return tree_walk_shape(t.tri_cl)[0], d_mini, span
 
 
 def kind_ops(n: int, cl, csize: int, prim_ops: int) -> float:
@@ -639,12 +723,17 @@ def kind_ops(n: int, cl, csize: int, prim_ops: int) -> float:
 
 def segment_ops(t) -> float:
     """Least operations of one ray segment through tables t: the shading
-    plus each kind's least walk; with instances, every instance's box
-    test, one entry, and the shallowest walk of the instanced trees."""
+    plus each kind's least walk (a mesh on the stream route: the
+    shallowest top-tree path, the shallowest mini-tree path and one mean
+    mini-leaf's triangles); with instances, every instance's box test,
+    one entry, and the shallowest walk of the instanced trees."""
     from parallelraytracing_tpu_torch.ops.pack import CLUSTER, TRI_CLUSTER
     ops = SHADE_OPS + kind_ops(t.sph.shape[1], t.sph_cl, CLUSTER, SPH_OPS) \
         + kind_ops(t.quad.shape[1], t.quad_cl, CLUSTER, QUAD_OPS)
-    if t.tri_live:
+    if t.tri_live and t.stream is not None:
+        d_top, d_mini, span = stream_walk_shape(t)
+        ops += (d_top + d_mini) * SLAB_OPS + span * TRI_OPS
+    elif t.tri_live:
         ops += kind_ops(t.tri.shape[1], t.tri_cl, TRI_CLUSTER, TRI_OPS)
     if t.inst is not None:
         roots = sorted(set(int(x) for x in t.inst.inst[0].tolist()))
@@ -655,25 +744,44 @@ def segment_ops(t) -> float:
 
 
 def table_bytes(t) -> int:
+    """Bytes of the tables of t on the card."""
     tabs = [t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
             t.lights]
     if t.inst is not None:
         tabs += [t.inst.itri, t.inst.iacc, t.inst.ibox, t.inst.inst]
     if t.itex_tab is not None:
         tabs.append(t.itex_tab)
+    if t.stream is not None:
+        tabs.append(t.stream.mini)
     return sum(x.numel() * x.element_size() for x in tabs)
+
+
+def unread_bytes(t) -> int:
+    """Bytes of the tables of t that no walk reads: on the stream route,
+    the slot columns outside every mini-leaf's range (a chunk's unused
+    tail) and the mini-tree columns no chunk's walk reaches (past each
+    chunk's tree); 0 on the dense route."""
+    if t.stream is None:
+        return 0
+    mini, roots = stream_minis(t)
+    reach = tree_depths(mini, roots) > 0
+    leaf = reach & (mini[7] >= 0)
+    read = int((mini[7, leaf].astype(np.int64) & 63).sum())
+    return ((t.tri.shape[1] - read) * t.tri.shape[0] * t.tri.element_size()
+            + int((~reach).sum()) * mini.shape[0] * t.stream.mini.element_size())
 
 
 def kernel_bound(t, segments: int, n_rays: int, ray_bytes: int,
                  extra_ops: float = 0.0) -> dict:
     """The least time the card could take for one launch: the larger of
     its bytes (each ray's inputs read once and outputs written once, each
-    table read once, the texel rows included) over the HBM rate and its
+    table read once, the texel rows included, the stream route's columns
+    that no walk reads left out) over the HBM rate and its
     operations (`segments` ray segments of segment_ops each, plus
     `extra_ops`, the scene extensions' work of ``extension_ops``) over
     the float32 peak.  The walk term is a lower bound: it counts the
     shallowest path, not the nodes each ray visits."""
-    nbytes = n_rays * ray_bytes + table_bytes(t)
+    nbytes = n_rays * ray_bytes + table_bytes(t) - unread_bytes(t)
     ops = segments * segment_ops(t) + extra_ops
     b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
     return dict(bound_ms=max(b_ms, f_ms),
@@ -993,7 +1101,8 @@ def camera_hit_counts(r) -> dict:
     o, d, pix, seed = frame_inputs(r, 0)
     out = trace(o, d, pix, seed, sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
                 t.tri_cl, mats, max_depth=1, t_min=cfg.t_min, t_max=cfg.t_max,
-                sky=(0.0, 0.0, 1.0), tri_live=t.tri_live, inst=t.inst)
+                sky=(0.0, 0.0, 1.0), tri_live=t.tri_live, inst=t.inst,
+                stream=t.stream)
     return dict(image=int((out[:, 0] == 1.0).sum()),
                 sphere_image=int((out[:, 2] == 2.0).sum()),
                 checker=int((out[:, 1] == 1.0).sum()),
@@ -1177,10 +1286,533 @@ def extension_phases(bunny, png_dir) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def shared_tables():
+    """Within the block, the engines' renderers of one scene share its
+    packed tables: ``build_scene_tables`` is memoized on (scene, device,
+    ops/pack.py's STREAM_THRESHOLD and STREAM_CHUNK), with NEE set per
+    call as it sets it (on when asked and the scene has a light).  Packing
+    a big mesh takes seconds, and the tables do not depend on the engine.
+    Yields the memo: key -> (scene, tables, scene data, has a light,
+    seconds of the packing call)."""
+    from parallelraytracing_tpu_torch.engines import tables as tmod
+    from parallelraytracing_tpu_torch.ops import pack
+    from parallelraytracing_tpu_torch.ops.nee import extract_lights
+    orig = tmod.build_scene_tables
+    memo = {}
+
+    def build(scene, device, nee=False):
+        key = (id(scene), str(device), pack.STREAM_THRESHOLD,
+               pack.STREAM_CHUNK)
+        if key not in memo:
+            t0 = time.perf_counter()
+            t, sd = orig(scene, device)
+            lit = extract_lights(sd.numpy()) is not None
+            memo[key] = (scene, t, sd, lit, time.perf_counter() - t0)
+        _, t, sd, lit, _ = memo[key]
+        return dataclasses.replace(t, nee=bool(nee and lit)), sd
+    tmod.build_scene_tables = build
+    try:
+        yield memo
+    finally:
+        tmod.build_scene_tables = orig
+
+
+def big_mesh_scene(level: int):
+    """bench.py's big-mesh scene (big_mesh_scene) with the icosphere of
+    `level` (20 x 4 ** level triangles, smooth vertex normals) for the
+    subdivided dragon scan, which is not in the repo: the mesh scaled 8,
+    turned 180 degrees about y and lifted 8, over a 100x100 ground quad,
+    under an emissive sphere of radius 3.  Returns (scene, seconds)."""
+    from parallelraytracing_tpu_torch import Scene
+    from parallelraytracing_tpu_torch.core.mesh import subdivide
+    t0 = time.perf_counter()
+    mesh = subdivide(icosahedron(), level)
+    mesh.compute_vertex_normals()
+    s = Scene(preset=None)
+    s.add_mesh(mesh, s.add_lambertian((0.75, 0.65, 0.5)),
+               ((8, 8, 8), (0, 180, 0), (0, 8, 0)))
+    s.add_quad(100, 100, s.add_lambertian((0.5, 0.5, 0.5)), None)
+    s.add_sphere(3.0, s.add_emissive((12, 12, 12)),
+                 ((1, 1, 1), (0, 0, 0), (12, 25, 12)))
+    return s, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def stream_constants(threshold=None, chunk=None):
+    """ops/pack.py's STREAM_THRESHOLD and STREAM_CHUNK set to `threshold`
+    and `chunk` (where given) within the block."""
+    from parallelraytracing_tpu_torch.ops import pack
+    old = pack.STREAM_THRESHOLD, pack.STREAM_CHUNK
+    pack.STREAM_THRESHOLD = old[0] if threshold is None else threshold
+    pack.STREAM_CHUNK = old[1] if chunk is None else chunk
+    try:
+        yield
+    finally:
+        pack.STREAM_THRESHOLD, pack.STREAM_CHUNK = old
+
+
+#: a stream threshold no scene passes: the dense layout
+DENSE = 1 << 30
+
+
+def big_renderer(engine: str, scene, nee: bool = False, width=BIG_W,
+                 height=BIG_H, threshold=None, chunk=None):
+    """A renderer of `engine` on a big-mesh scene at bench's camera, depth
+    BIG_DEPTH, jitter on, its tables packed at the stream `threshold` and
+    `chunk` (ops/pack.py's constants where not given)."""
+    from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
+                                              create_renderer)
+    film = Film(width, height, "cuda")
+    r = create_renderer(engine, "cuda")
+    with stream_constants(threshold, chunk):
+        r.init(film, scene, Camera(np.asarray(BIG_EYE, np.float64),
+                                   np.asarray(BIG_DIR, np.float64),
+                                   float(width), float(height), 100.0),
+               RenderConfig(width=width, height=height, max_depth=BIG_DEPTH,
+                            jitter=True, nee=nee))
+    return r, film
+
+
+def sampled_rays(r, jitter=None):
+    """BIG_RAYS camera rays of frame 0 of renderer r, drawn at random (a
+    fixed seed) from the frame's: (o, d, pixel ids, path seed)."""
+    import torch
+    o, d, pix, seed = frame_inputs(r, 0, jitter)
+    sel = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(
+        0))[:BIG_RAYS].to("cuda")
+    return o[sel].contiguous(), d[sel].contiguous(), pix[sel].contiguous(), seed
+
+
+def segment_vs_plain(w, rays) -> dict:
+    """One 2-bounce segment of wavefront_fused renderer w from camera
+    `rays` (o, d, pixel ids, path seed), every slot live, through the
+    segment kernel and its plain version: the share of slots within
+    RAY_ATOL on all 13 planes, whether the alive plane is equal, the max
+    abs error, the kernel's ms (mean of 5) and the plain version's."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, _run_segment, _scalars)
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    o, d, pix, seed = rays
+    state = _initial_state(o, d)
+    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+
+    def run(fn):
+        return _run_segment(w._tables, pix, state, _scalars(seed, 0, count),
+                            2, w.config, fn)
+    ks = run(segment)
+    ps, plain_ms = timed_ms(lambda: run(segment_reference))
+    ms = cuda_ms(lambda: run(segment), 5)
+    return dict(share=ray_share(ks.t(), ps.t()),
+                alive_equal=bool((ks[12] == ps[12]).all()),
+                max_abs_err=float((ks - ps).abs().max()), ms=ms,
+                plain_ms=plain_ms, slots=int(o.shape[0]))
+
+
+def full_frame_vs_plain(r, w, tag: str) -> dict:
+    """The stream instantiations against their plain versions on every
+    camera ray of frame 0 (BIG_W x BIG_H): fused renderer r's trace at
+    depth 1 without jitter (within RAY_ATOL on RAY_SHARE of the rays) and
+    one 2-bounce segment of wavefront_fused renderer w over the full queue
+    (all 13 planes within RAY_ATOL on RAY_SHARE of the slots, the alive
+    plane equal).  Raises on a miss; returns the record."""
+    cfg1 = dataclasses.replace(r.config, max_depth=1)
+    (k, p), both_ms = timed_ms(lambda: both_traces(
+        r._tables, cfg1, *frame_inputs(r, 0, jitter=False)))
+    sg = segment_vs_plain(w, frame_inputs(w, 0))
+    rec = dict(rays=int(k.shape[0]), depth1_share=ray_share(k, p),
+               max_abs_err=float((k - p).abs().max()), trace_both_ms=both_ms,
+               segment=sg)
+    phase("stream-vs-plain", f"{tag}, all {rec['rays']} camera rays of frame "
+          f"0: trace depth 1 no jitter {rec['depth1_share']:.6f} within "
+          f"{RAY_ATOL}, max abs err {rec['max_abs_err']:.3e} (kernel and "
+          f"plain {both_ms / 1e3:.1f} s); 2-bounce segment over the full "
+          f"queue {sg['share']:.6f} on all 13 planes, alive plane equal "
+          f"{sg['alive_equal']}, max abs err {sg['max_abs_err']:.3e}, kernel "
+          f"{sg['ms']:.3f} ms, plain {sg['plain_ms']:.3f} ms")
+    if min(rec["depth1_share"], sg["share"]) < RAY_SHARE \
+            or not sg["alive_equal"]:
+        raise AssertionError(f"{tag}: a stream kernel disagrees with plain "
+                             f"on the whole frame")
+    return rec
+
+
+def stream_vs_plain(r, w, tag: str) -> dict:
+    """The stream instantiations against their plain versions on BIG_RAYS
+    camera rays of fused renderer r and wavefront_fused renderer w: the
+    trace at depth 1 without jitter and at BIG_DEPTH with jitter (within
+    RAY_ATOL on RAY_SHARE of the rays), and one 2-bounce segment from the
+    jittered rays (all 13 planes within RAY_ATOL on RAY_SHARE of the
+    slots, the alive plane equal).  Raises on a miss; returns the
+    record."""
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    if r._tables.stream is None or not r._tables.tri_live \
+            or w._tables.stream is None:
+        raise AssertionError(f"{tag}: the mesh is not on the stream route")
+    cfg = r.config
+    k1, p1 = both_traces(r._tables, dataclasses.replace(cfg, max_depth=1),
+                         *sampled_rays(r, jitter=False))
+    inputs = sampled_rays(r)
+    k = traced_on(r, trace)(*inputs)
+    p, plain_ms = timed_ms(lambda: traced_on(r, trace_reference)(*inputs))
+    ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+    sg = segment_vs_plain(w, sampled_rays(w))
+    rec = dict(depth1_share=ray_share(k1, p1), share=ray_share(k, p),
+               max_abs_err=max(float((k - p).abs().max()),
+                               float((k1 - p1).abs().max())),
+               ms=ms, plain_ms=plain_ms, rays=BIG_RAYS, segment=sg)
+    phase("stream-vs-plain", f"{tag}, {BIG_RAYS} camera rays: trace depth 1 "
+          f"no jitter {rec['depth1_share']:.6f} within {RAY_ATOL}, depth "
+          f"{cfg.max_depth} {rec['share']:.6f}, max abs err "
+          f"{rec['max_abs_err']:.3e}, kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; 2-bounce segment {sg['share']:.6f} on all 13 "
+          f"planes, alive plane equal {sg['alive_equal']}, max abs err "
+          f"{sg['max_abs_err']:.3e}, kernel {sg['ms']:.3f} ms, plain "
+          f"{sg['plain_ms']:.3f} ms")
+    if min(rec["depth1_share"], rec["share"], sg["share"]) < RAY_SHARE \
+            or not sg["alive_equal"]:
+        raise AssertionError(f"{tag}: a stream kernel disagrees with plain")
+    return rec
+
+
+def films_of(renderers, frames: int) -> list:
+    """The HDR films of `frames` frames of each (renderer, film)."""
+    for _ in range(frames):
+        for r, _ in renderers:
+            r.progressive_render()
+    return [film.hdr_average() for _, film in renderers]
+
+
+def kernel_times(r, counts, tag: str) -> dict:
+    """Frame 0's kernel launches of renderer r at its size, timed (mean of
+    5 launches at the real queue), each with its bound over the frame's
+    ray counts per bounce `counts`."""
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    cfg = r.config
+    n = cfg.width * cfg.height
+    if r.name == "fused":
+        inputs = frame_inputs(r, 0)
+        k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+        kern = dict(ms=k_ms, **kernel_bound(r._tables, sum(counts), n,
+                                            TRACE_RAY_BYTES))
+        detail = (f"trace kernel {k_ms:.3f} ms, bound {kern['bound_ms']:.4f} "
+                  f"ms ({kern['bound_by']}), {kern['bound_ms'] / k_ms:.1%} of "
+                  f"it")
+    else:
+        segs = time_segments(r)
+        depth0 = 0
+        for sg in segs:
+            sg.update(kernel_bound(
+                r._tables, sum(counts[depth0:depth0 + sg["bounces"]]), n,
+                SEGMENT_RAY_BYTES))
+            depth0 += sg["bounces"]
+        kern = dict(segments=segs)
+        detail = "segment kernels " + " + ".join(
+            f"{sg['ms']:.3f}" for sg in segs) + " ms, bounds " + " + ".join(
+            f"{sg['bound_ms']:.4f}" for sg in segs) + " ms"
+    phase("stream-kernels", f"{tag} {cfg.width}x{cfg.height} depth "
+          f"{cfg.max_depth} frame 0: {detail}; rays entering each bounce "
+          f"{counts}")
+    return kern
+
+
+def big_level(level: int, png_dir, sweep: bool) -> dict:
+    """Phase 21 (level 7) or 22 (level 8): bench's big-mesh scene at the
+    default stream route: its build and pack, table bytes, both stream
+    kernels against their plain versions, the two engines' films, then
+    wavefront_fused and fused, each with and without NEE, timed as in
+    phase 8 (ms/frame, Mrays/s, kernel ms and share of bound).  With
+    `sweep` (--stream-sweep), ``chunk_sweep``.  Raises on any miss."""
+    import torch
+    name = f"level{level}"
+    torch.cuda.reset_peak_memory_stats()
+    scene, build_s = big_mesh_scene(level)
+    rec = {}
+    with shared_tables() as memo:
+        f_r, _ = big_renderer("fused", scene)
+        (_, t, _, _, pack_s), = memo.values()
+        n_tri = 20 * 4 ** level
+        rec["tables"] = dict(
+            triangles=n_tri, scene_build_s=build_s, build_tables_s=pack_s,
+            table_bytes=table_bytes(t), slots=int(t.tri.shape[1]),
+            chunk=t.stream.chunk, node_rows=t.stream.node_rows,
+            top_nodes=int(t.tri_cl.shape[1]))
+        phase(name, f"bench big-mesh scene, icosphere level {level} ({n_tri} "
+              f"triangles): add_mesh {build_s:.2f} s; build_scene_tables "
+              f"(Scene.build, pack, upload) {pack_s:.2f} s; stream route, "
+              f"chunk {t.stream.chunk}, node_rows {t.stream.node_rows}: tri "
+              f"{tuple(t.tri.shape)}, top tree {tuple(t.tri_cl.shape)}, "
+              f"mini-trees {tuple(t.stream.mini.shape)}; table bytes "
+              f"{table_bytes(t)}")
+        w_r, _ = big_renderer("wavefront_fused", scene)
+        cmp = {"plain": stream_vs_plain(f_r, w_r, f"{name}")}
+        cmp["nee"] = stream_vs_plain(big_renderer("fused", scene, True)[0],
+                                     big_renderer("wavefront_fused", scene,
+                                                  True)[0], f"{name} nee")
+        rec["vs_plain"] = cmp
+        del f_r, w_r
+        films = films_of([big_renderer(e, scene) for e in ("fused",
+                                                           "wavefront_fused")],
+                         BIG_FRAMES)
+        diff = films[0] - films[1]
+        agree = dict(rmse=float(diff.pow(2).mean().sqrt()),
+                     max_abs=float(diff.abs().max()))
+        phase("engines-agree", f"{name} {BIG_W}x{BIG_H} depth {BIG_DEPTH} "
+              f"x{BIG_FRAMES} frames: wavefront_fused vs fused HDR RMSE "
+              f"{agree['rmse']:.3e}, max abs diff {agree['max_abs']!r}")
+        if not agree["rmse"] < FILM_RMSE:
+            raise AssertionError(f"{name}: wavefront_fused and fused disagree")
+        rec["engines_agree"] = agree
+        del films, diff
+        paths = {}
+        for engine in ("wavefront_fused", "fused"):
+            for nee in (False, True):
+                tag = f"{name}_{engine}{'_nee' if nee else ''}"
+                r, film = big_renderer(engine, scene, nee)
+                counts = depth_counts(r)
+                kern = kernel_times(r, counts, tag)
+                p = timed_path(r, film, tag, png_dir)
+                p.update(kernels=kern, nee=nee, schedule=(
+                    r.segment_lengths() if engine != "fused" else None))
+                paths[tag] = p
+                del r, film
+        rec["paths"] = paths
+        if sweep:
+            rec["chunk_sweep"] = chunk_sweep(scene, memo)
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        phase(name, f"torch.cuda.max_memory_allocated() "
+              f"{rec['max_memory_allocated']} bytes")
+    return rec
+
+
+def chunk_sweep(scene, memo) -> dict:
+    """The level-7 scene at each chunk of CHUNK_SWEEP: build_scene_tables
+    seconds, slots, the fused trace kernel and the wavefront_fused
+    segments of frame 0 (mean of 5 launches each), the fused frame.  How
+    STREAM_CHUNK was chosen; only with --stream-sweep."""
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    out = {}
+    for chunk in CHUNK_SWEEP:
+        r, film = big_renderer("fused", scene, chunk=chunk)
+        key = [k for k in memo if k[0] == id(scene) and k[3] == chunk][0]
+        inputs = frame_inputs(r, 0)
+        k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+        segs = time_segments(big_renderer("wavefront_fused", scene,
+                                          chunk=chunk)[0])
+        for _ in range(WARMUP):
+            r.progressive_render()
+        f_ms = cuda_ms(r.progressive_render, TIMED)
+        t = r._tables
+        out[chunk] = dict(build_tables_s=memo[key][4], trace_ms=k_ms,
+                          segments_ms=[sg["ms"] for sg in segs],
+                          fused_frame_ms=f_ms, slots=int(t.tri.shape[1]),
+                          node_rows=t.stream.node_rows,
+                          top_nodes=int(t.tri_cl.shape[1]))
+        phase("chunk-sweep", f"chunk {chunk}: build_scene_tables "
+              f"{memo[key][4]:.2f} s, {t.tri.shape[1]} slots, node_rows "
+              f"{t.stream.node_rows}; fused trace kernel {k_ms:.3f} ms, "
+              f"frame {f_ms:.3f} ms; wavefront_fused segments "
+              + " + ".join(f"{sg['ms']:.3f}" for sg in segs) + " ms")
+        del r, film, inputs
+    return out
+
+
+def layout_divergence(scene) -> dict:
+    """The layouts ray by ray: frames 0..BIG_FRAMES-1 of a big-mesh scene
+    at BIG_W x BIG_H traced one bounce at a time by the segment kernel on
+    the dense tables and on the stream route at each chunk of CHUNK_SWEEP,
+    each bounce from the dense tables' state.  Where a layout's state
+    differs from the dense one, one of the two must equal the plain
+    version's (all 13 planes within RAY_ATOL): the layouts may differ only
+    where one tree's box test culls a hit that the triangle test takes (a
+    ray grazing a triangle's vertex on a box face, rounded differently by
+    the two tests), which the plain version's brute force does not cull.
+    At most LAYOUT_SHARE of the segments may differ for each chunk.
+    Raises otherwise; returns the differing slots of each chunk and the
+    layouts the plain version sided with.  Only with --stream-sweep."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, _run_segment, _scalars)
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    rs = {"dense": big_renderer("fused", scene, threshold=DENSE)[0]}
+    for chunk in CHUNK_SWEEP:
+        rs[chunk] = big_renderer("fused", scene, chunk=chunk)[0]
+    out = {chunk: dict(slots=0, plain_sides_with_stream=0,
+                       plain_sides_with_dense=0) for chunk in CHUNK_SWEEP}
+    segments = 0
+    for f in range(BIG_FRAMES):
+        o, d, pix, seed = frame_inputs(rs["dense"], f)
+        state = _initial_state(o, d)
+        count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+        for b in range(BIG_DEPTH):
+            sc = _scalars(seed, b, count)
+            segments += int((state[12] > 0).sum())
+            outs = {n: _run_segment(r._tables, pix, state, sc, 1, r.config,
+                                    segment) for n, r in rs.items()}
+            for chunk in CHUNK_SWEEP:
+                idx = torch.nonzero((outs[chunk] != outs["dense"]).any(0))[:, 0]
+                if not idx.numel():
+                    continue
+                n = torch.full((1,), idx.numel(), dtype=torch.int32,
+                               device="cuda")
+                plain = _run_segment(rs["dense"]._tables, pix[idx],
+                                     state[:, idx].contiguous(),
+                                     _scalars(seed, b, n), 1,
+                                     rs["dense"].config, segment_reference)
+                near_s = ((outs[chunk][:, idx] - plain).abs() <= RAY_ATOL).all(0)
+                near_d = ((outs["dense"][:, idx] - plain).abs()
+                          <= RAY_ATOL).all(0)
+                o_ = out[chunk]
+                o_["slots"] += idx.numel()
+                o_["plain_sides_with_stream"] += int(near_s.sum())
+                o_["plain_sides_with_dense"] += int(near_d.sum())
+                if not bool((near_s | near_d).all()):
+                    raise AssertionError(f"level6 chunk {chunk}: a slot "
+                                         f"differs from dense and from plain")
+            state = outs["dense"]
+    worst = max(o_["slots"] for o_ in out.values())
+    if worst > LAYOUT_SHARE * segments:
+        raise AssertionError(f"level6: {worst} of {segments} slots differ "
+                             f"between two layouts")
+    phase("stream-layouts", f"level6 {BIG_W}x{BIG_H} x{BIG_FRAMES} frames, "
+          f"{segments} ray segments, one bounce at a time: slots whose state "
+          f"differs from the dense layout's, by chunk: {out} (each equals "
+          f"the plain version in one of the two layouts)")
+    return dict(segments=segments, by_chunk=out)
+
+
+def stream_phases(png_dir, levels, sweep: bool) -> dict:
+    """Phases 20-22: a big mesh on the stream route.  Phase 20, level 6
+    (81,920 triangles): the stream kernels against their plain versions
+    on sampled rays and on the whole frame, the films streamed at chunks
+    STREAM_CHUNK and ALT_CHUNK and dense, bit for bit, and the fused
+    kernel's time dense and streamed; with `sweep` (--stream-sweep) the
+    layouts ray by ray (``layout_divergence``); then ``big_level`` for
+    each of `levels` (7, and 8 when asked)."""
+    import torch
+    from parallelraytracing_tpu_torch.ops.pack import STREAM_CHUNK
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    rec = {}
+    scene, build_s = big_mesh_scene(6)
+    with shared_tables() as memo:
+        f_r, _ = big_renderer("fused", scene)
+        w_r, _ = big_renderer("wavefront_fused", scene)
+        t = f_r._tables
+        phase("level6", f"bench big-mesh scene, icosphere level 6 (81920 "
+              f"triangles): add_mesh {build_s:.2f} s; default threshold: "
+              f"stream route, chunk {t.stream.chunk}: tri "
+              f"{tuple(t.tri.shape)}, mini-trees {tuple(t.stream.mini.shape)}")
+        cmp = {"plain": stream_vs_plain(f_r, w_r, "level6")}
+        cmp["nee"] = stream_vs_plain(big_renderer("fused", scene, True)[0],
+                                     big_renderer("wavefront_fused", scene,
+                                                  True)[0], "level6 nee")
+        cmp["full_frame"] = full_frame_vs_plain(f_r, w_r, "level6")
+        rec["vs_plain"] = cmp
+        del f_r, w_r
+        films = {}
+        for engine in ("fused", "wavefront_fused"):
+            for tag, kw in (("stream", {}), ("alt", dict(chunk=ALT_CHUNK)),
+                            ("dense", dict(threshold=DENSE))):
+                films[engine, tag] = big_renderer(engine, scene, **kw)
+        keys = list(films)
+        hdr = dict(zip(keys, films_of([films[k] for k in keys], BIG_FRAMES)))
+        if films["fused", "dense"][0]._tables.stream is not None \
+                or films["fused", "alt"][0]._tables.stream.chunk != ALT_CHUNK:
+            raise AssertionError("level6: the layouts were not packed as asked")
+        eq = {}
+        for e in ("fused", "wavefront_fused"):
+            eq[f"{e} chunk {STREAM_CHUNK} vs dense"] = bool(torch.equal(
+                hdr[e, "stream"], hdr[e, "dense"]))
+            eq[f"{e} chunk {STREAM_CHUNK} vs {ALT_CHUNK}"] = bool(torch.equal(
+                hdr[e, "stream"], hdr[e, "alt"]))
+        engines = float((hdr["fused", "stream"]
+                         - hdr["wavefront_fused", "stream"]).abs().max())
+        phase("stream-vs-dense", f"level6 {BIG_W}x{BIG_H} depth {BIG_DEPTH} "
+              f"x{BIG_FRAMES} frames, films bit-equal: {eq}; wavefront_fused "
+              f"vs fused max abs diff {engines!r}")
+        if not all(eq.values()):
+            raise AssertionError("level6: the layouts' films differ")
+        rec["films_equal"] = eq
+        if sweep:
+            rec["layouts"] = layout_divergence(scene)
+        times = {}
+        for tag in ("stream", "dense"):
+            r = films["fused", tag][0]
+            inputs = frame_inputs(r, 0)
+            times[tag] = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+        rec["fused_trace_ms"] = times
+        phase("stream-vs-dense", f"level6 fused trace kernel, frame 0: "
+              f"streamed {times['stream']:.3f} ms, dense {times['dense']:.3f} "
+              f"ms ({times['stream'] / times['dense']:.2f}x)")
+        del films, hdr
+    for level in levels:
+        rec[f"level{level}"] = big_level(level, png_dir,
+                                         sweep=sweep and level == 7)
+    return rec
+
+
+def stream_kernel_record(kernel: str, st: dict) -> dict:
+    """The kernels-line entry of the stream instantiations of `kernel`
+    (trace or segment): launches over the level-7 timed frames without
+    NEE (fused for the trace, wavefront_fused for the segment), the
+    kernel's time on that path's frame 0 at BIG_W x BIG_H and its bound
+    there (the first segment for the segment kernel), the plain version's
+    time on BIG_RAYS rays beside the kernel's on them, and the largest
+    error over every stream comparison of phases 20-22."""
+    l7 = st["level7"]
+    cmps = [c for lv in st.values() if isinstance(lv, dict)
+            and "vs_plain" in lv for c in lv["vs_plain"].values()]
+    cmps += list(st["vs_plain"].values())
+    if kernel == "trace":
+        path = l7["paths"]["level7_fused"]
+        timed = path["kernels"]
+        source, replaces = SOURCE, REPLACES
+        errs = [c["max_abs_err"] for c in cmps]
+        plain, cmp_ms = l7["vs_plain"]["plain"]["plain_ms"], \
+            l7["vs_plain"]["plain"]["ms"]
+    else:
+        path = l7["paths"]["level7_wavefront_fused"]
+        timed = path["kernels"]["segments"][0]
+        source, replaces = SEG_SOURCE, SEG_REPLACES
+        errs = [c["segment"]["max_abs_err"] for c in cmps]
+        seg = l7["vs_plain"]["plain"]["segment"]
+        plain, cmp_ms = seg["plain_ms"], seg["ms"]
+    return {
+        "name": f"{kernel}[stream]", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": path["launches"][kernel],
+        "max_abs_err": max(errs), "ms": timed["ms"], "plain_ms": plain,
+        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "library_ms": None,
+        "size": f"the {kernel} kernel's stream instantiations (the K7 walk): "
+                f"ms, bound and launches on bench's big-mesh scene at "
+                f"icosphere level 7 (327,680 triangles) {BIG_W}x{BIG_H} "
+                f"depth {BIG_DEPTH} without NEE, frame 0 (launches over its "
+                f"{TIMED} timed frames); plain_ms and cmp_ms on {BIG_RAYS} of "
+                f"its camera rays; max_abs_err over every stream comparison "
+                f"(levels 6-8, with and without NEE); library_ms null: no "
+                f"single PyTorch call computes it",
+        "cmp_ms": cmp_ms, "bound": timed,
+        "levels": {k: {kk: vv for kk, vv in v.items() if kk != "paths"}
+                   for k, v in st.items() if k.startswith("level")},
+        "level6": {k: v for k, v in st.items()
+                   if not k.startswith("level")},
+        "paths": {k: v for k, v in l7["paths"].items()
+                  if ("wavefront" in k) == (kernel == "segment")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png-dir", default=None,
                     help="also copy the main paths' PNGs into this directory")
+    ap.add_argument("--big-level", type=int, default=7, choices=(7, 8),
+                    help="the largest icosphere level of the stream phases: "
+                         "7 (327,680 triangles), or 8 to add phase 22 "
+                         "(1,310,720 triangles; minutes of host packing)")
+    ap.add_argument("--stream-sweep", action="store_true",
+                    help="also time the level-7 stream route at chunks 64, "
+                         "128 and 256 and compare the level-6 layouts one "
+                         "bounce at a time (how STREAM_CHUNK was chosen)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1484,6 +2116,10 @@ def main(argv=None) -> int:
     # 16. NEE is unbiased and lowers the error on the card
     unbiased = nee_unbiased()
 
+    # 20-22. a big mesh on the stream route
+    stream = stream_phases(args.png_dir, range(7, args.big_level + 1),
+                           args.stream_sweep)
+
     print(smi)
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
@@ -1535,7 +2171,9 @@ def main(argv=None) -> int:
          "paths": {k: paths[k] for k in "CD"},
          "instances": {"paths": {k: v for k, v in inst_paths.items()
                                  if "wavefront" in k}}},
-        ext_kernel_record("trace", ext), ext_kernel_record("segment", ext)]}))
+        ext_kernel_record("trace", ext), ext_kernel_record("segment", ext),
+        stream_kernel_record("trace", stream),
+        stream_kernel_record("segment", stream)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ Renders N progressive frames of a preset scene, or of a PLY mesh in the
 JAX package's showcase scene, and writes a PNG (plus optional linear PFM
 and film checkpoint).  ``--engine auto`` picks wavefront_fused for a scene
 of more than 512 triangles and fused otherwise, as the JAX CLI does on a
-TPU.
+TPU.  A mesh of more than 24,576 triangles renders through the stream
+route (ops/pack.py); the header line then names its chunk.
 
 Usage:
     python -m parallelraytracing_tpu_torch.cli --scene random_balls_large \
@@ -165,11 +166,13 @@ def main(argv=None) -> int:
     renderer.init(film, scene, cam, cfg)
     renderer._frame_index = start_frame
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    stream = renderer._tables.stream
     print(f"scene={args.ply or args.scene} engine={engine} "
           f"{args.width}x{args.height} depth={cfg.max_depth} "
           f"nee={renderer._tables.nee} rr_depth={cfg.russian_roulette_depth} "
           f"prims={scene.num_primitives} "
-          f"device={device} ({name})")
+          + (f"stream_chunk={stream.chunk} " if stream is not None else "")
+          + f"device={device} ({name})")
 
     t_all = time.perf_counter()
     for i in range(args.frames):

@@ -9,9 +9,11 @@
 // _make_bounce_step: the sphere, quad and triangle closest-hit bodies
 // (sph_body, quad_body, make_tri_body), the three per-kind walks of
 // `clustered` (threaded SAH tree, linear cluster scan behind a root
-// pretest, plain loop for tiny kinds), the instance block (inst_body: a
-// linear scan of the instances' world boxes, each entered instance's tree
-// walked by its mesh-local ray), the deferred shading normal, the scene
+// pretest, plain loop for tiny kinds), the stream route's two-level walk
+// of a big mesh (the `if tri_stream:` branch, K7), the instance block
+// (inst_body: a linear scan of the instances' world boxes, each entered
+// instance's tree walked by its mesh-local ray), the deferred shading
+// normal, the scene
 // extensions (image textures with the sphere's equirectangular map, the
 // checker, the gradient and sun sky), emission, next-event estimation
 // with its any-hit shadow walk, the branchless Lambertian / metal /
@@ -86,6 +88,13 @@ struct PrtScene {
   // wrapper checks every image's rows against the table's height.
   const float* mtex;  // (6, n_mats)
   const float* itex;  // (Rt, 128)
+  // The stream route of a big mesh (ops/pack.py): tri then holds n_tri =
+  // n_chunks * chunk slot columns and tri_cl the top tree, whose leaf word
+  // is chunk index << stream_shift | span; mini the chunks' threaded
+  // mini-trees, chunk c's in columns c * node_rows + k.  Null on the dense
+  // route.
+  const float* mini;  // (8, n_mini)
+  int n_mini, chunk, node_rows, stream_shift;
 };
 
 namespace {
@@ -509,6 +518,52 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
   }
 }
 
+// The stream route's fold over a big mesh (pallas_trace.py's `if
+// tri_stream:` branch of bounce_step, K7): the threaded walk of the top
+// tree (as fold_kind's); an entered leaf names a chunk, whose threaded
+// mini-tree is walked from its first column until an escape link of -1,
+// and an entered mini-leaf tests its slots chunk * chunk + lo .. + span
+// with tri_test.  The TPU's DMA of a chunk into scratch, its two-slot
+// residency cache and its deferred fold of the pending chunk are ways to
+// reach the same winner there; here the tables are read in place, and
+// the fold's (t, ordinal) minimum does not depend on the visit order.
+// One thread walks one ray; a shadow ray's any-hit carry returns as soon
+// as it is occluded.
+template <class Carry>
+__device__ void fold_stream(const PrtScene& S, const Ray& r, Carry& h) {
+  const float* __restrict__ top = S.tri_cl;
+  const float* __restrict__ mini = S.mini;
+  const int cols = S.tri_cl_cols;
+  const int mcols = S.n_mini;
+  int node = 0;
+  while (node >= 0) {
+    bool enter = slab_hit(top, cols, node, r, S.t_min, h.t);
+    int miss = (int)ld(top, 6 * cols + node);
+    float enc_f = ld(top, 7 * cols + node);
+    bool leaf = enc_f >= 0.0f;
+    if (enter && leaf) {
+      const int c = (int)enc_f >> S.stream_shift;
+      const int base = c * S.node_rows;
+      const int slot0 = c * S.chunk;
+      int m = base;
+      while (m >= 0) {
+        bool m_enter = slab_hit(mini, mcols, m, r, S.t_min, h.t);
+        int m_miss = (int)ld(mini, 6 * mcols + m);
+        float m_enc = ld(mini, 7 * mcols + m);
+        bool m_leaf = m_enc >= 0.0f;
+        if (m_enter && m_leaf) {
+          int enc = (int)m_enc;
+          int lo = slot0 + (enc >> 6);
+          test_range<kTriangle>(S, lo, lo + (enc & 63), r, h);
+          if (occluded(h)) return;
+        }
+        m = (m_enter && !m_leaf) ? m + 1 : (m_miss < 0 ? -1 : base + m_miss);
+      }
+    }
+    node = (enter && !leaf) ? node + 1 : miss;
+  }
+}
+
 // The instance block (pallas_trace.py inst_body): a linear scan of the
 // instances' world boxes (instances are few) at the carry's t; on entry
 // the world ray goes into the mesh's space through the instance's
@@ -559,9 +614,15 @@ __device__ void fold_instances(const PrtScene& S, const Ray& r, Carry& h) {
   }
 }
 
-// The fold of every kind; kTri adds the triangle kind, kInst the
-// instance block.
-template <bool kTri, bool kInst, class Carry>
+// The triangle kind's three states: none, the dense tables, the stream
+// route.
+constexpr int kTriNone = 0;
+constexpr int kTriDense = 1;
+constexpr int kTriStream = 2;
+
+// The fold of every kind; kTri adds the triangle kind (dense or the
+// stream route), kInst the instance block.
+template <int kTri, bool kInst, class Carry>
 __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
                                            Carry& h) {
   fold_kind<kSphere>(S, S.n_sph, S.sph_cl, S.sph_cl_rows, S.sph_cl_cols,
@@ -569,9 +630,12 @@ __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
   if (occluded(h)) return;
   fold_kind<kQuad>(S, S.n_quad, S.quad_cl, S.quad_cl_rows, S.quad_cl_cols,
                    S.csize, r, h);
-  if (kTri && !occluded(h)) {
+  if (kTri == kTriDense && !occluded(h)) {
     fold_kind<kTriangle>(S, S.n_tri, S.tri_cl, S.tri_cl_rows, S.tri_cl_cols,
                          S.tri_csize, r, h);
+  }
+  if (kTri == kTriStream && !occluded(h)) {
+    fold_stream(S, r, h);
   }
   if (kInst && !occluded(h)) {
     fold_instances(S, r, h);
@@ -590,7 +654,7 @@ __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
 // light, and the equal-t tie rule decides coplanar geometry as the
 // closest-hit formulation does.  The shadow walk runs through the
 // instances too (kInst).  Reads the incoming throughput.
-template <bool kTri, bool kInst>
+template <int kTri, bool kInst>
 __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
                                            float px, float py, float pz,
                                            float nx, float ny, float nz,
@@ -796,8 +860,9 @@ __device__ __forceinline__ void texture_albedo(const PrtScene& S, float px,
 // surface, Russian roulette), 2 when it goes on from a diffuse vertex
 // under NEE, else 1.  A path that ends keeps its origin and direction
 // (unless roulette ended it after the scatter), and only its radiance
-// changes.  kTri is whether the scene has live triangles (S.n_tri > 0),
-// kNee whether NEE is on (S.n_lights > 0), kRR whether Russian roulette
+// changes.  kTri is whether the scene has live triangles (S.n_tri > 0)
+// and in which layout (kTriDense, or kTriStream with S.mini), kNee
+// whether NEE is on (S.n_lights > 0), kRR whether Russian roulette
 // is (S.rr_depth > 0), kInst whether the scene has instances
 // (S.n_inst > 0), kExt whether it has textures or the directional sky
 // (S.mtex or S.sky_mode): the kernels are instantiated each way
@@ -807,7 +872,7 @@ __device__ __forceinline__ void texture_albedo(const PrtScene& S, float px,
 // registers or spills.  Forced inline, so each kernel's bounce loop
 // compiles as one body.  Textured materials are Lambertian (the Scene
 // builds them so), so an emitter's record is read untextured.
-template <bool kTri, bool kNee, bool kRR, bool kInst, bool kExt>
+template <int kTri, bool kNee, bool kRR, bool kInst, bool kExt>
 __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
                                       int depth, int alive_in, PathState& s) {
   const float ox = s.ox, oy = s.oy, oz = s.oz;
@@ -948,23 +1013,39 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   return (kNee && alive && h.mtype == kLambertian) ? 2 : alive;
 }
 
+// A kernel's instantiations: 32 of the triangle kind none or dense, and
+// their 16 stream twins (a scene with live triangles on the stream
+// route); the dense walk takes no runtime branch on the route.
+constexpr int kVariants = 48;
+
 // The instantiation <kTri, kNee, kRR, kInst, kExt> a scene needs, as an
-// index kExt * 16 + kInst * 8 + kTri * 4 + kNee * 2 + kRR into a kernel's
-// table of 32.
+// index into a kernel's table of kVariants: kExt * 16 + kInst * 8 +
+// (kTri == kTriDense) * 4 + kNee * 2 + kRR, or on the stream route 32 +
+// kExt * 8 + kInst * 4 + kNee * 2 + kRR.
 inline int kernel_variant(const PrtScene& S) {
-  return (S.mtex != nullptr || S.sky_mode != 0) * 16 + (S.n_inst > 0) * 8
-      + (S.n_tri > 0) * 4 + (S.n_lights > 0) * 2 + (S.rr_depth > 0);
+  const int ext = S.mtex != nullptr || S.sky_mode != 0;
+  const int inst = S.n_inst > 0;
+  const int nee_rr = (S.n_lights > 0) * 2 + (S.rr_depth > 0);
+  if (S.mini != nullptr && S.n_tri > 0) {
+    return 32 + ext * 8 + inst * 4 + nee_rr;
+  }
+  return ext * 16 + inst * 8 + (S.n_tri > 0) * 4 + nee_rr;
 }
 
-// A kernel's table of its 32 instantiations K<kTri, kNee, kRR, kInst,
-// kExt>, in kernel_variant's order.
-#define PRT_VARIANTS4(K, kInst, kExt)                                   \
-  K<false, false, false, kInst, kExt>, K<false, false, true, kInst, kExt>, \
-      K<false, true, false, kInst, kExt>, K<false, true, true, kInst, kExt>, \
-      K<true, false, false, kInst, kExt>, K<true, false, true, kInst, kExt>, \
-      K<true, true, false, kInst, kExt>, K<true, true, true, kInst, kExt>
+// A kernel's table of its kVariants instantiations K<kTri, kNee, kRR,
+// kInst, kExt>, in kernel_variant's order.
+#define PRT_VARIANTS2(K, kTri, kInst, kExt)                              \
+  K<kTri, false, false, kInst, kExt>, K<kTri, false, true, kInst, kExt>, \
+      K<kTri, true, false, kInst, kExt>, K<kTri, true, true, kInst, kExt>
+#define PRT_VARIANTS4(K, kInst, kExt)      \
+  PRT_VARIANTS2(K, kTriNone, kInst, kExt), \
+      PRT_VARIANTS2(K, kTriDense, kInst, kExt)
 #define PRT_VARIANTS(K)                                                 \
   {PRT_VARIANTS4(K, false, false), PRT_VARIANTS4(K, true, false),        \
-   PRT_VARIANTS4(K, false, true), PRT_VARIANTS4(K, true, true)}
+   PRT_VARIANTS4(K, false, true), PRT_VARIANTS4(K, true, true),          \
+   PRT_VARIANTS2(K, kTriStream, false, false),                           \
+   PRT_VARIANTS2(K, kTriStream, true, false),                            \
+   PRT_VARIANTS2(K, kTriStream, false, true),                            \
+   PRT_VARIANTS2(K, kTriStream, true, true)}
 
 }  // namespace

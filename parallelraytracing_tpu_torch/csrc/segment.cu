@@ -3,9 +3,10 @@
 //
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_segment (the
 // kernel body _make_segment_kernel.kernel) on the same subset as the trace
-// kernel, instances, textures and the directional sky included: the
-// bounce is bounce.cuh, shared with trace.cu, so a path traced in segments
-// gets the same bits as one traced in a single launch.  A hit's material
+// kernel, instances, a big mesh's stream route, textures and the
+// directional sky included: the bounce is bounce.cuh, shared with
+// trace.cu, so a path traced in segments gets the same bits as one traced
+// in a single launch.  A hit's material
 // id and texture coordinates live inside one bounce: the state stays 13
 // planes.
 //
@@ -39,7 +40,7 @@ struct SegmentArgs {
   int n_bounces;
 };
 
-template <bool kTri, bool kNee, bool kRR, bool kInst, bool kExt>
+template <int kTri, bool kNee, bool kRR, bool kInst, bool kExt>
 __global__ void __launch_bounds__(kThreads)
     segment_kernel(const PrtScene S, const SegmentArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -83,7 +84,8 @@ __global__ void __launch_bounds__(kThreads)
 
 using SegmentKernel = void (*)(const PrtScene, const SegmentArgs);
 // Indexed by kernel_variant().
-const SegmentKernel kSegmentKernels[32] = PRT_VARIANTS(segment_kernel);
+const SegmentKernel kSegmentKernels[kVariants] =
+    PRT_VARIANTS(segment_kernel);
 
 }  // namespace
 

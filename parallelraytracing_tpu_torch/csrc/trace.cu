@@ -4,19 +4,22 @@
 // Replaces parallelraytracing_tpu/ops/pallas_trace.py::pallas_trace (the
 // kernel body _make_trace_kernel.kernel driving _make_bounce_step); the
 // bounce itself (closest-hit fold over spheres, quads, triangles and
-// instanced meshes, textures and the directional sky, shading, NEE and
-// Russian roulette) is bounce.cuh, shared with the segment kernel.  The
-// stream path, depth_out and collect_stats are refused by the Python
-// wrapper (ops/trace.py) before a launch.
+// instanced meshes, a big mesh's stream route, textures and the
+// directional sky, shading, NEE and Russian roulette) is bounce.cuh,
+// shared with the segment kernel.  depth_out and collect_stats are
+// refused by the Python wrapper (ops/trace.py) before a launch.
 //
 // What bounds it on the H100: not FLOPs and not HBM bandwidth.  A ray
 // reads the 7 values of its input once and writes 3; everything else is
 // the walk: divergent per-ray tree walks (threads of a warp sit in
 // different nodes and leaves after the first bounce) and dependent loads
 // of table columns (6-33 floats per primitive, 8 per node, 24 per entered
-// instance, 4 texels per textured hit) that the L1/L2 caches serve.  The ray state lives in registers for the whole
-// bounce loop (no memory round trip between bounces, the TPU kernel's key
-// property), and a thread exits as soon as its ray dies.  The TPU's
+// instance, 4 texels per textured hit) that the L1/L2 caches serve; a
+// big mesh's triangle slots (108 bytes each, 132 textured) outgrow the
+// 50 MB L2, and its walks read device memory.  The ray state lives in
+// registers for the whole bounce loop (no memory round trip between
+// bounces, the TPU kernel's key property), and a thread exits as soon as
+// its ray dies.  The TPU's
 // bounce-0 frustum pretest (FRUSTUM0) only gates its lockstep tile test
 // and leaves results bit-identical; it has no per-ray analogue and is not
 // ported.  Not done yet (later work): staging tables in shared memory, an
@@ -43,7 +46,7 @@ struct TraceArgs {
   int max_depth;
 };
 
-template <bool kTri, bool kNee, bool kRR, bool kInst, bool kExt>
+template <int kTri, bool kNee, bool kRR, bool kInst, bool kExt>
 __global__ void __launch_bounds__(kThreads,
                                   kTri || kNee || kRR || kInst || kExt
                                       ? 1 : kSphereMinBlocks)
@@ -68,7 +71,7 @@ __global__ void __launch_bounds__(kThreads,
 
 using TraceKernel = void (*)(const PrtScene, const TraceArgs);
 // Indexed by kernel_variant().
-const TraceKernel kTraceKernels[32] = PRT_VARIANTS(trace_kernel);
+const TraceKernel kTraceKernels[kVariants] = PRT_VARIANTS(trace_kernel);
 
 }  // namespace
 

@@ -6,7 +6,8 @@ table and, for a scene with instances, the four instance tables of
 ops/pack.py as float32 tensors on one device, plus the host-side facts
 the trace needs (the sky spec, whether any triangle can be hit, whether
 NEE runs, each instance's triangle run, the checker and image-texture
-materials with the packed texel rows).  The TPU package's
+materials with the packed texel rows), and a mesh on the stream route's
+mini-trees.  The TPU package's
 SMEM/VMEM placement planning and its hot/cold table splits have no
 Hopper analogue: every table is plain read-only device memory.
 """
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from parallelraytracing_tpu_torch.config import RenderConfig
+from parallelraytracing_tpu_torch.ops.pack import StreamTables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,10 @@ class SceneTables:
     #: ...) of ``pack_kernel_textures``, and its (Rt, 128) texel rows
     itex: Tuple = ()
     itex_tab: Optional[torch.Tensor] = None
+    #: a mesh on the stream route (ops/pack.py): its mini-trees (a tensor)
+    #: and integers; `tri` then holds its slots and `tri_cl` its top tree.
+    #: None on the dense route
+    stream: Optional[StreamTables] = None
 
 
 def sky_spec(host: dict) -> tuple:
@@ -117,7 +123,10 @@ def build_scene_tables(scene, device, nee: bool = False):
     image texture packs its texel rows and texture coordinates (the
     triangle table's rows 27-32, the instanced triangles' 25-30); images
     above ``ops/pack.KTEX_MAX`` texels on a side raise
-    NotImplementedError."""
+    NotImplementedError.  A scene of more than ``ops/pack.STREAM_THRESHOLD``
+    triangles takes the stream route in chunks of ``STREAM_CHUNK`` slots
+    (``ops/pack.pack_scene_tables``); instanced meshes stay dense, as in
+    the JAX package."""
     from parallelraytracing_tpu_torch.convert import tables_from_numpy
     from parallelraytracing_tpu_torch.ops.nee import extract_lights
     from parallelraytracing_tpu_torch.ops.pack import (pack_instance_tables,
@@ -140,12 +149,14 @@ def build_scene_tables(scene, device, nee: bool = False):
         scene_data = scene.build(device)
         host = scene_data.numpy()
     itex, itex_rows = pack_kernel_textures(host) if has_img else ((), None)
+    packed = pack_scene_tables(host)
     tables = tables_from_numpy(
-        *pack_scene_tables(host), sky_spec(host), device,
+        *packed, sky_spec(host), device,
         bb=scene_bbox(host, None if inst is None else inst[2]),
         lights=pack_lights_table(host),
         nee=nee and extract_lights(host) is not None, inst=inst,
-        checker=checker_spec(scene), itex=itex, itex_tab=itex_rows)
+        checker=checker_spec(scene), itex=itex, itex_tab=itex_rows,
+        stream=packed.stream)
     return tables, scene_data
 
 
@@ -158,4 +169,4 @@ def trace_tables(t: SceneTables, o, d, pix, seed: int,
                  t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
                  rr_depth=cfg.russian_roulette_depth, nee=t.nee,
                  lights=t.lights, inst=t.inst, checker=t.checker, itex=t.itex,
-                 itex_tab=t.itex_tab)
+                 itex_tab=t.itex_tab, stream=t.stream)

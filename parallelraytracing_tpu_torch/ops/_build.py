@@ -58,6 +58,8 @@ class PrtScene(ctypes.Structure):
         ("itri", P), ("iacc", P), ("ibox", P), ("inst", P),
         ("n_itri", I), ("n_iacc", I), ("n_inst", I),
         ("mtex", P), ("itex", P),
+        ("mini", P), ("n_mini", I), ("chunk", I), ("node_rows", I),
+        ("stream_shift", I),
     ]
 
 

@@ -32,20 +32,41 @@ Acceleration tables, chosen per kind by cluster count:
 - otherwise: a linear table (6, n_cl + 1) of the union box of each run of
   CLUSTER primitives, plus the kind's root box as the last column.
 
+A mesh of more than STREAM_THRESHOLD triangles (24,576, the JAX
+package's) takes the stream route, the JAX package's streamed big-mesh
+layout held as plain columns: the top tree is a binned-SAH tree whose
+leaves each start a chunk of STREAM_CHUNK triangle slots (``_sah_threaded_tree(..., align=chunk)``, row 7 packing a
+leaf as chunk * mult + span, mult the next power of two above the chunk);
+each chunk carries its own threaded mini-tree over its slots
+(``_mini_threaded_tree``, slot ranges lo*64 + span).  The triangle table
+then holds the slots, (27 or 33, n_chunks * chunk), slot s of chunk c in
+column c * chunk + s, pad slots zero columns (never hit); the mini-trees
+are one (8, n_chunks * node_rows) table, chunk c's nodes in columns
+c * node_rows + k with chunk-local escape links (``StreamTables``).  The
+dense leaf word lo*64 + span caps a dense table at 2^18 primitives; the
+stream route has no such cap.  The chunk is a module constant here, as
+the threshold is, both read at each call (the tests set them): the JAX
+package's choice of the smallest chunk whose tree fits the TPU's SMEM is
+a TPU budget.
+
 Instanced meshes get four more tables (``pack_instance_tables``): the
 unique meshes' local triangles, their concatenated threaded trees, the
 instances' world boxes and the instance records.  Image textures are
 packed as rows of 128 texels (``pack_kernel_textures``).
 
 The JAX package's other layouts (Karras tree, ordered tree, straggler-tail
-views, SBVH, tile-SAH, streamed big-mesh blocks, eye-ordered linear
-scans) are left out: none is on its default path, and the eye ordering
-changes no result, since the closest-hit fold does not depend on order.
+views, SBVH, tile-SAH, eye-ordered linear scans, the stream route's
+128-lane rows) are left out: none is on its default path, and the eye
+ordering changes no result, since the closest-hit fold does not depend on
+order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import sys
+from typing import Any, Optional
 
 import numpy as np
 
@@ -61,10 +82,59 @@ TRI_CLUSTER = 4
 TREE_THRESHOLD = 4
 #: splice internal nodes whose surface area is >= this x their parent's
 COLLAPSE_TAU = 0.6
-#: triangle count above which the JAX package streams the mesh from HBM
+#: triangle count above which a mesh takes the stream route (the JAX
+#: package's default, so both packages' tables agree on every scene)
 STREAM_THRESHOLD = 24576
+#: triangle slots per chunk of the stream route: of 64, 128 and 256, 64
+#: gave the fastest segment kernel and the fastest trace kernel or one
+#: within 1% of it on an H100 (chip_smoke.py's chunk sweep at 327,680
+#: triangles; PERF.md)
+STREAM_CHUNK = 64
+#: mini-tree leaf size in slots (the JAX package's STREAM_SUB)
+STREAM_SUB = 8
+#: slots of a chained fat leaf, when no mini-tree fits a chunk's node rows
+FAT_LEAF = 48
 #: SAH bins per axis
 _NB = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamTables:
+    """The stream route's mini-trees and integers: ``mini`` the (8,
+    n_chunks * node_rows) table of the chunks' threaded mini-trees (numpy
+    on the host, a tensor on a device), ``chunk`` the slots per chunk,
+    ``node_rows`` the mini-tree columns per chunk."""
+    mini: Any
+    chunk: int
+    node_rows: int
+
+    @property
+    def shift(self) -> int:
+        """The top tree's leaf word is chunk index << shift | span."""
+        return stream_shift(self.chunk)
+
+
+def stream_shift(chunk: int) -> int:
+    """ceil(log2(chunk + 1)): the bits of a top-tree leaf's span."""
+    return int(math.ceil(math.log2(chunk + 1)))
+
+
+def default_node_rows(chunk: int) -> int:
+    """The JAX package's mini-tree columns per chunk: max(16, chunk / 4)
+    for a chunk of 64 or fewer slots, else chunk / 2."""
+    return max(16, chunk // 4) if chunk <= 64 else chunk // 2
+
+
+class PackedTables(tuple):
+    """``pack_scene_tables``' result: a 7-tuple (sph, quad, tri, sph_cl,
+    quad_cl, tri_cl, mats), and ``stream``, the StreamTables of a mesh on
+    the stream route (tri then holds its slots and tri_cl its top tree),
+    None on the dense route."""
+
+    def __new__(cls, tables, stream: Optional[StreamTables] = None):
+        self = super().__new__(cls, tables)
+        self.stream = stream
+        return self
 
 
 def _expand_bits(v: np.ndarray) -> np.ndarray:
@@ -100,13 +170,51 @@ def _cluster_bounds(mn: np.ndarray, mx: np.ndarray, csize: int) -> np.ndarray:
     return out
 
 
-def _area(lo, hi):
+def _areas(lo, hi):
+    """Surface area of each row of (K, 3) boxes (0 for an inverted one)."""
     d = np.maximum(hi - lo, 0.0)
-    return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+    return 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0])
+
+
+def _best_bin_split(n, rcen, rmn, rmx, cmin, ext):
+    """The binned SAH's best split of n primitives: (cost, axis, bins,
+    split bin) over 16 bins per axis, or None.  The candidates are taken
+    in the order of the JAX package's loops (axis, then bin) and the
+    first strict minimum wins; the bins' bounds are exact mins and maxes,
+    so each cost is the loops' to the bit."""
+    best = None
+    for ax in range(3):
+        if ext[ax] <= 1e-12:
+            continue
+        b = np.minimum(((rcen[:, ax] - cmin[ax]) / ext[ax]
+                        * _NB).astype(np.int64), _NB - 1)
+        counts = np.bincount(b, minlength=_NB)
+        nz = np.nonzero(counts)[0]
+        order = np.argsort(b, kind="stable")
+        starts = (np.cumsum(counts) - counts)[nz]
+        bin_mn = np.full((_NB, 3), np.inf)
+        bin_mx = np.full((_NB, 3), -np.inf)
+        bin_mn[nz] = np.minimum.reduceat(rmn[order], starts, axis=0)
+        bin_mx[nz] = np.maximum.reduceat(rmx[order], starts, axis=0)
+        pmn = np.minimum.accumulate(bin_mn, axis=0)
+        pmx = np.maximum.accumulate(bin_mx, axis=0)
+        smn = np.minimum.accumulate(bin_mn[::-1], axis=0)[::-1]
+        smx = np.maximum.accumulate(bin_mx[::-1], axis=0)[::-1]
+        with np.errstate(invalid="ignore"):
+            pre_a = np.where(np.isfinite(pmn).all(1), _areas(pmn, pmx), 0.0)
+            suf_a = np.where(np.isfinite(smn).all(1), _areas(smn, smx), 0.0)
+        nl = np.cumsum(counts)[:_NB - 1]
+        nr = n - nl
+        cost = np.where((nl != 0) & (nr != 0),
+                        pre_a[:_NB - 1] * nl + suf_a[1:] * nr, np.inf)
+        k = int(np.argmin(cost))
+        if np.isfinite(cost[k]) and (best is None or cost[k] < best[0]):
+            best = (cost[k], ax, b, k)
+    return best
 
 
 def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
-                       collapse_tau: float = COLLAPSE_TAU):
+                       collapse_tau: float = COLLAPSE_TAU, align: int = 0):
     """Binned-SAH BVH over primitive AABBs -> (perm, (8, M) threaded table).
 
     Top-down build with 16 bins per axis; leaves hold <= csize primitives
@@ -115,8 +223,16 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
     Internal nodes whose area is >= collapse_tau x their parent's are
     spliced out of the emitted table (their children hang off the
     parent); the escape-link encoding takes any arity, and the leaf runs
-    are unchanged."""
+    are unchanged.
+
+    With align > 0 (the stream route, csize <= align): every leaf's run
+    starts at a multiple of `align`, the gaps in `perm` padded with -1
+    (the caller's never-hit slots), and row 7 packs a leaf as
+    (lo / align) * mult + span, mult the next power of two above csize,
+    so a leaf is one align-sized chunk."""
     n = len(mn)
+    if align:
+        assert csize <= align
     valid = (mn <= mx).all(1)
     ids_v = np.nonzero(valid)[0]
     ids_i = np.nonzero(~valid)[0]
@@ -139,13 +255,14 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
         bmx = rmx.max(0)
         rcen = (rmn + rmx) * 0.5
         if len(ids) <= csize:
+            if align:  # the stream route: the run starts a chunk
+                perm_out.extend([-1] * ((-len(perm_out)) % align))
             lo = len(perm_out)
             perm_out.extend(ids.tolist())
             recs.append([bmn, bmx, 1, lo, len(perm_out)])
             return len(recs) - 1
         cmin = rcen.min(0)
         ext = rcen.max(0) - cmin
-        best = None  # (cost, axis, bins, split)
         # Beyond depth 60 force median splits so recursion stays bounded.
         if depth > 60:
             order = np.argsort(rcen[:, int(np.argmax(ext))], kind="stable")
@@ -157,42 +274,7 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
             rec[3] = build(ids[ol], rmn[ol], rmx[ol], depth + 1)
             rec[4] = build(ids[orr], rmn[orr], rmx[orr], depth + 1)
             return me
-        for ax in range(3):
-            if ext[ax] <= 1e-12:
-                continue
-            b = np.minimum(((rcen[:, ax] - cmin[ax]) / ext[ax]
-                            * _NB).astype(np.int64), _NB - 1)
-            counts = np.bincount(b, minlength=_NB)
-            bin_mn = np.full((_NB, 3), np.inf)
-            bin_mx = np.full((_NB, 3), -np.inf)
-            for k in range(_NB):
-                sel = b == k
-                if counts[k]:
-                    bin_mn[k] = rmn[sel].min(0)
-                    bin_mx[k] = rmx[sel].max(0)
-            pre_a = np.zeros(_NB)
-            suf_a = np.zeros(_NB)
-            cmn = np.full(3, np.inf)
-            cmx = np.full(3, -np.inf)
-            for k in range(_NB):
-                cmn = np.minimum(cmn, bin_mn[k])
-                cmx = np.maximum(cmx, bin_mx[k])
-                pre_a[k] = _area(cmn, cmx) if np.isfinite(cmn).all() else 0.0
-            cmn = np.full(3, np.inf)
-            cmx = np.full(3, -np.inf)
-            for k in range(_NB - 1, -1, -1):
-                cmn = np.minimum(cmn, bin_mn[k])
-                cmx = np.maximum(cmx, bin_mx[k])
-                suf_a[k] = _area(cmn, cmx) if np.isfinite(cmn).all() else 0.0
-            pre_n = np.cumsum(counts)
-            for k in range(_NB - 1):
-                nl = pre_n[k]
-                nr = len(ids) - nl
-                if nl == 0 or nr == 0:
-                    continue
-                cost = pre_a[k] * nl + suf_a[k + 1] * nr
-                if best is None or cost < best[0]:
-                    best = (cost, ax, b, k)
+        best = _best_bin_split(len(ids), rcen, rmn, rmx, cmin, ext)
         if best is None:
             half = len(ids) // 2
             sel = np.zeros(len(ids), bool)
@@ -211,7 +293,8 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
                  mx[ids_v].astype(np.float64))
     perm = np.concatenate([np.asarray(perm_out, np.int64),
                            ids_i]).astype(np.int64)
-    assert len(perm) == n and len(set(perm.tolist())) == n
+    real = perm[perm >= 0] if align else perm
+    assert len(real) == n and len(set(real.tolist())) == n
 
     # Per-record (contiguous) perm ranges: children have higher record
     # ids than their parent, so one reverse sweep.
@@ -226,8 +309,8 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
             rlo[ri] = min(rlo[a], rlo[b])
             rhi[ri] = max(rhi[a], rhi[b])
 
-    rarea = np.array([_area(np.asarray(r[0]), np.asarray(r[1]))
-                      for r in recs])
+    rarea = _areas(np.array([r[0] for r in recs]),
+                   np.array([r[1] for r in recs]))
     kids_memo = {}
 
     def is_leaf_rec(ri):
@@ -254,6 +337,7 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
         if not is_leaf_rec(ri):
             size[ri] = 1 + sum(size[c] for c in kids_of(ri))
     out = np.zeros((8, size[root]), np.float32)
+    mult = 1 << stream_shift(csize)
     slot = 0
     stack = [(root, -1)]
     while stack:
@@ -262,7 +346,16 @@ def _sah_threaded_tree(mn: np.ndarray, mx: np.ndarray, csize: int,
         out[:3, slot] = bmn
         out[3:6, slot] = bmx
         out[6, slot] = esc
-        if is_leaf_rec(ri):
+        if is_leaf_rec(ri) and align:
+            lo, span = rlo[ri], rhi[ri] - rlo[ri]
+            assert lo % align == 0 and 0 <= span <= csize
+            enc = (lo // align) * mult + span
+            if enc >= (1 << 24):
+                raise ValueError(
+                    f"stream leaf encoding overflows the f32 integer range "
+                    f"at chunk {lo // align}: use a larger chunk")
+            out[7, slot] = enc
+        elif is_leaf_rec(ri):
             lo, span = rlo[ri], rhi[ri] - rlo[ri]
             assert 0 <= span < 64
             if lo * 64 + span >= (1 << 24):
@@ -308,6 +401,179 @@ def _accelerate(tab, mn2, mx2, csize):
         perm, tree = _sah_threaded_tree(mn2, mx2, csize)
         return np.ascontiguousarray(tab[:, perm]), tree
     return tab, _append_root(cl, mn2, mx2)
+
+
+def _mini_threaded_tree(mn: np.ndarray, mx: np.ndarray, leaf: int,
+                        group: int = 1):
+    """Full-sweep SAH threaded mini-tree over one chunk's primitives ->
+    (perm_local, (8, M) table), the JAX package's ``_mini_threaded_tree``:
+    per node, sort on each axis, prefix and suffix box areas by
+    min/max-accumulate, the exact SAH cost at every split position, the
+    best axis and position; leaves of <= `leaf` primitives packed lo*64 +
+    span, escape links local to the tree (-1 ends it).
+
+    With group > 1 the build splits groups of `group` consecutive
+    primitives as indivisible units, so every leaf's slot range is
+    group-aligned; perm_local then has the group-padded length (pads -1)
+    and lo, span are slot ranges."""
+    n = len(mn)
+    if group > 1:
+        ng = -(-n // group)
+        gm = np.full((ng * group,), -1, np.int64)
+        gm[:n] = np.arange(n)
+        gids = gm.reshape(ng, group)
+        # the groups' boxes are the unions of their real members
+        gmn = np.full((ng, group, 3), np.inf)
+        gmx = np.full((ng, group, 3), -np.inf)
+        real = gids >= 0
+        gmn[real] = mn[gids[real]]
+        gmx[real] = mx[gids[real]]
+        sub_perm, tab = _mini_threaded_tree(gmn.min(1), gmx.max(1),
+                                            max(1, leaf // group))
+        perm = gids[sub_perm].reshape(-1)
+        enc = tab[7]
+        is_leaf = enc >= 0
+        lo = (enc[is_leaf].astype(np.int64) >> 6) * group
+        sp = (enc[is_leaf].astype(np.int64) & 63) * group
+        tab = tab.copy()
+        tab[7, is_leaf] = (lo * 64 + sp).astype(np.float32)
+        return perm, tab
+    cen = (mn + mx) * 0.5
+    perm_out: list = []
+
+    def area_lr(bmn_s, bmx_s):
+        """Prefix and suffix surface areas of a sorted box list."""
+        pmn = np.minimum.accumulate(bmn_s)
+        pmx = np.maximum.accumulate(bmx_s)
+        smn = np.minimum.accumulate(bmn_s[::-1])[::-1]
+        smx = np.maximum.accumulate(bmx_s[::-1])[::-1]
+        d1 = np.maximum(pmx - pmn, 0.0)
+        d2 = np.maximum(smx - smn, 0.0)
+        a1 = d1[:, 0] * d1[:, 1] + d1[:, 1] * d1[:, 2] + d1[:, 2] * d1[:, 0]
+        a2 = d2[:, 0] * d2[:, 1] + d2[:, 1] * d2[:, 2] + d2[:, 2] * d2[:, 0]
+        return a1, a2
+
+    def build(ids):
+        """This subtree's columns in preorder, [(bmn, bmx, enc[, left
+        size])]; enc -1.0 marks an internal node."""
+        sel = mn[ids] <= mx[ids]
+        if sel.all():
+            bmn = mn[ids].min(0)
+            bmx = mx[ids].max(0)
+        else:  # group pads carry inverted boxes: left out of the bounds
+            ok = sel.all(1)
+            bmn = mn[ids[ok]].min(0) if ok.any() else np.ones(3)
+            bmx = mx[ids[ok]].max(0) if ok.any() else -np.ones(3)
+        if len(ids) <= leaf:
+            lo = len(perm_out)
+            perm_out.extend(ids.tolist())
+            return [(bmn, bmx, float(lo * 64 + len(ids)))]
+        k = len(ids)
+        best = None  # (cost, order, split)
+        counts = np.arange(1, k, dtype=np.float64)
+        for ax in range(3):
+            order = np.argsort(cen[ids, ax], kind="stable")
+            a1, a2 = area_lr(mn[ids[order]], mx[ids[order]])
+            cost = a1[:-1] * counts + a2[1:] * (k - counts)
+            j = int(np.argmin(cost))
+            if best is None or cost[j] < best[0]:
+                best = (cost[j], order, j + 1)
+        _, order, half = best
+        left = build(ids[order[:half]])
+        right = build(ids[order[half:]])
+        return [(bmn, bmx, -1.0, len(left))] + left + right
+
+    tree = build(np.arange(n, dtype=np.int64))
+    m = len(tree)
+    out = np.zeros((8, m), np.float32)
+    # preorder threading: a left child escapes to its right sibling, a
+    # right child (and a leaf) escapes like its parent
+    esc = np.full(m, -1, np.int64)
+
+    def link(i, e):
+        esc[i] = e
+        node = tree[i]
+        if node[2] < 0:  # internal: left at i + 1, right after left's size
+            right_at = i + 1 + node[3]
+            link(i + 1, right_at)
+            link(right_at, e)
+
+    link(0, -1)
+    for i, node in enumerate(tree):
+        out[:3, i] = node[0]
+        out[3:6, i] = node[1]
+        out[6, i] = esc[i]
+        out[7, i] = node[2] if node[2] >= 0 else -1.0
+    return np.asarray(perm_out, np.int64), out
+
+
+def stream_group(n_attr: int, chunk: int) -> int:
+    """The JAX package's lane packing of a streamed chunk (4 triangles to
+    a 128-lane row at 27 rows, 2 at 33), the group its mini-trees keep
+    leaves aligned to.  The port stores plain columns, but builds its
+    mini-trees with the same groups so its tables equal the JAX
+    package's."""
+    group = 4 if n_attr <= 32 else (2 if n_attr <= 64 else 1)
+    while chunk % group:
+        group //= 2
+    return group
+
+
+def _assemble_stream(tri: np.ndarray, perm: np.ndarray, tree: np.ndarray,
+                     mn: np.ndarray, mx: np.ndarray, chunk: int,
+                     node_rows: int):
+    """The stream route's tables, the JAX package's
+    ``_assemble_stream_blocks`` held as plain columns: (slots (n_attr,
+    n_chunks * chunk), mini (8, n_chunks * node_rows)).
+
+    Each top-tree leaf is one chunk.  Its mini-tree is built over groups
+    of ``stream_group`` triangles with leaves of STREAM_SUB, 2 or 4 times
+    that many slots
+    (under 64), the first that fits node_rows columns; if none fits, the
+    chunk is cut into chained fat leaves of FAT_LEAF slots.  The chunk's
+    triangles go into its slots in mini-tree order (the fold tie-breaks on
+    the ordinal row, so the order changes no image); pad slots stay zero
+    columns, which are never hit."""
+    n_attr = tri.shape[0]
+    group = stream_group(n_attr, chunk)
+    mult = 1 << stream_shift(chunk)
+    leaves = tree[7][tree[7] >= 0].astype(np.int64)
+    n_chunks = -(-len(perm) // chunk)
+    slots = np.zeros((n_attr, n_chunks * chunk), np.float32)
+    mini = np.zeros((8, n_chunks * node_rows), np.float32)
+    for c, span in zip(leaves // mult, leaves % mult):
+        if span == 0:
+            continue
+        ids = perm[c * chunk: c * chunk + span]
+        assert (ids >= 0).all(), "leaf runs hold only real primitives"
+        mtab = None
+        for s in (STREAM_SUB, 2 * STREAM_SUB, 4 * STREAM_SUB):
+            if s >= 64:
+                break
+            mperm, cand = _mini_threaded_tree(mn[ids], mx[ids], s, group)
+            if cand.shape[1] <= node_rows:
+                mtab = cand
+                ids = np.where(mperm >= 0, ids[mperm], -1)
+                break
+        if mtab is None:
+            # chained fat leaves over the group-padded slot list
+            ids = np.concatenate([ids, np.full((-len(ids)) % group, -1,
+                                               np.int64)])
+            segs = [(lo, min(FAT_LEAF, len(ids) - lo))
+                    for lo in range(0, len(ids), FAT_LEAF)]
+            mtab = np.zeros((8, len(segs)), np.float32)
+            for k, (lo, sp) in enumerate(segs):
+                real = ids[lo:lo + sp]
+                real = real[real >= 0]
+                mtab[:3, k] = mn[real].min(0)
+                mtab[3:6, k] = mx[real].max(0)
+                mtab[6, k] = k + 1 if k + 1 < len(segs) else -1.0
+                mtab[7, k] = lo * 64 + sp
+        assert len(ids) <= chunk and mtab.shape[1] <= node_rows
+        real = ids >= 0
+        slots[:, c * chunk + np.nonzero(real)[0]] = tri[:, ids[real]]
+        mini[:, c * node_rows: c * node_rows + mtab.shape[1]] = mtab
+    return slots, mini
 
 
 def _morton_order(mn, mx):
@@ -357,10 +623,20 @@ def scene_bbox(scene: dict, ibox=None):
     return (tuple(float(x) for x in lo), tuple(float(1.0 / x) for x in ext))
 
 
-def pack_scene_tables(scene: dict):
+def pack_scene_tables(scene: dict, *,
+                      node_rows: Optional[int] = None) -> PackedTables:
     """Pack a scene's arrays (``SceneData.numpy()`` or the JAX package's
     SceneData fields as numpy, keyed by field name) into
-    (sph, quad, tri, sph_cl, quad_cl, tri_cl, mats) float32 tables."""
+    (sph, quad, tri, sph_cl, quad_cl, tri_cl, mats) float32 tables.
+
+    A scene of more than STREAM_THRESHOLD triangle columns takes the
+    stream route (the module docstring): chunks of STREAM_CHUNK slots,
+    `node_rows` mini-tree columns per chunk (default
+    ``default_node_rows``) and mini-tree leaves of STREAM_SUB slots; the
+    result's ``stream`` holds the mini-trees.  With the JAX package's
+    constants set alike (STREAM_THRESHOLD, STREAM_CHUNK, STREAM_NODE_ROWS,
+    STREAM_SUB) its tables are the JAX package's, unpacked from its
+    128-lane rows (``convert.stream_from_blocks``)."""
     mt = np.asarray(scene["mat_type"], np.float32)
     alb = np.asarray(scene["mat_albedo"], np.float32)
     emit = np.asarray(scene["mat_emit"], np.float32)
@@ -432,10 +708,6 @@ def pack_scene_tables(scene: dict):
     v1 = np.asarray(scene["tri_v1"], np.float32)
     v2 = np.asarray(scene["tri_v2"], np.float32)
     tvd_raw = np.asarray(scene["tri_valid"])
-    if len(tvd_raw) > STREAM_THRESHOLD:
-        raise NotImplementedError(
-            "meshes above STREAM_THRESHOLD triangles (the streamed layout): "
-            "ROADMAP Queue 1 item 12")
     t_mn, t_mx = geo.triangle_aabb(v0.astype(np.float64),
                                    v1.astype(np.float64),
                                    v2.astype(np.float64))
@@ -464,15 +736,27 @@ def pack_scene_tables(scene: dict):
     tri = np.concatenate(tri_rows, axis=0)
     t_mn2 = np.where(tvd[:, None], t_mn[t_ord], np.float64(1.0))
     t_mx2 = np.where(tvd[:, None], t_mx[t_ord], np.float64(-1.0))
-    tri, tri_cl = _accelerate(tri, t_mn2, t_mx2, TRI_CLUSTER)
+    stream = None
+    if len(tvd) > STREAM_THRESHOLD:
+        chunk = STREAM_CHUNK
+        node_rows = node_rows or default_node_rows(chunk)
+        perm, tri_cl = _sah_threaded_tree(t_mn2, t_mx2, chunk, align=chunk)
+        tri, mini = _assemble_stream(tri, perm, tri_cl, t_mn2, t_mx2, chunk,
+                                     node_rows)
+        stream = StreamTables(mini=mini, chunk=chunk, node_rows=node_rows)
+    else:
+        tri, tri_cl = _accelerate(tri, t_mn2, t_mx2, TRI_CLUSTER)
 
-    return (np.ascontiguousarray(sph), np.ascontiguousarray(quad),
-            np.ascontiguousarray(tri), sph_cl, quad_cl, tri_cl,
-            np.ascontiguousarray(mats))
+    return PackedTables((np.ascontiguousarray(sph), np.ascontiguousarray(quad),
+                         np.ascontiguousarray(tri), sph_cl, quad_cl, tri_cl,
+                         np.ascontiguousarray(mats)), stream)
 
 
 #: rows of the triangle table, without and with texture coordinates
 TRI_ROWS, TRI_UV_ROWS = 27, 33
+#: rows of a threaded tree (box, escape link, leaf word): the trees of the
+#: kinds, the stream route's top tree and mini-trees
+TREE_ROWS = 8
 #: rows of the instance tables: local triangles, BLAS nodes, world boxes,
 #: instance records; and of the local triangles with texture coordinates
 ITRI_ROWS, IACC_ROWS, IBOX_ROWS, INST_ROWS = 25, 8, 6, 24

@@ -18,7 +18,8 @@ Inputs: ``pix`` (R,) int32 pixel ids keying the PCG streams; ``state``
 kernel reads `count` there, so a frame needs no host sync between
 segments); the tables of ops/pack.py, with ``nee`` the light table, with
 ``inst`` the instance tables, and the sky spec and the ``checker`` /
-``itex`` / ``itex_tab`` textures (as in ops/trace.py).  The material id
+``itex`` / ``itex_tab`` textures and the ``stream`` tables of a mesh on
+the stream route (as in ops/trace.py).  The material id
 and texture coordinates of a hit live inside one bounce only: the state
 stays 13 planes.  Returns a new (13, R) state: the 12 planes after
 the segment and alive: 0.0 ended, 1.0 goes on, 2.0 goes on from a
@@ -39,6 +40,7 @@ import torch
 
 from parallelraytracing_tpu_torch.ops import rng
 from parallelraytracing_tpu_torch.ops.trace import (_bounce, _check_sky,
+                                                    _check_stream,
                                                     _check_textures,
                                                     _light_table, _t_cap,
                                                     check_tensors, scene_arg,
@@ -52,7 +54,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
             mats, *, n_bounces: int, t_min: float, t_max: float, sky,
             tri_live: bool, rr_depth: int = 0, nee: bool = False,
             lights=None, inst=None, checker=(), itex=(),
-            itex_tab=None) -> torch.Tensor:
+            itex_tab=None, stream=None) -> torch.Tensor:
     """Run `n_bounces` bounces over the queue; the new (13, R) state."""
     if state.device.type == "cpu":
         return segment_reference(pix, state, scalars, sph, quad, tri, sph_cl,
@@ -61,7 +63,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                                  tri_live=tri_live, rr_depth=rr_depth,
                                  nee=nee, lights=lights, inst=inst,
                                  checker=checker, itex=itex,
-                                 itex_tab=itex_tab)
+                                 itex_tab=itex_tab, stream=stream)
     if state.device.type != "cuda":
         raise ValueError(f"segment runs on cpu or cuda tensors, not {state.device}")
     r = int(state.shape[1])
@@ -73,7 +75,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
                       lights=lights, inst=inst, checker=checker, itex=itex,
-                      itex_tab=itex_tab)
+                      itex_tab=itex_tab, stream=stream)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("segment")
@@ -94,13 +96,15 @@ def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
                       tri_cl, mats, *, n_bounces: int, t_min: float,
                       t_max: float, sky, tri_live: bool, rr_depth: int = 0,
                       nee: bool = False, lights=None, inst=None, checker=(),
-                      itex=(), itex_tab=None) -> torch.Tensor:
+                      itex=(), itex_tab=None, stream=None) -> torch.Tensor:
     """Plain PyTorch version of ``segment`` (same signature and result).
     Each bounce runs on the slots still alive; a dead slot's state is left
-    as it was."""
+    as it was.  As in ``trace_reference``, the fold tests every slot
+    column of a stream route's tables."""
     lights = _light_table(nee, lights)
     sky = _check_sky(sky)
     _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
+    _check_stream(tri, tri_cl, stream)
     seed, depth0, count = (int(v) for v in scalars.tolist())
     r = state.shape[1]
     dev = state.device

@@ -42,8 +42,14 @@ from that absolute depth on.  ``inst`` is the scene's
 Returns (R, 3) float32 radiance.
 
 A triangle kind of never-hit pad columns (``tri_live`` False) is skipped.
-Not in this port yet, refused with NotImplementedError: ``depth_out`` and
-``collect_stats``.
+``stream`` is the ``ops/pack.StreamTables`` of a mesh on the stream route
+(then ``tri`` holds its chunks' slots and ``tri_cl`` its top tree), or
+None: the kernel walks the top tree to a chunk and the chunk's mini-tree
+to its slots (the stream instantiations of csrc/bounce.cuh), while the
+plain version's brute-force fold over every slot column, pad slots never
+hit, gives the dense answer, which holds the two-level walk to missing
+nothing.  Not in this port yet, refused with NotImplementedError:
+``depth_out`` and ``collect_stats``.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from parallelraytracing_tpu_torch.ops.pack import (CLUSTER, IACC_ROWS, IBOX_ROWS
                                                    INST_ROWS, ITRI_ROWS,
                                                    ITRI_UV_ROWS, KTEX_MAX,
                                                    LIGHT_ROWS, TEX_LANES,
+                                                   TREE_ROWS,
                                                    TRI_CLUSTER, TRI_ROWS,
                                                    TRI_UV_ROWS,
                                                    check_instance_layout)
@@ -115,7 +122,7 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
           mats, *, max_depth: int, t_min: float, t_max: float, sky,
           tri_live: bool, rr_depth: int = 0, nee: bool = False,
           lights=None, inst=None, checker=(), itex=(), itex_tab=None,
-          depth_out: bool = False,
+          stream=None, depth_out: bool = False,
           collect_stats: bool = False) -> torch.Tensor:
     """Trace R rays through up to `max_depth` bounces; (R, 3) radiance.
 
@@ -128,7 +135,7 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                                t_min=t_min, t_max=t_max, sky=sky,
                                tri_live=tri_live, rr_depth=rr_depth, nee=nee,
                                lights=lights, inst=inst, checker=checker,
-                               itex=itex, itex_tab=itex_tab)
+                               itex=itex, itex_tab=itex_tab, stream=stream)
     if o.device.type != "cuda":
         raise ValueError(f"trace runs on cpu or cuda tensors, not {o.device}")
     r = int(o.shape[0])
@@ -140,7 +147,7 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
                       lights=lights, inst=inst, checker=checker, itex=itex,
-                      itex_tab=itex_tab)
+                      itex_tab=itex_tab, stream=stream)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("trace")
@@ -214,6 +221,26 @@ def _instance_tables(device, inst):
             inst.itri.shape[1], inst.iacc.shape[1], n_inst)
 
 
+def _check_stream(tri, tri_cl, stream) -> None:
+    """Validate a stream route's tables: the top tree (8, M), the mini-trees
+    (8, n_chunks * node_rows) and the slots (C, n_chunks * chunk)."""
+    if stream is None:
+        return
+    chunk, node_rows = int(stream.chunk), int(stream.node_rows)
+    mini = stream.mini
+    n_chunks = mini.shape[1] // node_rows if node_rows > 0 else 0
+    if (chunk < 1 or node_rows < 1 or mini.dim() != 2
+            or mini.shape[0] != TREE_ROWS or n_chunks < 1
+            or mini.shape[1] != n_chunks * node_rows
+            or tri.shape[1] != n_chunks * chunk
+            or tri_cl.shape[0] != TREE_ROWS):
+        raise ValueError(
+            f"stream tables: want mini ({TREE_ROWS}, n_chunks x node_rows "
+            f"{node_rows}), tri (C, n_chunks x chunk {chunk}) and an "
+            f"({TREE_ROWS}, M) top tree; got mini {tuple(mini.shape)}, tri "
+            f"{tuple(tri.shape)}, tri_cl {tuple(tri_cl.shape)}")
+
+
 def _check_textures(checker, itex, itex_tab, tri, inst, n_mats: int) -> None:
     """Validate the texture specs against the tables: material ids in
     range, image textures within KTEX_MAX and within the texel rows, and
@@ -274,7 +301,7 @@ def sky_mode(sky: tuple) -> int:
 def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
               t_min: float, t_max: float, sky, tri_live: bool,
               rr_depth: int = 0, nee: bool = False, lights=None, inst=None,
-              checker=(), itex=(), itex_tab=None):
+              checker=(), itex=(), itex_tab=None, stream=None):
     """Validate the tables a kernel reads and pack them into the
     ``PrtScene`` struct of csrc/bounce.cuh.  The struct holds raw device
     pointers: the tables must outlive the launch."""
@@ -286,7 +313,8 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
                            "sph_cl": sph_cl, "quad_cl": quad_cl,
                            "tri_cl": tri_cl, "mats": mats,
                            **({} if lights is None else {"lights": lights}),
-                           **({} if not itex else {"itex_tab": itex_tab})},
+                           **({} if not itex else {"itex_tab": itex_tab}),
+                           **({} if stream is None else {"mini": stream.mini})},
                   {})
     if (sph.shape[0] != 6 or quad.shape[0] != 14
             or tri.shape[0] not in (TRI_ROWS, TRI_UV_ROWS)
@@ -294,6 +322,7 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
         raise ValueError("tables: want sph (6,N), quad (14,N), tri (27,N) "
                          "or (33,N), mats (5,N)")
     _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
+    _check_stream(tri, tri_cl, stream)
     # Each kind's linear table has one column per run of its own cluster
     # size (TRI_CLUSTER for triangles) plus the root pretest column.
     for name, cl, n, csize in (("sph_cl", sph_cl, sph.shape[1], CLUSTER),
@@ -321,7 +350,10 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
         sky_mode(sky), None if lights is None else ptr(lights),
         0 if lights is None else lights.shape[1], max(int(rr_depth), 0),
         *inst_arg, None if mtex is None else ptr(mtex),
-        ptr(itex_tab) if itex else None)
+        ptr(itex_tab) if itex else None,
+        *((None, 0, 0, 0, 0) if stream is None else
+          (ptr(stream.mini), stream.mini.shape[1], int(stream.chunk),
+           int(stream.node_rows), stream.shift)))
 
 
 # ---------------------------------------------------------------------------
@@ -908,15 +940,19 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
                     tri_cl, mats, *, max_depth: int, t_min: float,
                     t_max: float, sky, tri_live: bool, rr_depth: int = 0,
                     nee: bool = False, lights=None, inst=None, checker=(),
-                    itex=(), itex_tab=None, depth_out: bool = False,
+                    itex=(), itex_tab=None, stream=None,
+                    depth_out: bool = False,
                     collect_stats: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``trace`` (same signature and result).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
-    its state unchanged, as in the TPU kernel's dead-tile exit."""
+    its state unchanged, as in the TPU kernel's dead-tile exit.  The
+    stream tables are validated and not walked: the fold tests every slot
+    column."""
     _refuse(depth_out=depth_out, collect_stats=collect_stats)
     lights = _light_table(nee, lights)
     sky = _check_sky(sky)
     _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
+    _check_stream(tri, tri_cl, stream)
     r = o.shape[0]
     dev = o.device
     t_cap = _t_cap(t_max)

@@ -21,7 +21,10 @@ on an instanced scene, where the plain version tests each instance's own
 mesh triangles by brute force against the kernel's tree walks, and on the
 scene extensions (checker and image textures, the directional sky, thin
 lens and QMC raygen, textured instances), whose float64 atan2 / asin the
-plain version takes the same way as the kernel.
+plain version takes the same way as the kernel.  On a big mesh's stream
+route the kernels' two-level walk (top tree, then each chunk's mini-tree)
+is held to the plain version's brute force over every slot column, and
+the streamed films to the dense ones, bit for bit.
 """
 
 import numpy as np
@@ -94,7 +97,7 @@ def traced(r, fn, max_depth=None):
         t.mats, max_depth=max_depth or cfg.max_depth, t_min=cfg.t_min,
         t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=t.nee,
         lights=t.lights, rr_depth=cfg.russian_roulette_depth, inst=t.inst,
-        checker=t.checker, itex=t.itex, itex_tab=t.itex_tab)
+        checker=t.checker, itex=t.itex, itex_tab=t.itex_tab, stream=t.stream)
 
 
 def ray_share(k, p):
@@ -438,3 +441,89 @@ def test_extension_engines_agree(cuda, name):
     torch.cuda.synchronize()
     assert torch.isfinite(films[0]).all()
     assert float((films[0] - films[1]).pow(2).mean().sqrt()) < FILM_RMSE
+
+
+def stream_renderer(engine, mesh, width, height, **cfg_kw):
+    """A renderer of `engine` on tests/test_stream.py's scene around
+    `mesh`, packed at the stream constants of ops/pack.py as they are."""
+    from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
+                                              Scene, create_renderer)
+    from torch_meshes import stream_scene
+    film = Film(width, height, "cuda")
+    r = create_renderer(engine, "cuda")
+    r.init(film, stream_scene(Scene, mesh),
+           Camera(np.array([0.0, 4.0, 10.0]), np.array([0.0, -2.5, -10.0]),
+                  float(width), float(height), 100.0),
+           RenderConfig(width=width, height=height, **cfg_kw))
+    return r, film
+
+
+#: the ico2 scene streamed at threshold 64 (chunks of 32 and 64 slots):
+#: (STREAM_THRESHOLD, STREAM_CHUNK) of ops/pack.py
+STREAMED = [(64, 32), (64, 64)]
+
+
+def set_stream(monkeypatch, threshold, chunk=None):
+    """Set ops/pack.py's stream constants for one test."""
+    from parallelraytracing_tpu_torch.ops import pack
+    monkeypatch.setattr(pack, "STREAM_THRESHOLD", threshold)
+    if chunk is not None:
+        monkeypatch.setattr(pack, "STREAM_CHUNK", chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", STREAMED)
+@pytest.mark.parametrize("nee", [False, True])
+def test_stream_kernels_match_plain(cuda, monkeypatch, knobs, nee):
+    """The stream instantiations of both kernels on the ico2 scene: the
+    trace at depth 1 without jitter and at depth 8 (every ray within
+    RAY_ATOL on RAY_SHARE of them), one 2-bounce segment (the 13 planes on
+    RAY_SHARE of the slots, the alive plane equal on every slot)."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, _run_segment, _scalars)
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    mesh = make_mesh("ico2")
+    set_stream(monkeypatch, *knobs)
+    r, _ = stream_renderer("fused", mesh, 160, 90, max_depth=8, nee=nee)
+    assert r._tables.stream is not None and r._tables.nee == nee
+    inputs = frame_inputs(r, 0, jitter=False)
+    k = traced(r, trace, max_depth=1)(*inputs)
+    p = traced(r, trace_reference, max_depth=1)(*inputs)
+    assert torch.isfinite(k).all() and ray_share(k, p) >= RAY_SHARE
+    inputs = frame_inputs(r, 0)
+    assert ray_share(traced(r, trace)(*inputs),
+                     traced(r, trace_reference)(*inputs)) >= RAY_SHARE
+    w, _ = stream_renderer("wavefront_fused", mesh, 160, 90, max_depth=8,
+                           nee=nee)
+    o, d, pix, seed = frame_inputs(w, 0)
+    state = _initial_state(o, d)
+    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+    ks, ps = (_run_segment(w._tables, pix, state, _scalars(seed, 0, count), 2,
+                           w.config, fn) for fn in (segment, segment_reference))
+    assert torch.equal(ks[12], ps[12])
+    assert ray_share(ks.t(), ps.t()) >= RAY_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["fused", "wavefront_fused"])
+def test_level6_stream_films_equal_dense(cuda, monkeypatch, engine):
+    """The icosahedron at level 6 (81,920 triangles) at the default
+    threshold streams; its films of 2 frames at 96x64, depth 8, equal the
+    dense layout's bit for bit, on both engines (the fold's (t, ordinal)
+    minimum does not depend on the layout)."""
+    from parallelraytracing_tpu_torch.core.mesh import subdivide
+    mesh = subdivide(make_mesh("ico2"), 4)
+    mesh.compute_vertex_normals()
+    films = []
+    for dense in (False, True):
+        if dense:
+            set_stream(monkeypatch, 1 << 30)
+        r, film = stream_renderer(engine, mesh, 96, 64, max_depth=8)
+        assert (r._tables.stream is None) == dense
+        for _ in range(2):
+            r.progressive_render()
+        films.append(film.hdr_average())
+    torch.cuda.synchronize()
+    assert torch.isfinite(films[0]).all() and films[0].mean() > 0
+    assert torch.equal(films[0], films[1])

@@ -141,6 +141,24 @@ def with_equirect_uv(mesh: tmesh.Mesh) -> tmesh.Mesh:
                       uv.astype(np.float32))
 
 
+def stream_scene(scene_cls, mesh, image=None):
+    """tests/test_stream.py's scene around `mesh`: a red mesh scaled 2,
+    turned 20 degrees and lifted 2, over a 30x30 ground quad, under an
+    emissive sphere.  With `image` the mesh is in that image texture at
+    its equirectangular texture coordinates (the 33-row triangle table)."""
+    s = scene_cls(preset=None)
+    if image is None:
+        body = s.add_lambertian((0.8, 0.2, 0.1))
+    else:
+        body = s.add_textured_lambertian(s.add_texture(image))
+        mesh = with_equirect_uv(mesh)
+    s.add_mesh(mesh, body, ((2.0,) * 3, (0, 20, 0), (0, 2, 0)))
+    s.add_quad(30, 30, s.add_lambertian((0.5, 0.5, 0.55)), None)
+    s.add_sphere(2.0, s.add_emissive((9, 9, 8)),
+                 ((1, 1, 1), (0, 0, 0), (6, 10, 6)))
+    return s
+
+
 def image_scene(scene_cls, image):
     """bench.py's textured fidelity scene (a 6x6 image quad tilted 60
     degrees over a 40x40 ground quad, sky-lit) with the 16x16 image of
