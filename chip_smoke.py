@@ -34,11 +34,12 @@ each line tagged with its seconds (any failure raises and exits
 non-zero):
 
 1. probe: the card, its power limit, the torch and CUDA versions;
-2. build: the trace and segment kernels from csrc/ with nvcc (sm_90a),
-   one nvcc each, started together; ptxas registers and spill stores of
-   each of the 48 instantiations (without triangles, with the dense
-   triangle fold or the stream route's walk, with and without NEE,
-   roulette, instances, the scene extensions);
+2. build: the trace, segment, probe and micro kernels from csrc/ with
+   nvcc (sm_90a), one nvcc each, started together; ptxas registers and
+   spill stores of each of the 48 instantiations of the first three
+   (without triangles, with the dense triangle fold or the stream route's
+   walk, with and without NEE, roulette, instances, the scene
+   extensions) and of the micro's two mixes;
 3. kernel vs plain PyTorch version on the card: at 320x180 on
    RANDOM_BALLS_LARGE and MATERIAL_TEST, depth 1 without jitter (winning
    radiance per ray within 1e-5 on >= 99.9% of rays) and depth 20 with
@@ -150,16 +151,40 @@ non-zero):
     frame and the segments;
 22. with --big-level 8, phase 21 without the chunks at level 8
     (1,310,720 triangles).  The renderers of one scene share its packed
-    tables (``shared_tables``).
+    tables (``shared_tables``);
+23. the probes (depth_out, collect_stats: the probe kernel), run on
+    renderers that earlier phases made: the headline at 1920x1080 depth
+    20 (phase 4) and with NEE (path B), the level-5 mesh (phase 7's fused
+    renderer, and path D's at 320x180 with NEE), the instanced scene
+    (phase 15's fused renderers, with and without NEE) and the level-7
+    stream scene (phase 21's): on frame 0 the probe radiance equals the
+    trace kernel's bit for bit, the depths sum to count_frame_rays, and
+    on 256 sampled rays depths and counters equal the plain version's
+    (ops/walk_stats.py's replay); the probe and trace kernels timed; the
+    counters summarised per ray and per warp (trace_stats); each fused
+    launch whose bound is taken gets a probe launch of its own, for the
+    counted-visit bound;
+24. depth_sort: the fused engine on the headline with depth_sort 0, 1
+    and 13 (every launch count set to 0 first: one probe launch each for
+    1 and 13), the films of 4 frames bit-equal, then each timed as in
+    phase 4 with its trace kernel and its probe frame;
+25. the float32 peak micro (benchmarks/micro.py) against its plain
+    version at its timed shape (relative error < 1e-6), twice the loops
+    taking twice the time (1.8-2.2x), its two mixes timed (T ops/s,
+    TFLOP/s), the read rate of a 4 GiB tensor, the SASS instruction
+    counts; then every counted-visit trace bound and every segment bound
+    of the run at these measured peaks, beside the data sheet's.
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
-path's timed frames, its bound on the card for the measured launch, its
+path's timed frames, its bound on the card for the measured launch at
+the measured peaks (the trace kernel's from counted visits), its
 NEE, roulette and instanced comparisons, and the timed paths A-D and
 the instanced ones), of each kernel's scene-extension
 instantiations ("trace[ext]", "segment[ext]": T1-T3) and of its stream
-instantiations ("trace[stream]", "segment[stream]": phases 20-22); the
-last line is
+instantiations ("trace[stream]", "segment[stream]": phases 20-22), of
+the probe kernel ("trace[probe]": phases 23-24) and of the micro
+("fp32_peak": phase 25); the last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -169,6 +194,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -180,10 +206,18 @@ from pathlib import Path
 
 import numpy as np
 
+from parallelraytracing_tpu_torch.benchmarks.roofline import (
+    CHECKER_OPS, SEGMENT_RAY_BYTES, SKY_OPS, SPH_UV_OPS, TEX_OPS,
+    TRACE_RAY_BYTES, bound_from, counted_bound, kernel_bound, sum_counts,
+    table_bytes)
+
 SOURCE = "parallelraytracing_tpu_torch/csrc/trace.cu"
 REPLACES = "parallelraytracing_tpu/ops/pallas_trace.py:3214"
 SEG_SOURCE = "parallelraytracing_tpu_torch/csrc/segment.cu"
 SEG_REPLACES = "parallelraytracing_tpu/ops/pallas_trace.py:3476"
+PROBE_SOURCE = "parallelraytracing_tpu_torch/csrc/probe.cu"
+MICRO_SOURCE = "parallelraytracing_tpu_torch/csrc/micro.cu"
+MICRO_REPLACES = "benchmarks/micro.py:30"
 #: depth-1 agreement: per-ray tolerance, and the share of rays within it
 RAY_ATOL, RAY_SHARE = 1e-5, 0.999
 #: depth-20 agreement: HDR RMSE bound between kernel and plain films
@@ -207,23 +241,6 @@ TRUTH_FRAMES, NEE_FRAMES, MEAN_REL, RMSE_RATIO = 1024, 8, 0.06, 0.6
 INST_DEPTH = 8
 INST_EYE, INST_DIR = (0.0, 12.0, 30.0), (0.0, -7.0, -30.0)
 TLAS_W, TLAS_H, TLAS_DEPTH, TLAS_SPP, TLAS_FRAMES = 64, 48, 10, 32, 8
-#: the bound of a kernel launch (the H100 SXM's published peaks): float32
-#: operations outside the tensor cores, and HBM3 bytes/s
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-#: float32 operations of the least walk a ray segment needs, counted from
-#: csrc/bounce.cuh: one slab test, one sphere / quad / triangle test, one
-#: instance entry (the local ray), and the shading after the fold (hit
-#: point, normal, three PCG draws, the direction sample, the BSDF, the
-#: normalisation)
-SLAB_OPS, SPH_OPS, QUAD_OPS, TRI_OPS, ENTRY_OPS, SHADE_OPS = \
-    26, 24, 45, 45, 60, 150
-#: float32 operations of the scene extensions, counted from
-#: csrc/bounce.cuh: an image texture's fetch (UV wrap, four texel fetches
-#: with their wrap, index and u24 decode, the bilinear blend and the
-#: albedo product), a sphere's equirectangular UV on top (atan2 and asin,
-#: each counted as 20), a checker's cell parity, the gradient and sun sky
-#: of a miss (sun power 256: nine squarings)
-TEX_OPS, SPH_UV_OPS, CHECKER_OPS, SKY_OPS = 115, 46, 16, 45
 #: the stream route's workloads: bench's big-mesh scene (big_mesh_scene)
 #: at 960x540, depth 8, its camera, the rays of each kernel-vs-plain
 #: comparison, the frames of each film comparison, and the chunks timed
@@ -243,18 +260,6 @@ LAYOUT_SHARE = 1e-5
 #: INST_DEPTH); the lens of T1's thin-lens paths
 PRESET_EYE, PRESET_LOOK = (5.0, 5.0, 8.0), (0.0, 0.0, 0.0)
 LENS_RADIUS, FOCUS_DISTANCE = 0.1, 10.0
-
-#: the regular icosahedron: 12 closed-form vertices (0, +-1, +-phi) and
-#: cyclic permutations, 20 faces wound counter-clockwise seen from outside
-PHI = (1.0 + 5.0 ** 0.5) / 2.0
-ICO_V = ((-1, PHI, 0), (1, PHI, 0), (-1, -PHI, 0), (1, -PHI, 0),
-         (0, -1, PHI), (0, 1, PHI), (0, -1, -PHI), (0, 1, -PHI),
-         (PHI, 0, -1), (PHI, 0, 1), (-PHI, 0, -1), (-PHI, 0, 1))
-ICO_F = ((0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
-         (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
-         (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
-         (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1))
-
 
 _LAST = [time.perf_counter()]
 
@@ -312,13 +317,17 @@ def traced_on(r, fn):
 
 
 def make_renderer(preset: str, width: int, height: int, engine="fused",
-                  **cfg_kw):
+                  attrs=None, **cfg_kw):
+    """A renderer of `engine` on a preset at its default camera, the
+    engine's attributes `attrs` set before init."""
     from parallelraytracing_tpu_torch import (Film, RenderConfig, Scene,
                                               ScenePreset, create_renderer,
                                               default_camera)
     cfg = RenderConfig(width=width, height=height, **cfg_kw)
     film = Film(width, height, "cuda")
     r = create_renderer(engine, "cuda")
+    for k, v in (attrs or {}).items():
+        setattr(r, k, v)
     r.init(film, Scene(ScenePreset(preset)), default_camera(width, height), cfg)
     return r, film
 
@@ -350,11 +359,8 @@ def write_ply(path: str, level: int = MESH_LEVEL) -> int:
     """Write the icosahedron (vertices on the unit sphere) subdivided
     `level` times as a binary PLY of positions and faces; the reader
     computes the smooth vertex normals.  Returns the triangle count."""
-    from parallelraytracing_tpu_torch.core.mesh import Mesh, subdivide
-    v = np.asarray(ICO_V, np.float64)
-    v = v / np.linalg.norm(v, axis=1, keepdims=True)
-    mesh = subdivide(Mesh(v.astype(np.float32),
-                          np.asarray(ICO_F, np.uint32).reshape(-1)), level)
+    from parallelraytracing_tpu_torch.core.mesh import icosphere
+    mesh = icosphere(level)
     faces = np.zeros(mesh.num_triangles, [("n", "u1"), ("i", "<i4", (3,))])
     faces["n"] = 3
     faces["i"] = mesh.indices.reshape(-1, 3)
@@ -457,7 +463,11 @@ def ptxas_summary(lib: str, log: Path) -> str:
     out, tag, spill = [], lib, ""
     for ln in log.read_text().splitlines():
         m = re.search(r"ILi([012])ELb([01])ELb([01])ELb([01])ELb([01])E", ln)
-        if "Compiling entry function" in ln and m:
+        mix = re.search(r"fp32_peak_kernelILi([01])E", ln)
+        if "Compiling entry function" in ln and mix:
+            tag = f"{lib}[{('fma', 'slab')[int(mix.group(1))]}]"
+            spill = ""
+        elif "Compiling entry function" in ln and m:
             tag = (f"{lib}[{('sq', 'tri', 'tri-stream')[int(m.group(1))]}"
                    f"{'+nee' if m.group(2) == '1' else ''}"
                    f"{'+rr' if m.group(3) == '1' else ''}"
@@ -652,156 +662,264 @@ def depth_counts(r) -> list:
     return count_depth_rays(r._tables, *frame_inputs(r, 0), r.config)
 
 
-def tree_depths(cl, roots=(0,)) -> np.ndarray:
-    """The depth of each column of a threaded (8, M) table, 0 for a column
-    no walk reaches: a node's first child is the next column and a child's
-    next sibling its escape link, so one pass in column order gives every
-    node's depth.  `roots` are the trees' first columns (the instance
-    table holds one tree per unique mesh)."""
-    m = cl.shape[1]
-    depth = np.zeros(m, np.int64)
-    for root in roots:
-        depth[int(root)] = 1
-    is_leaf = (cl[7] >= 0).tolist()
-    escs = cl[6].astype(np.int64).tolist()
-    for n in range(m):
-        if not depth[n]:  # a column no walk reaches (a chunk's pad)
-            continue
-        if not is_leaf[n] and n + 1 < m and not depth[n + 1]:
-            depth[n + 1] = depth[n] + 1
-        esc = escs[n]
-        if esc >= 0 and not depth[esc]:
-            depth[esc] = depth[n]
-    return depth
+#: every trace bound from counted visits of the run, which phase 25 gives
+#: the measured peaks
+COUNTED = []
 
 
-def tree_walk_shape(cl, roots=(0,)):
-    """(fewest nodes on a root-to-leaf path, mean leaf span) of a threaded
-    (8, M) table whose trees start at the columns `roots`."""
-    cl = cl.cpu().numpy() if hasattr(cl, "cpu") else np.asarray(cl)
-    depth = tree_depths(cl, roots)
-    leaves = (cl[7] >= 0) & (depth > 0)
-    spans = cl[7, leaves].astype(np.int64) & 63
-    return int(depth[leaves].min()), float(spans.mean())
+def probe_counts(r, inputs) -> dict:
+    """The probe kernel's counters of one launch of renderer r on
+    `inputs`, summed over the rays."""
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    _, stats = traced_on(r, functools.partial(trace, collect_stats=True))(
+        *inputs)
+    return sum_counts(stats)
 
 
-def stream_minis(t):
-    """(mini-trees, roots) of a stream route's tables: the (8, n_chunks x
-    node_rows) mini-trees with their chunk-local escape links taken to
-    global columns, and the first column of each chunk a top-tree leaf
-    enters."""
-    st = t.stream
-    top = t.tri_cl.cpu().numpy()
-    enc = top[7][top[7] >= 0].astype(np.int64)
-    roots = np.unique(enc >> st.shift) * st.node_rows
-    mini = st.mini.cpu().numpy().copy()
-    base = (np.arange(mini.shape[1]) // st.node_rows) * st.node_rows
-    mini[6] = np.where(mini[6] >= 0, mini[6] + base, -1.0)
-    return mini, roots
+def trace_bounds(r, inputs, segments: int, ext_ops: float = 0.0,
+                 tag: str = "") -> dict:
+    """The bounds of one trace launch of renderer r on `inputs`: the walk
+    shape's (``kernel_bound``: `segments` ray segments, the data sheet's
+    peaks) and, under "counted", the counted visits' (the probe kernel's
+    counters of the same launch; phase 25 adds the measured peaks)."""
+    n = int(inputs[0].shape[0])
+    counted = counted_bound(r._tables, probe_counts(r, inputs), n,
+                            TRACE_RAY_BYTES, ext_ops)
+    counted["tag"] = tag
+    COUNTED.append(counted)
+    return dict(**kernel_bound(r._tables, segments, n, TRACE_RAY_BYTES,
+                               ext_ops), counted=counted)
 
 
-def stream_walk_shape(t):
-    """(fewest top-tree nodes to a leaf, fewest mini-tree nodes to a
-    mini-leaf, mean mini-leaf span) of a stream route's tables."""
-    d_mini, span = tree_walk_shape(*stream_minis(t))
-    return tree_walk_shape(t.tri_cl)[0], d_mini, span
+#: every segment bound of the run (walk-shape operations, the data
+#: sheet's rates), which phase 25 recomputes at the measured peaks
+WALK = []
 
 
-def kind_ops(n: int, cl, csize: int, prim_ops: int) -> float:
-    """Operations of the least walk of one kind for one segment (the
-    walks of fold_kind): a tiny kind tests every primitive; a tree the
-    slab tests on its shallowest root-to-leaf path and one mean leaf's
-    primitives; a linear table its root pretest, every cluster box and
-    one cluster's primitives."""
-    if n <= csize:
-        return n * prim_ops
-    if cl.shape[0] == 8:
-        d_min, span = tree_walk_shape(cl)
-        return d_min * SLAB_OPS + span * prim_ops
-    return cl.shape[1] * SLAB_OPS + csize * prim_ops
+def segment_bound(rec: dict, t, segments: int, n_rays: int,
+                  extra_ops: float = 0.0) -> dict:
+    """Add to `rec` the walk-shape bound (``kernel_bound``) of one
+    segment launch over tables t and register it in WALK."""
+    rec.update(kernel_bound(t, segments, n_rays, SEGMENT_RAY_BYTES,
+                            extra_ops))
+    WALK.append(rec)
+    return rec
 
 
-def segment_ops(t) -> float:
-    """Least operations of one ray segment through tables t: the shading
-    plus each kind's least walk (a mesh on the stream route: the
-    shallowest top-tree path, the shallowest mini-tree path and one mean
-    mini-leaf's triangles); with instances, every instance's box test,
-    one entry, and the shallowest walk of the instanced trees."""
-    from parallelraytracing_tpu_torch.ops.pack import CLUSTER, TRI_CLUSTER
-    ops = SHADE_OPS + kind_ops(t.sph.shape[1], t.sph_cl, CLUSTER, SPH_OPS) \
-        + kind_ops(t.quad.shape[1], t.quad_cl, CLUSTER, QUAD_OPS)
-    if t.tri_live and t.stream is not None:
-        d_top, d_mini, span = stream_walk_shape(t)
-        ops += (d_top + d_mini) * SLAB_OPS + span * TRI_OPS
-    elif t.tri_live:
-        ops += kind_ops(t.tri.shape[1], t.tri_cl, TRI_CLUSTER, TRI_OPS)
-    if t.inst is not None:
-        roots = sorted(set(int(x) for x in t.inst.inst[0].tolist()))
-        d_min, span = tree_walk_shape(t.inst.iacc, roots)
-        ops += t.inst.n_inst * SLAB_OPS + ENTRY_OPS + d_min * SLAB_OPS \
-            + span * TRI_OPS
-    return ops
+#: phase 23: each scene's probe records, and the rays sampled for the
+#: plain replay
+PROBES, PROBE_RAYS = {}, 256
 
 
-def table_bytes(t) -> int:
-    """Bytes of the tables of t on the card."""
-    tabs = [t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-            t.lights]
-    if t.inst is not None:
-        tabs += [t.inst.itri, t.inst.iacc, t.inst.ibox, t.inst.inst]
-    if t.itex_tab is not None:
-        tabs.append(t.itex_tab)
-    if t.stream is not None:
-        tabs.append(t.stream.mini)
-    return sum(x.numel() * x.element_size() for x in tabs)
+def probe_check(r, tag: str) -> dict:
+    """Phase 23 on fused renderer r: frame 0 through the probe kernel.  Its
+    radiance equals the trace kernel's bit for bit, its depths sum to
+    count_frame_rays' segments, and on PROBE_RAYS sampled rays its depths
+    and counters equal the plain version's (its own bounce loop, the
+    replay of ops/walk_stats.py); the probe and trace kernels timed (mean
+    of 5 launches), and the counters summarised per ray and per warp
+    (benchmarks/trace_stats.py).  Raises on a miss."""
+    import torch
+    from parallelraytracing_tpu_torch.benchmarks.trace_stats import summarize
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        count_frame_rays
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    inputs = frame_inputs(r, 0)
+    o, d, pix, seed = inputs
+    probe = traced_on(r, functools.partial(trace, depth_out=True,
+                                           collect_stats=True))
+    k = traced_on(r, trace)(*inputs)
+    pk, depth, stats = probe(*inputs)
+    rays = count_frame_rays(r._tables, *inputs, r.config)
+    sel = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(
+        0))[:PROBE_RAYS].to("cuda")
+    sub = (o[sel].contiguous(), d[sel].contiguous(), pix[sel].contiguous(),
+           seed)
+    (p_rad, p_depth, p_stats), plain_ms = timed_ms(lambda: traced_on(
+        r, functools.partial(trace_reference, depth_out=True,
+                             collect_stats=True))(*sub))
+    rec = dict(
+        rad_equal=bool(torch.equal(pk, k)),
+        max_abs_err=float((pk - k).abs().max()),
+        plain_max_abs_err=float((p_rad - pk[sel]).abs().max()),
+        depth_sum=int(depth.double().sum()), rays=rays,
+        depth_equal=bool(torch.equal(p_depth, depth[sel])),
+        stats_equal=bool(torch.equal(p_stats, stats[sel])),
+        sampled=PROBE_RAYS, ms=cuda_ms(lambda: probe(*inputs), 5),
+        trace_ms=cuda_ms(lambda: traced_on(r, trace)(*inputs), 5),
+        plain_ms=plain_ms, cmp_ms=cuda_ms(lambda: probe(*sub), 5),
+        counts=sum_counts(stats), summary=summarize(stats))
+    cfg = r.config
+    phase("probes", f"{tag} {cfg.width}x{cfg.height} depth {cfg.max_depth} "
+          f"frame 0: probe radiance bit-equal to trace {rec['rad_equal']} "
+          f"(max abs err {rec['max_abs_err']!r}); depth sum "
+          f"{rec['depth_sum']} vs count_frame_rays {rays}; on {PROBE_RAYS} "
+          f"rays depths equal {rec['depth_equal']}, counters equal the "
+          f"replay {rec['stats_equal']} (plain {plain_ms:.1f} ms); probe "
+          f"kernel {rec['ms']:.3f} ms vs trace {rec['trace_ms']:.3f} ms; "
+          f"counts {rec['counts']}")
+    sm = rec["summary"]
+    phase("trace-stats", f"{tag}: per ray " + ", ".join(
+        f"{k} mean {v['mean']:.2f} p50 {v['p50']:g} p90 {v['p90']:g} max "
+        f"{v['max']}" for k, v in sm["per_ray"].items()) + "; per warp SIMT "
+        "efficiency " + ", ".join(
+        f"{k} {v['simt_efficiency']:.3f}" for k, v in sm["per_warp"].items()))
+    if not (rec["rad_equal"] and rec["depth_sum"] == rays
+            and rec["depth_equal"] and rec["stats_equal"]):
+        raise AssertionError(f"{tag}: the probe kernel disagrees")
+    PROBES[tag] = rec
+    return rec
 
 
-def unread_bytes(t) -> int:
-    """Bytes of the tables of t that no walk reads: on the stream route,
-    the slot columns outside every mini-leaf's range (a chunk's unused
-    tail) and the mini-tree columns no chunk's walk reaches (past each
-    chunk's tree); 0 on the dense route."""
-    if t.stream is None:
-        return 0
-    mini, roots = stream_minis(t)
-    reach = tree_depths(mini, roots) > 0
-    leaf = reach & (mini[7] >= 0)
-    read = int((mini[7, leaf].astype(np.int64) & 63).sum())
-    return ((t.tri.shape[1] - read) * t.tri.shape[0] * t.tri.element_size()
-            + int((~reach).sum()) * mini.shape[0] * t.stream.mini.element_size())
+#: phase 24: the depth_sort values driven on the headline
+DEPTH_SORTS = (0, 1, 13)
 
 
-def kernel_bound(t, segments: int, n_rays: int, ray_bytes: int,
-                 extra_ops: float = 0.0) -> dict:
-    """The least time the card could take for one launch: the larger of
-    its bytes (each ray's inputs read once and outputs written once, each
-    table read once, the texel rows included, the stream route's columns
-    that no walk reads left out) over the HBM rate and its
-    operations (`segments` ray segments of segment_ops each, plus
-    `extra_ops`, the scene extensions' work of ``extension_ops``) over
-    the float32 peak.  The walk term is a lower bound: it counts the
-    shallowest path, not the nodes each ray visits."""
-    nbytes = n_rays * ray_bytes + table_bytes(t) - unread_bytes(t)
-    ops = segments * segment_ops(t) + extra_ops
-    b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
-    return dict(bound_ms=max(b_ms, f_ms),
-                bound_by="bytes" if b_ms >= f_ms else "operations",
-                bytes=nbytes, operations=ops, segments=segments,
-                ops_per_segment=segment_ops(t), extension_ops=extra_ops)
+def depth_sort_phase() -> dict:
+    """Phase 24: the fused engine on the headline with each of
+    DEPTH_SORTS.  Every launch count set to 0, the renderers made (each
+    with depth_sort > 0 probes a frame) and NEE_FILM_FRAMES frames
+    rendered, the counts read; the films bit-equal.  Then each timed as
+    in phase 4 (ms/frame over TIMED frames), its trace kernel on frame 0
+    and, with depth_sort > 0, the probe frame's seconds.  Raises on a
+    miss; returns the record."""
+    import torch
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    trace.launches = trace.probe_launches = segment.launches = 0
+    runs = {ds: make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                              attrs=dict(depth_sort=ds),
+                              max_depth=MAIN_DEPTH, jitter=True)
+            for ds in DEPTH_SORTS}
+    for _ in range(NEE_FILM_FRAMES):
+        for r, _ in runs.values():
+            r.progressive_render()
+    torch.cuda.synchronize()
+    launches = dict(trace=trace.launches, probe=trace.probe_launches,
+                    segment=segment.launches)
+    hdr = {ds: film.hdr_average() for ds, (_, film) in runs.items()}
+    equal = {ds: bool(torch.equal(hdr[ds], hdr[0])) for ds in DEPTH_SORTS}
+    phase("depth-sort", f"random_balls_large {MAIN_W}x{MAIN_H} depth "
+          f"{MAIN_DEPTH}: depth_sort {DEPTH_SORTS}, films of "
+          f"{NEE_FILM_FRAMES} frames bit-equal to depth_sort 0: {equal}; "
+          f"launches {launches}")
+    want = len(DEPTH_SORTS) * NEE_FILM_FRAMES
+    if not all(equal.values()) or launches["probe"] != len(DEPTH_SORTS) - 1 \
+            or launches["trace"] != want or launches["segment"]:
+        raise AssertionError(f"depth_sort: films {equal}, launches {launches}")
+    del hdr
+    rec = dict(launches=launches, films_equal=equal, modes={})
+    for ds, (r, film) in runs.items():
+        for _ in range(WARMUP):
+            r.progressive_render()
+        ms = cuda_ms(r.progressive_render, TIMED)
+        inputs = frame_inputs(r, 0)
+        k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
+        probe_s = None
+        if ds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r._depth_reorder()
+            torch.cuda.synchronize()
+            probe_s = time.perf_counter() - t0
+        rec["modes"][ds] = dict(ms_per_frame=ms, trace_ms=k_ms,
+                                probe_frame_s=probe_s)
+        phase("depth-sort", f"depth_sort {ds}: {ms:.3f} ms/frame over "
+              f"{TIMED} frames, trace kernel {k_ms:.3f} ms (frame 0)"
+              + (f", probe frame {probe_s:.3f} s" if ds else ""))
+        del inputs
+    del runs
+    return rec
 
 
-#: bytes per ray of a trace launch (o, d, pixel id in; radiance out) and
-#: of a segment launch (13 planes and the pixel id in, 13 planes out)
-TRACE_RAY_BYTES, SEGMENT_RAY_BYTES = 3 * 4 + 3 * 4 + 4 + 3 * 4, 13 * 4 * 2 + 4
+#: phase 25: the micro's bound against its plain version (relative: the
+#: kernel's fmaf rounds once where the plain version rounds through
+#: float64, a last-bit difference carried along a chain)
+MICRO_REL = 1e-6
+#: and its time at LOOPS over its time at LOOPS // 2: the chains drift by
+#: less than MICRO_REL over a few iterations, so the time shows that every
+#: iteration runs
+LOOP_RATIO = (1.8, 2.2)
+
+
+def micro_phase(smi: str) -> dict:
+    """Phase 25: the float32 peak micro (benchmarks/micro.py) against its
+    plain version at the timed launch's shape (x a ramp in [0.25, 1]) and
+    its time at LOOPS against LOOPS // 2 (LOOP_RATIO), then timed with
+    every launch count set to 0 first, the read rate, the SASS
+    instruction counts; then every counted-visit trace bound of the run
+    (COUNTED) at the measured peaks, beside the data sheet's bound and the
+    walk-shape one, and every segment bound (WALK).  Raises on a miss;
+    returns the record."""
+    import torch
+    from parallelraytracing_tpu_torch.benchmarks import micro
+    x = torch.linspace(0.25, 1.0, micro.N_ELEMS, device="cuda")
+    cmp = {}
+    for mix in micro.MIXES:
+        k = micro.peak_chains(x, micro.LOOPS, mix)
+        p, plain_ms = timed_ms(lambda: micro.peak_chains_reference(
+            x, micro.LOOPS, mix))
+        cmp[mix] = dict(max_abs_err=float((k - p).abs().max()),
+                        max_rel_err=float(((k - p).abs() / p.abs()).max()),
+                        plain_ms=plain_ms)
+    del x, k, p
+    phase("micro-vs-plain", f"{micro.N_ELEMS} elements x {micro.LOOPS} "
+          f"iterations: " + ", ".join(
+              f"{m} max rel err {c['max_rel_err']:.3e} (< {MICRO_REL}), "
+              f"plain {c['plain_ms']:.0f} ms" for m, c in cmp.items()))
+    if max(c["max_rel_err"] for c in cmp.values()) >= MICRO_REL:
+        raise AssertionError("the micro kernel disagrees with plain")
+    ratio = {mix: micro.loop_ratio(mix) for mix in micro.MIXES}
+    phase("micro-loops", f"time at {micro.LOOPS} iterations over the time "
+          f"at {micro.LOOPS // 2}: " + ", ".join(
+              f"{m} {v:.3f}" for m, v in ratio.items()) + f" (want "
+          f"{LOOP_RATIO[0]}-{LOOP_RATIO[1]})")
+    if not all(LOOP_RATIO[0] <= v <= LOOP_RATIO[1] for v in ratio.values()):
+        raise AssertionError(f"the micro kernel skips iterations: {ratio}")
+    micro.peak_chains.launches = 0
+    rates = {}
+    for mix in micro.MIXES:
+        sec, ops = micro.fp32_peak(mix)
+        rates[mix] = dict(ms=sec * 1e3, ops_per_s=ops / sec,
+                          flop_per_s=micro.flops(mix, micro.LOOPS,
+                                                 micro.N_ELEMS) / sec)
+    launches = micro.peak_chains.launches
+    read = micro.read_rate()
+    sass = micro.sass_counts()
+    peaks = dict(fma=rates["fma"]["ops_per_s"],
+                 slab=rates["slab"]["ops_per_s"], bytes=read)
+    phase("micro", f"{smi}: " + "; ".join(
+        f"{m} {v['ms']:.3f} ms, {v['ops_per_s'] / 1e12:.2f} T ops/s "
+        f"({v['flop_per_s'] / 1e12:.2f} TFLOP/s, a multiply-add as 2)"
+        for m, v in rates.items()) + f"; read {read / 1e12:.3f} TB/s "
+          f"({micro.READ_BYTES} bytes); launches {launches}; SASS {sass}")
+    if launches < 2:
+        raise AssertionError(f"micro: {launches} launches")
+    for rec in COUNTED:
+        rec.update(bound_from(rec["slab_ops"], rec["other_ops"],
+                              rec["bytes"], peaks), peaks=peaks)
+        phase("roofline", f"{rec['tag']}: counted visits {rec['counts']}: "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) at the "
+              f"measured peaks, {rec['datasheet_bound_ms']:.4f} ms at the "
+              f"data sheet's")
+    for rec in WALK:
+        rec.update(bound_from(rec["slab_ops"], rec["other_ops"],
+                              rec["bytes"], peaks), peaks=peaks)
+    phase("roofline", f"{len(WALK)} segment launches' walk-shape bounds at "
+          f"the measured peaks (at the data sheet's): " + ", ".join(
+              f"{rec['bound_ms']:.4f} ({rec['datasheet_bound_ms']:.4f}) ms"
+              for rec in WALK))
+    return dict(vs_plain=cmp, loop_ratio=ratio, rates=rates,
+                launches=launches, read_bytes_per_s=read, sass=sass,
+                peaks=peaks)
 
 
 def icosahedron():
     """The 20-triangle icosahedron, vertices on the unit sphere, flat
     normals: the stand-in for the reference's icosahedron.ply."""
-    from parallelraytracing_tpu_torch.core.mesh import Mesh
-    v = np.asarray(ICO_V, np.float64)
-    v = v / np.linalg.norm(v, axis=1, keepdims=True)
-    return Mesh(v.astype(np.float32), np.asarray(ICO_F, np.uint32).reshape(-1))
+    from parallelraytracing_tpu_torch.core.mesh import Mesh, icosphere
+    ico = icosphere(0)
+    return Mesh(ico.vertices, ico.indices)
 
 
 def equirect_uv(mesh):
@@ -1033,18 +1151,19 @@ def instanced_phases(ply: str, png_dir) -> dict:
             if engine == "fused":
                 inputs = frame_inputs(r, 0)
                 k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
-                kern = dict(ms=k_ms, **kernel_bound(
-                    r._tables, sum(counts), MAIN_W * MAIN_H,
-                    TRACE_RAY_BYTES))
+                kern = dict(ms=k_ms, **trace_bounds(r, inputs, sum(counts),
+                                                    tag=tag))
                 detail = f"trace kernel {k_ms:.3f} ms"
+                probe_check(r, tag)  # 23. the probes on the instances
                 del inputs
             else:
                 segs = time_segments(r)
                 depth0 = 0
                 for sg in segs:
-                    sg.update(kernel_bound(
-                        r._tables, sum(counts[depth0:depth0 + sg["bounces"]]),
-                        MAIN_W * MAIN_H, SEGMENT_RAY_BYTES))
+                    segment_bound(
+                        sg, r._tables,
+                        sum(counts[depth0:depth0 + sg["bounces"]]),
+                        MAIN_W * MAIN_H)
                     depth0 += sg["bounces"]
                 kern = dict(segments=segs)
                 detail = "segment kernels " + " + ".join(
@@ -1139,12 +1258,13 @@ def ext_kernel_record(kernel: str, ext: dict) -> dict:
         path = ext["paths"]["T1_wavefront_fused"]
         timed = path["kernels"]["segments"][0]
         source, replaces = SEG_SOURCE, SEG_REPLACES
+    bound = timed["counted"] if kernel == "trace" else timed
     return {
         "name": f"{kernel}[ext]", "route": "cuda", "source": source,
         "replaces": replaces, "launches": path["launches"][kernel],
         "max_abs_err": max(c[kernel]["max_abs_err"] for c in cmp.values()),
         "ms": timed["ms"], "plain_ms": t1["plain_ms"],
-        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
         "size": f"the {kernel} kernel's scene-extension instantiations "
                 f"(kExt): ms, bound and launches on T1 (texture_demo) "
@@ -1252,9 +1372,8 @@ def extension_phases(bunny, png_dir) -> dict:
         if engine == "fused":
             inputs = frame_inputs(r, 0)
             k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
-            kern = dict(ms=k_ms, **kernel_bound(
-                r._tables, sum(counts), MAIN_W * MAIN_H, TRACE_RAY_BYTES,
-                ext_ops))
+            kern = dict(ms=k_ms, **trace_bounds(r, inputs, sum(counts),
+                                                ext_ops, tag=tag))
             detail = (f"trace kernel {k_ms:.3f} ms, bound {kern['bound_ms']:.4f}"
                       f" ms ({kern['bound_by']}), {kern['bound_ms'] / k_ms:.1%}"
                       f" of it")
@@ -1263,10 +1382,9 @@ def extension_phases(bunny, png_dir) -> dict:
             segs = time_segments(r)
             depth0 = 0
             for i, sg in enumerate(segs):
-                sg.update(kernel_bound(
-                    r._tables, sum(counts[depth0:depth0 + sg["bounces"]]),
-                    MAIN_W * MAIN_H, SEGMENT_RAY_BYTES,
-                    ext_ops if i == 0 else 0.0))
+                segment_bound(
+                    sg, r._tables, sum(counts[depth0:depth0 + sg["bounces"]]),
+                    MAIN_W * MAIN_H, ext_ops if i == 0 else 0.0)
                 depth0 += sg["bounces"]
             kern = dict(segments=segs)
             detail = "segment kernels " + " + ".join(
@@ -1325,10 +1443,9 @@ def big_mesh_scene(level: int):
     turned 180 degrees about y and lifted 8, over a 100x100 ground quad,
     under an emissive sphere of radius 3.  Returns (scene, seconds)."""
     from parallelraytracing_tpu_torch import Scene
-    from parallelraytracing_tpu_torch.core.mesh import subdivide
+    from parallelraytracing_tpu_torch.core.mesh import icosphere
     t0 = time.perf_counter()
-    mesh = subdivide(icosahedron(), level)
-    mesh.compute_vertex_normals()
+    mesh = icosphere(level)
     s = Scene(preset=None)
     s.add_mesh(mesh, s.add_lambertian((0.75, 0.65, 0.5)),
                ((8, 8, 8), (0, 180, 0), (0, 8, 0)))
@@ -1494,8 +1611,7 @@ def kernel_times(r, counts, tag: str) -> dict:
     if r.name == "fused":
         inputs = frame_inputs(r, 0)
         k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
-        kern = dict(ms=k_ms, **kernel_bound(r._tables, sum(counts), n,
-                                            TRACE_RAY_BYTES))
+        kern = dict(ms=k_ms, **trace_bounds(r, inputs, sum(counts), tag=tag))
         detail = (f"trace kernel {k_ms:.3f} ms, bound {kern['bound_ms']:.4f} "
                   f"ms ({kern['bound_by']}), {kern['bound_ms'] / k_ms:.1%} of "
                   f"it")
@@ -1503,9 +1619,8 @@ def kernel_times(r, counts, tag: str) -> dict:
         segs = time_segments(r)
         depth0 = 0
         for sg in segs:
-            sg.update(kernel_bound(
-                r._tables, sum(counts[depth0:depth0 + sg["bounces"]]), n,
-                SEGMENT_RAY_BYTES))
+            segment_bound(sg, r._tables,
+                          sum(counts[depth0:depth0 + sg["bounces"]]), n)
             depth0 += sg["bounces"]
         kern = dict(segments=segs)
         detail = "segment kernels " + " + ".join(
@@ -1572,6 +1687,8 @@ def big_level(level: int, png_dir, sweep: bool) -> dict:
                 r, film = big_renderer(engine, scene, nee)
                 counts = depth_counts(r)
                 kern = kernel_times(r, counts, tag)
+                if engine == "fused" and level == 7:
+                    probe_check(r, tag)  # 23. the probes on the stream route
                 p = timed_path(r, film, tag, png_dir)
                 p.update(kernels=kern, nee=nee, schedule=(
                     r.segment_lengths() if engine != "fused" else None))
@@ -1778,11 +1895,12 @@ def stream_kernel_record(kernel: str, st: dict) -> dict:
         errs = [c["segment"]["max_abs_err"] for c in cmps]
         seg = l7["vs_plain"]["plain"]["segment"]
         plain, cmp_ms = seg["plain_ms"], seg["ms"]
+    bound = timed["counted"] if kernel == "trace" else timed
     return {
         "name": f"{kernel}[stream]", "route": "cuda", "source": source,
         "replaces": replaces, "launches": path["launches"][kernel],
         "max_abs_err": max(errs), "ms": timed["ms"], "plain_ms": plain,
-        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
         "size": f"the {kernel} kernel's stream instantiations (the K7 walk): "
                 f"ms, bound and launches on bench's big-mesh scene at "
@@ -1835,13 +1953,14 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc per library, all started together
     t0 = time.perf_counter()
-    _build.build_all(["trace", "segment"])
-    _build.load("trace")
-    _build.load("segment")
+    _build.build_all(list(_build.LIBRARIES))
+    for lib in _build.LIBRARIES:
+        _build.load(lib)
     build_s = time.perf_counter() - t0
     ptxas = [ptxas_summary(lib, _build.library_path(lib).with_suffix(".log"))
-             for lib in ("trace", "segment")]
-    phase("build", f"trace.cu + segment.cu in {build_s:.2f} s; ptxas: "
+             for lib in _build.LIBRARIES]
+    phase("build", f"{' + '.join(f'{lib}.cu' for lib in _build.LIBRARIES)} "
+                   f"in {build_s:.2f} s; ptxas: "
                    f"{' | '.join(x for x in ptxas if x)}")
 
     # 3. kernel vs plain
@@ -1871,8 +1990,8 @@ def main(argv=None) -> int:
               tri_live=main_r._tables.tri_live)
     kernel_ms = cuda_ms(lambda: trace(*args_t, **kw), 5)
     plain_ms = cuda_ms(lambda: trace_reference(*args_t, **kw), 1)
-    trace_bound = kernel_bound(main_r._tables, sum(depth_counts(main_r)),
-                               MAIN_W * MAIN_H, TRACE_RAY_BYTES)
+    trace_bound = trace_bounds(main_r, (o, d, pix, seed),
+                               sum(depth_counts(main_r)), tag="headline")
     phase("kernel-vs-plain", f"main frame {MAIN_W}x{MAIN_H} depth "
           f"{MAIN_DEPTH}: {share_main:.6f} of rays within {RAY_ATOL}, max "
           f"abs err {max_abs_err:.3e}; trace kernel {kernel_ms:.3f} ms, "
@@ -1897,6 +2016,8 @@ def main(argv=None) -> int:
                              f"{segment.launches} segment launches")
     phase("main-path", check_film(main_film, main_r._tables.sky,
                                   "random_balls_large", args.png_dir))
+    # 23. the probes on the headline
+    probe_check(main_r, "headline")
     del main_r, main_film, k, p, err, args_t
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1973,9 +2094,9 @@ def main(argv=None) -> int:
                                 mw_r.config)
         per_frame = len(mw_r.segment_lengths())
         segs = check_segments(mw_r, "mesh")
-        seg_bound = kernel_bound(mw_r._tables,
-                                 sum(depth_counts(mw_r)[:segs[0]["bounces"]]),
-                                 MAIN_W * MAIN_H, SEGMENT_RAY_BYTES)
+        seg_bound = segment_bound(
+            {}, mw_r._tables, sum(depth_counts(mw_r)[:segs[0]["bounces"]]),
+            MAIN_W * MAIN_H)
         for _ in range(WARMUP):
             mw_r.progressive_render()
         torch.cuda.synchronize()
@@ -2033,6 +2154,7 @@ def main(argv=None) -> int:
                                  f"frames, {segment.launches} segment launches")
         phase("mesh-main-path", check_film(mf_film, mf_r._tables.sky,
                                            "mesh_fused", args.png_dir))
+        probe_check(mf_r, "mesh")  # 23. the probes on the level-5 mesh
         del mf_r, mf_film
 
         # 8. paths A and B: NEE, kernel vs plain at 1920x1080, then timed
@@ -2044,6 +2166,8 @@ def main(argv=None) -> int:
             nee_recs[preset] = kernel_vs_plain(r, f"path {tag}: {preset} nee")
             paths[tag] = timed_path(r, film, f"path_{tag}_{preset}_nee",
                                     args.png_dir)
+            if tag == "B":  # 23. the probes with NEE's shadow walks
+                probe_check(r, "headline nee (path B)")
             del r, film
 
         # 9. Russian roulette, kernel vs plain at 1920x1080 (NEE off)
@@ -2083,6 +2207,7 @@ def main(argv=None) -> int:
         d_r, _ = mesh_renderer("fused", ply, CMP_W, CMP_H,
                                max_depth=MAIN_DEPTH, jitter=True, nee=True)
         mesh_nee = kernel_vs_plain(d_r, "path D: mesh nee")
+        probe_check(d_r, "mesh nee (path D)")  # 23.
         del d_r
         dw_r, _ = mesh_renderer("wavefront_fused", ply, CMP_W, CMP_H,
                                 max_depth=MAIN_DEPTH, jitter=True, nee=True)
@@ -2120,6 +2245,13 @@ def main(argv=None) -> int:
     stream = stream_phases(args.png_dir, range(7, args.big_level + 1),
                            args.stream_sweep)
 
+    # 24. depth_sort on the headline
+    ds_rec = depth_sort_phase()
+
+    # 25. the float32 peak micro and the read rate; every trace bound at
+    # the measured peaks
+    mic = micro_phase(smi)
+
     print(smi)
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
@@ -2127,10 +2259,35 @@ def main(argv=None) -> int:
     trace_recs = list(nee_recs.values()) + [rr_rec] \
         + [x["trace"] for x in inst_cmp]
     seg_recs = segs + segs_c + [mesh_nee_seg] + [x["segment"] for x in inst_cmp]
-    bound_note = ("bound_ms: max(bytes / 3.35 TB/s, operations / 67 "
-                  "TFLOP/s) for the launch of ms, its walk term counting "
-                  "the shallowest root-to-leaf path per ray segment (a "
-                  "lower bound until collect_stats counts the real visits)")
+    bound_note = ("bound_ms for the launch of ms: max(bytes / the measured "
+                  "read rate, slab operations at the measured slab-mix "
+                  "rate + the other operations at the measured fma-mix "
+                  "rate), its walk term the shallowest root-to-leaf path "
+                  "per ray segment (the JAX segment kernel has no counters "
+                  "to hold a count to); datasheet_bound_ms the same work at "
+                  "3.35 TB/s and 33.5e12 instructions/s (67 TFLOP/s, a "
+                  "multiply-add counted once)")
+    counted_note = ("bound_ms: the counted-visit bound (benchmarks/"
+                    "roofline.py counted_bound) of the launch of ms: max("
+                    "bytes / the measured read rate, the probe kernel's "
+                    "counted nodes and every instance box per alive bounce "
+                    "x SLAB_OPS at the measured slab-mix rate + counted "
+                    "primitives x the cheapest live primitive test, alive "
+                    "bounces x (SHADE_OPS + the tiny kinds' tests) and the "
+                    "extensions' work at the measured fma-mix rate, one "
+                    "instruction per operation); datasheet_bound_ms the "
+                    "same work at 3.35 TB/s and 33.5e12 instructions/s "
+                    "(67 TFLOP/s, a multiply-add counted once); the "
+                    "walk-shape bound beside it")
+    tb = trace_bound["counted"]
+    head = PROBES["headline"]
+    n_main = MAIN_W * MAIN_H
+    probe_bound = bound_from(tb["slab_ops"], tb["other_ops"],
+                             tb["bytes"] + n_main * (4 + 16), mic["peaks"])
+    from parallelraytracing_tpu_torch.benchmarks.micro import (LOOPS,
+                                                               N_ELEMS,
+                                                               flops)
+    from parallelraytracing_tpu_torch.benchmarks.roofline import PEAK_FLOPS
     inst_paths = inst.pop("paths")
     print(json.dumps({"kernels": [
         {"name": "trace", "route": "cuda", "source": SOURCE,
@@ -2138,9 +2295,9 @@ def main(argv=None) -> int:
          "max_abs_err": max([max_abs_err, mesh_main_err]
                             + [x["max_abs_err"] for x in trace_recs]),
          "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": trace_bound["bound_ms"],
-         "bound_by": trace_bound["bound_by"], "library_ms": None,
-         "bound": {**trace_bound, "note": bound_note},
+         "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
+         "library_ms": None,
+         "bound": {**trace_bound, "note": counted_note},
          "size": f"ms, plain_ms, launches: random_balls_large {MAIN_W}x"
                  f"{MAIN_H} depth {MAIN_DEPTH} without NEE, one frame "
                  f"(launches over its {TIMED} timed frames); max_abs_err over "
@@ -2153,7 +2310,13 @@ def main(argv=None) -> int:
          "nee": nee_recs, "rr": rr_rec, "nee_unbiased": unbiased,
          "paths": {k: paths[k] for k in "AB"},
          "instances": {**inst, "paths": {k: v for k, v in inst_paths.items()
-                                         if "_fused" in k and "wavefront" not in k}}},
+                                         if "_fused" in k and "wavefront" not in k}},
+         "probe": {"launches": ds_rec["launches"]["probe"],
+                   "scenes": {k: {kk: vv for kk, vv in v.items()
+                                  if kk != "summary"}
+                              for k, v in PROBES.items()},
+                   "trace_stats": {k: v["summary"] for k, v in PROBES.items()},
+                   "depth_sort": ds_rec}},
         {"name": "segment", "route": "cuda", "source": SEG_SOURCE,
          "replaces": SEG_REPLACES, "launches": seg_launches,
          "max_abs_err": max([seg_err] + [x["max_abs_err"] for x in seg_recs]),
@@ -2173,7 +2336,42 @@ def main(argv=None) -> int:
                                  if "wavefront" in k}}},
         ext_kernel_record("trace", ext), ext_kernel_record("segment", ext),
         stream_kernel_record("trace", stream),
-        stream_kernel_record("segment", stream)]}))
+        stream_kernel_record("segment", stream),
+        {"name": "trace[probe]", "route": "cuda", "source": PROBE_SOURCE,
+         "replaces": REPLACES, "launches": ds_rec["launches"]["probe"],
+         "max_abs_err": max(max(v["max_abs_err"], v["plain_max_abs_err"])
+                            for v in PROBES.values()),
+         "ms": head["ms"], "plain_ms": head["plain_ms"],
+         "bound_ms": probe_bound["bound_ms"],
+         "bound_by": probe_bound["bound_by"], "library_ms": None,
+         "cmp_ms": head["cmp_ms"], "trace_ms": head["trace_ms"],
+         "bound": {**probe_bound, "note": counted_note + "; plus the depth "
+                   "and counters written, 20 bytes a ray"},
+         "size": f"the probe kernel (depth_out and collect_stats): ms on the "
+                 f"headline frame 0 ({MAIN_W}x{MAIN_H} depth {MAIN_DEPTH}) "
+                 f"beside the trace kernel's trace_ms; launches: the probe "
+                 f"frames of phase 24's depth_sort run; plain_ms on "
+                 f"{PROBE_RAYS} sampled rays of it (the plain trace and the "
+                 f"walk replay), cmp_ms the kernel on them; max_abs_err: the "
+                 f"radiance against the trace kernel's and the plain "
+                 f"version's over every scene of phase 23, whose depths and "
+                 f"counters are held equal; library_ms null: no single "
+                 f"PyTorch call computes it"},
+        {"name": "fp32_peak", "route": "cuda", "source": MICRO_SOURCE,
+         "replaces": MICRO_REPLACES, "launches": mic["launches"],
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in mic["vs_plain"].values()),
+         "ms": mic["rates"]["fma"]["ms"],
+         "plain_ms": mic["vs_plain"]["fma"]["plain_ms"],
+         "bound_ms": flops("fma", LOOPS, N_ELEMS) / PEAK_FLOPS * 1e3,
+         "bound_by": "operations", "library_ms": None,
+         "rates": mic["rates"], "read_bytes_per_s": mic["read_bytes_per_s"],
+         "sass": mic["sass"], "vs_plain": mic["vs_plain"],
+         "size": f"the fma mix, {N_ELEMS} elements x {LOOPS} iterations "
+                 f"(ms, plain_ms); bound_ms its operations at the data "
+                 f"sheet's 67 TFLOP/s, a multiply-add as 2; launches over "
+                 f"phase 25's timed runs (both mixes, warm-up included); "
+                 f"library_ms null: no PyTorch call computes it"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -85,6 +85,31 @@ def subdivide(mesh: Mesh, levels: int = 1) -> Mesh:
                 texcoords=None if t is None else t.astype(np.float32))
 
 
+_PHI = (1.0 + 5.0 ** 0.5) / 2.0
+#: the regular icosahedron: 12 closed-form vertices (0, +-1, +-phi) and
+#: cyclic permutations, 20 faces wound counter-clockwise seen from outside
+ICO_V = ((-1, _PHI, 0), (1, _PHI, 0), (-1, -_PHI, 0), (1, -_PHI, 0),
+         (0, -1, _PHI), (0, 1, _PHI), (0, -1, -_PHI), (0, 1, -_PHI),
+         (_PHI, 0, -1), (_PHI, 0, 1), (-_PHI, 0, -1), (-_PHI, 0, 1))
+ICO_F = ((0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+         (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+         (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+         (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1))
+
+
+def icosphere(level: int) -> Mesh:
+    """The icosahedron, vertices on the unit sphere, subdivided `level`
+    times (20 x 4 ** level triangles), with area-weighted vertex normals:
+    the mesh a PLY of its positions and faces loads as (``load_ply``
+    computes the same normals)."""
+    v = np.asarray(ICO_V, np.float64)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    mesh = subdivide(Mesh(v.astype(np.float32),
+                          np.asarray(ICO_F, np.uint32).reshape(-1)), level)
+    mesh.compute_vertex_normals()
+    return mesh
+
+
 def _parse_header(data: bytes, path: str):
     end = data.find(b"end_header")
     if end < 0:

@@ -615,7 +615,12 @@ def ply_showcase_scene(path: str):
 
     Returns (scene, eye, look_at)."""
     from parallelraytracing_tpu_torch.core.mesh import load_ply
-    mesh = load_ply(path)
+    return showcase_scene(load_ply(path))
+
+
+def showcase_scene(mesh):
+    """``ply_showcase_scene`` around a loaded `mesh`; (scene, eye,
+    look_at)."""
     scene = Scene(preset=None)
     mat = scene.add_lambertian((0.75, 0.65, 0.5))
     scene.add_mesh(mesh, mat, ((8, 8, 8), (0, 180, 0), (0, 8, 0)))

@@ -2,8 +2,10 @@
 // sphere, quad and triangle kinds and the instanced meshes, and the
 // shading step after it.  Shared
 // by the fused trace kernel (trace.cu: every bounce of a ray in one
-// launch) and the segment kernel (segment.cu: n bounces over a compacted
-// queue), so the two run the same arithmetic and render the same bits.
+// launch), the segment kernel (segment.cu: n bounces over a compacted
+// queue) and the probe kernel (probe.cu: the trace kernel's loop with each
+// ray's depth and walk counters), so they run the same arithmetic and
+// render the same bits.
 //
 // The counterpart of parallelraytracing_tpu/ops/pallas_trace.py
 // _make_bounce_step: the sphere, quad and triangle closest-hit bodies
@@ -42,6 +44,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // The scene as both kernels read it; ops/_build.py mirrors this layout in
 // ctypes and checks it against prt_scene_size() at load.  n_tri is 0 when
@@ -138,6 +142,7 @@ struct Ray {
 // without those fields.
 struct HitBase {
   static constexpr bool kAnyHit = false;
+  static constexpr bool kCount = false;
   float t, gx, gy, gz, c0, c1, c2, extra, ord;
   int front, is_sph, mtype;
 };
@@ -159,7 +164,44 @@ struct Hit<true> : HitBase {
 struct Occluder {
   static constexpr bool kAnyHit = true;
   static constexpr bool kUV = false;
+  static constexpr bool kCount = false;
   float t, ord;
+};
+
+// The traversal counters of one ray (the probe kernel, csrc/probe.cu),
+// with the JAX package's rules (pallas_trace.py collect_stats): every
+// column a threaded walk visits is a node (a kind's tree, the stream
+// route's top tree and each mini-tree, an instance's mesh tree), and so
+// are a linear scan's root pretest box and each of its cluster boxes; an
+// entered leaf or linear cluster is a leaf and adds its span (a linear
+// cluster its full cluster size; a top-tree leaf of the stream route adds
+// nothing, its mini-walk counts the slots).  A tiny kind's plain loop and
+// the instances' world-box scan count nothing.
+struct WalkCount {
+  int nodes, leaves, prims;
+  __device__ __forceinline__ void visit(bool entered, int span) {
+    nodes += 1;
+    if (entered) {
+      leaves += 1;
+      prims += span;
+    }
+  }
+  __device__ __forceinline__ void add(const WalkCount& o) {
+    nodes += o.nodes;
+    leaves += o.leaves;
+    prims += o.prims;
+  }
+};
+
+// A carry that also counts its walk (the probe kernel's instantiations):
+// the walks test Carry::kCount at compile time, so the trace and segment
+// kernels' carries compile to the walks they compile to without it.
+template <class Carry>
+struct Counted : Carry {
+  static constexpr bool kCount = true;
+  WalkCount n;
+  __device__ __forceinline__ explicit Counted(const Carry& c)
+      : Carry(c), n{0, 0, 0} {}
 };
 
 template <class Carry>
@@ -461,6 +503,15 @@ __device__ __forceinline__ void itri_test(const PrtScene& S, int k, int j,
   }
 }
 
+// A linear cluster's box test `entered`, counted with the cluster's full
+// size as its span when the carry counts.
+template <class Carry>
+__device__ __forceinline__ bool counted_entry(Carry& h, bool entered,
+                                              int csize) {
+  if constexpr (Carry::kCount) h.n.visit(entered, csize);
+  return entered;
+}
+
 template <int kKind, class Carry>
 __device__ __forceinline__ void test_range(const PrtScene& S, int lo, int hi,
                                            const Ray& r, Carry& h) {
@@ -498,6 +549,9 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
       int miss = (int)ld(cl, 6 * cols + node);
       float lo_f = ld(cl, 7 * cols + node);
       bool leaf = lo_f >= 0.0f;
+      if constexpr (Carry::kCount) {
+        h.n.visit(enter && leaf, leaf ? (int)lo_f & 63 : 0);
+      }
       if (enter && leaf) {
         int enc = (int)lo_f;
         int lo = enc >> 6;
@@ -509,9 +563,10 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
     return;
   }
   int n_cl = (n + csize - 1) / csize;
+  if constexpr (Carry::kCount) h.n.visit(false, 0);  // the root pretest
   if (!slab_hit(cl, cols, n_cl, r, S.t_min, h.t)) return;
   for (int ci = 0; ci < n_cl && !occluded(h); ++ci) {
-    if (slab_hit(cl, cols, ci, r, S.t_min, h.t)) {
+    if (counted_entry(h, slab_hit(cl, cols, ci, r, S.t_min, h.t), csize)) {
       int lo = ci * csize;
       test_range<kKind>(S, lo, min(lo + csize, n), r, h);
     }
@@ -541,6 +596,7 @@ __device__ void fold_stream(const PrtScene& S, const Ray& r, Carry& h) {
     int miss = (int)ld(top, 6 * cols + node);
     float enc_f = ld(top, 7 * cols + node);
     bool leaf = enc_f >= 0.0f;
+    if constexpr (Carry::kCount) h.n.visit(enter && leaf, 0);
     if (enter && leaf) {
       const int c = (int)enc_f >> S.stream_shift;
       const int base = c * S.node_rows;
@@ -551,6 +607,9 @@ __device__ void fold_stream(const PrtScene& S, const Ray& r, Carry& h) {
         int m_miss = (int)ld(mini, 6 * mcols + m);
         float m_enc = ld(mini, 7 * mcols + m);
         bool m_leaf = m_enc >= 0.0f;
+        if constexpr (Carry::kCount) {
+          h.n.visit(m_enter && m_leaf, m_leaf ? (int)m_enc & 63 : 0);
+        }
         if (m_enter && m_leaf) {
           int enc = (int)m_enc;
           int lo = slot0 + (enc >> 6);
@@ -601,6 +660,9 @@ __device__ void fold_instances(const PrtScene& S, const Ray& r, Carry& h) {
       int miss = (int)ld(acc, 6 * na + node);
       float lo_f = ld(acc, 7 * na + node);
       bool leaf = lo_f >= 0.0f;
+      if constexpr (Carry::kCount) {
+        h.n.visit(enter && leaf, leaf ? (int)lo_f & 63 : 0);
+      }
       if (enter && leaf) {
         int enc = (int)lo_f;
         int lo = enc >> 6;
@@ -653,13 +715,15 @@ __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
 // the light table, so it equals the t the closest-hit fold would give the
 // light, and the equal-t tie rule decides coplanar geometry as the
 // closest-hit formulation does.  The shadow walk runs through the
-// instances too (kInst).  Reads the incoming throughput.
-template <int kTri, bool kInst>
+// instances too (kInst).  Reads the incoming throughput.  With kCount the
+// shadow walk's counters are added to *cnt.
+template <int kTri, bool kInst, bool kCount = false>
 __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
                                            float px, float py, float pz,
                                            float nx, float ny, float nz,
                                            float c0, float c1, float c2,
-                                           PathState& s) {
+                                           PathState& s,
+                                           WalkCount* cnt = nullptr) {
   const int nl = S.n_lights;
   const float u_l = uniform01(rng_d, 5u);
   const float u_a = uniform01(rng_d, 6u);
@@ -739,8 +803,10 @@ __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
   Ray r{px, py, pz, wix, wiy, wiz, safe_inv(wix), safe_inv(wiy),
         safe_inv(wiz), py * wiz - pz * wiy, pz * wix - px * wiz,
         px * wiy - py * wix};
-  Occluder oc{sh_t, row(1)};
+  std::conditional_t<kCount, Counted<Occluder>, Occluder> oc{
+      Occluder{sh_t, row(1)}};
   fold_scene<kTri, kInst>(S, r, oc);
+  if constexpr (kCount) cnt->add(oc.n);
   if (occluded(oc)) return;
   const float w_l = cos_s / (kPi * fmaxf(pdf, 1e-12f));
   s.rr = s.rr + s.tr * c0 * w_l * row(15);
@@ -871,17 +937,23 @@ __device__ __forceinline__ void texture_albedo(const PrtScene& S, float px,
 // roulette and the scene extensions, each of which costs every ray
 // registers or spills.  Forced inline, so each kernel's bounce loop
 // compiles as one body.  Textured materials are Lambertian (the Scene
-// builds them so), so an emitter's record is read untextured.
-template <int kTri, bool kNee, bool kRR, bool kInst, bool kExt>
+// builds them so), so an emitter's record is read untextured.  kCount
+// (the probe kernel) adds the bounce's walks, its NEE shadow walk
+// included, to *cnt; without it the walks carry no counters.
+template <int kTri, bool kNee, bool kRR, bool kInst, bool kExt,
+          bool kCount = false>
 __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
-                                      int depth, int alive_in, PathState& s) {
+                                      int depth, int alive_in, PathState& s,
+                                      WalkCount* cnt = nullptr) {
   const float ox = s.ox, oy = s.oy, oz = s.oz;
   const float dx = s.dx, dy = s.dy, dz = s.dz;
   Ray r{ox, oy, oz, dx, dy, dz, safe_inv(dx), safe_inv(dy), safe_inv(dz),
         oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
-  Hit<kExt> h{{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-               (float)(1 << 24), 0, 0, 0}};
+  std::conditional_t<kCount, Counted<Hit<kExt>>, Hit<kExt>> h{
+      Hit<kExt>{{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+                 (float)(1 << 24), 0, 0, 0}}};
   fold_scene<kTri, kInst>(S, r, h);
+  if constexpr (kCount) cnt->add(h.n);
 
   if (!(h.t < kBig)) {  // miss: sky * throughput, the path ends
     float k0 = S.sky[0], k1 = S.sky[1], k2 = S.sky[2];
@@ -923,8 +995,8 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   }
 
   if (kNee && h.mtype == kLambertian) {
-    nee_direct<kTri, kInst>(S, rng_d, px, py, pz, nx, ny, nz, h.c0, h.c1,
-                            h.c2, s);
+    nee_direct<kTri, kInst, kCount>(S, rng_d, px, py, pz, nx, ny, nz, h.c0,
+                                    h.c1, h.c2, s, cnt);
   }
 
   float u1 = uniform01(rng_d, 1u);

@@ -6,8 +6,9 @@
 // bounce itself (closest-hit fold over spheres, quads, triangles and
 // instanced meshes, a big mesh's stream route, textures and the
 // directional sky, shading, NEE and Russian roulette) is bounce.cuh,
-// shared with the segment kernel.  depth_out and collect_stats are
-// refused by the Python wrapper (ops/trace.py) before a launch.
+// shared with the segment kernel.  depth_out and collect_stats run in the
+// probe kernel of their own library (csrc/probe.cu), which leaves this
+// kernel's instantiations as they are.
 //
 // What bounds it on the H100: not FLOPs and not HBM bandwidth.  A ray
 // reads the 7 values of its input once and writes 3; everything else is

@@ -7,17 +7,22 @@ permuted pixel ids, trace them (engines/tables.trace_tables ->
 ops/trace.trace, the CUDA kernel on a card), and accumulate into the film
 in that same Morton order (film_layout), so no per-frame gather is needed.
 
-Left out of the port, on purpose: the TPU's pad of the pixel ids to a tile
-multiple (CUDA has no (rows, 128) tile rule, so the film layout is exactly
-(inv, H*W)), and ``depth_sort``, ``sub_rows`` and the eye-ordered
-front-to-back repack.  Those are pure scheduling on the TPU: every RNG
-stream is keyed on the pixel id, and the closest-hit fold does not depend
-on visit order, so they leave the image bit-identical.
+``depth_sort`` (``PRT_DEPTH_SORT``, as the JAX class reads it) reorders
+the rays by the depth a probe frame measured (ops/trace.py's
+``depth_out``), so that rays which die together run together: pure
+scheduling, since every RNG stream is keyed on the pixel id and the
+closest-hit fold does not depend on visit order, so the film is
+bit-identical for any value.  Left out of the port, on purpose: the TPU's
+pad of the pixel ids to a tile multiple (CUDA has no (rows, 128) tile
+rule, so the film layout is exactly (inv, H*W)), ``sub_rows`` and the
+eye-ordered front-to-back repack, scheduling of the TPU's lockstep tiles
+alike.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -67,6 +72,25 @@ def morton_pixel_perm(width: int, height: int):
 class FusedRenderer(Renderer):
     name = "fused"
 
+    #: depth-sorted rays: a probe frame (frame 0's streams) measures each
+    #: ray's depth and the pixel ids are reordered by it, re-probed when
+    #: the eye moves.  0 off; 1 global (depth major, Morton order minor);
+    #: >= 8 log2 of the Morton block inside which the rays are sorted by
+    #: depth (the blocks keep their order).  The film is the same bits for
+    #: any value.
+    depth_sort: int = int(os.environ.get("PRT_DEPTH_SORT", "0"))
+
+    def set_camera(self, camera) -> None:
+        super().set_camera(camera)
+        if self.depth_sort and hasattr(self, "_ids"):
+            # the depth field follows the camera: re-probe when the eye
+            # moved, and give the film the new layout
+            eye = np.asarray(self._camera.position, np.float64)
+            if not np.array_equal(eye, getattr(self, "_probe_eye", None)):
+                self._depth_reorder()
+                if self._film is not None:
+                    self._film.set_layout(self.film_layout())
+
     def _post_init(self) -> None:
         from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
         cfg = self.config
@@ -75,6 +99,32 @@ class FusedRenderer(Renderer):
         perm, inv = morton_pixel_perm(cfg.width, cfg.height)
         self._ids = torch.from_numpy(perm.copy()).to(self.device)
         self._minv = torch.from_numpy(inv.copy()).to(self.device)
+        if self.depth_sort:
+            self._depth_reorder()
+
+    def _depth_reorder(self) -> None:
+        """Probe frame 0 for each ray's depth (``trace``'s depth_out) and
+        reorder the pixel ids by it, then rebuild the film's inverse
+        layout.  The key is the JAX engine's: ((rank >> depth_sort) << 5)
+        | depth for depth_sort >= 8, else depth * R + rank, depth clipped
+        to [0, 31], rank the id's current position, sorted stably."""
+        from parallelraytracing_tpu_torch.engines.tables import trace_tables
+        cfg = self.config
+        o, d, s0 = self._sample_rays(self._ids, 0, 0)
+        _, depth = trace_tables(self._tables, o, d, self._ids, s0, cfg,
+                                depth_out=True)
+        self._probe_eye = np.asarray(self._camera.position, np.float64).copy()
+        r = int(self._ids.shape[0])
+        rank = torch.arange(r, dtype=torch.int64, device=self.device)
+        ddc = torch.clamp(depth.to(torch.int64), 0, 31)
+        if self.depth_sort >= 8:
+            key = ((rank >> self.depth_sort) << 5) | ddc
+        else:
+            key = ddc * r + rank
+        self._ids = self._ids[torch.argsort(key, stable=True)]
+        self._minv = torch.empty_like(self._minv)
+        self._minv[self._ids.long()] = torch.arange(
+            r, dtype=self._minv.dtype, device=self.device)
 
     def film_layout(self):
         return self._minv, int(self._ids.shape[0])
@@ -82,20 +132,26 @@ class FusedRenderer(Renderer):
     def render_sample_buffer(self, frame_index: int) -> torch.Tensor:
         return self._trace_ids(self._ids, frame_index)
 
+    def _sample_rays(self, ids, frame_index: int, s: int):
+        """(o, d, path seed) of sample s of a frame for the pixel-id vector
+        `ids`.  Under QMC the jitter and lens draws rotate the sample's
+        Halton point under the shared rotation seed; the path seed stays
+        the frame's."""
+        cfg = self.config
+        jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
+        o, d = raygen_ids(self._cam_params, ids, self._pixel_seed(jseed),
+                          cfg.width, cfg.height, cfg.jitter, cfg.lens,
+                          self._qpt(frame_index, s))
+        return o, d, s0
+
     def _trace_ids(self, ids, frame_index: int) -> torch.Tensor:
         """One frame's mean radiance for an explicit pixel-id vector (in
-        that order); a pixel's streams depend only on (pixel, frame).
-        Under QMC the jitter and lens draws rotate the sample's Halton
-        point under the shared rotation seed; the path seed stays the
-        frame's."""
+        that order); a pixel's streams depend only on (pixel, frame)."""
         from parallelraytracing_tpu_torch.engines.tables import trace_tables
         cfg = self.config
         acc = None
         for s in range(cfg.samples_per_frame):
-            jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
-            o, d = raygen_ids(self._cam_params, ids, self._pixel_seed(jseed),
-                              cfg.width, cfg.height, cfg.jitter, cfg.lens,
-                              self._qpt(frame_index, s))
+            o, d, s0 = self._sample_rays(ids, frame_index, s)
             rad = trace_tables(self._tables, o, d, ids, s0, cfg)
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

@@ -160,13 +160,15 @@ def build_scene_tables(scene, device, nee: bool = False):
     return tables, scene_data
 
 
-def trace_tables(t: SceneTables, o, d, pix, seed: int,
-                 cfg: RenderConfig) -> torch.Tensor:
-    """ops.trace.trace with every table and flag taken from `t`."""
+def trace_tables(t: SceneTables, o, d, pix, seed: int, cfg: RenderConfig,
+                 depth_out: bool = False, collect_stats: bool = False):
+    """ops.trace.trace with every table and flag taken from `t`; the
+    probes as ``trace`` returns them."""
     from parallelraytracing_tpu_torch.ops.trace import trace
     return trace(o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
                  t.tri_cl, t.mats, max_depth=cfg.max_depth, t_min=cfg.t_min,
                  t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
                  rr_depth=cfg.russian_roulette_depth, nee=t.nee,
                  lights=t.lights, inst=t.inst, checker=t.checker, itex=t.itex,
-                 itex_tab=t.itex_tab, stream=t.stream)
+                 itex_tab=t.itex_tab, stream=t.stream, depth_out=depth_out,
+                 collect_stats=collect_stats)

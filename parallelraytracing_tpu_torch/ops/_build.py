@@ -76,7 +76,19 @@ SIGNATURES = {
         I, P, SCENE,           # device, stream, scene
         P, P, P, P, I, I,      # pix, in, out, scalars, n_rays, n_bounces
     ]),
+    "probe": ("prt_probe_launch", [
+        I, P, SCENE,           # device, stream, scene
+        P, P, P, P, P, P, I,   # o, d, pix, out, depth, stats, n_rays
+        U, I,                  # seed, max_depth
+    ]),
+    "micro": ("prt_fp32_peak_launch", [
+        I, P,                  # device, stream
+        P, P, I, I, I,         # x, out, n, loops, mix
+    ]),
 }
+
+#: every kernel library, in the order chip_smoke.py's build phase lists them
+LIBRARIES = ("trace", "segment", "probe", "micro")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
@@ -154,18 +166,21 @@ def build(name: str) -> Path:
 @functools.lru_cache(maxsize=None)
 def load(name: str):
     """The launch function of kernel library `name`, built if needed, with
-    its ctypes signature declared.  Raises if the library's
-    ``sizeof(PrtScene)`` differs from the ctypes mirror's: a field added
-    on one side only would otherwise shift every pointer after it."""
+    its ctypes signature declared.  Raises if a library that reads the
+    scene has a ``sizeof(PrtScene)`` other than the ctypes mirror's: a
+    field added on one side only would otherwise shift every pointer after
+    it."""
     fn_name, argtypes = SIGNATURES[name]
     lib = ctypes.CDLL(str(build(name)))
-    lib.prt_scene_size.restype = ctypes.c_int
-    lib.prt_scene_size.argtypes = []
-    size = lib.prt_scene_size()
-    if size != ctypes.sizeof(PrtScene):
-        raise RuntimeError(
-            f"lib{name}: sizeof(PrtScene) is {size} in csrc/bounce.cuh but "
-            f"{ctypes.sizeof(PrtScene)} in the ctypes mirror (ops/_build.py)")
+    if SCENE in argtypes:
+        lib.prt_scene_size.restype = ctypes.c_int
+        lib.prt_scene_size.argtypes = []
+        size = lib.prt_scene_size()
+        if size != ctypes.sizeof(PrtScene):
+            raise RuntimeError(
+                f"lib{name}: sizeof(PrtScene) is {size} in csrc/bounce.cuh "
+                f"but {ctypes.sizeof(PrtScene)} in the ctypes mirror "
+                f"(ops/_build.py)")
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

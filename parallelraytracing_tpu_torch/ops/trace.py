@@ -48,8 +48,22 @@ None: the kernel walks the top tree to a chunk and the chunk's mini-tree
 to its slots (the stream instantiations of csrc/bounce.cuh), while the
 plain version's brute-force fold over every slot column, pad slots never
 hit, gives the dense answer, which holds the two-level walk to missing
-nothing.  Not in this port yet, refused with NotImplementedError:
-``depth_out`` and ``collect_stats``.
+nothing.
+
+The probes, as ``pallas_trace`` has them: ``depth_out`` adds each ray's
+depth, the bounces it entered alive, (R,) float32; ``collect_stats`` adds
+its walk counters [nodes, leaves entered, primitives tested, alive
+bounces], (R, 4) int32, with the rules of ``WalkCount`` in
+csrc/bounce.cuh.  The JAX kernel's counters are (n_tiles, 8) per lockstep
+(rows, 128) tile; SIMT walks one ray per thread and has no tile, so the
+port's are per ray (a tile of identical rays is one ray's walk).  With
+either probe, ``trace`` launches the probe kernel (csrc/probe.cu, counted
+on ``trace.probe_launches``) and returns ``(rad, depth)``, ``(rad,
+stats)`` or ``(rad, depth, stats)``; the radiance is the trace kernel's
+bit for bit.  ``trace_reference`` counts its depth in its own loop and
+its counters by replaying the kernel's walks over the ray states it
+records (ops/walk_stats.py), while its radiance stays the brute-force
+fold.
 """
 
 from __future__ import annotations
@@ -90,18 +104,6 @@ INV_255 = float(np.float32(1.0 / 255.0))
 #: (``texture_table``)
 MTEX_ROWS = 6
 
-_ROADMAP = {
-    "depth_out": "the depth_out probe: ROADMAP Queue 1 item 17",
-    "collect_stats": "collect_stats counters: ROADMAP Queue 1 item 17",
-}
-
-
-def _refuse(**features) -> None:
-    for name, value in features.items():
-        if value:
-            raise NotImplementedError(f"{_ROADMAP[name]} (not ported yet)")
-
-
 def _check_sky(sky) -> tuple:
     """The sky spec as Python numbers: 3 colors, or the 13-tuple of
     ``engines/tables.sky_spec`` whose last entry is the sun's integer
@@ -123,19 +125,21 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
           tri_live: bool, rr_depth: int = 0, nee: bool = False,
           lights=None, inst=None, checker=(), itex=(), itex_tab=None,
           stream=None, depth_out: bool = False,
-          collect_stats: bool = False) -> torch.Tensor:
-    """Trace R rays through up to `max_depth` bounces; (R, 3) radiance.
+          collect_stats: bool = False):
+    """Trace R rays through up to `max_depth` bounces; (R, 3) radiance,
+    with the probes asked for after it (the module's note).
 
     `tri_live` says whether the triangle table holds any hittable column
     (engines/tables.py and convert.py compute it on the host)."""
-    _refuse(depth_out=depth_out, collect_stats=collect_stats)
     if o.device.type == "cpu":
         return trace_reference(o, d, pix, seed, sph, quad, tri, sph_cl,
                                quad_cl, tri_cl, mats, max_depth=max_depth,
                                t_min=t_min, t_max=t_max, sky=sky,
                                tri_live=tri_live, rr_depth=rr_depth, nee=nee,
                                lights=lights, inst=inst, checker=checker,
-                               itex=itex, itex_tab=itex_tab, stream=stream)
+                               itex=itex, itex_tab=itex_tab, stream=stream,
+                               depth_out=depth_out,
+                               collect_stats=collect_stats)
     if o.device.type != "cuda":
         raise ValueError(f"trace runs on cpu or cuda tensors, not {o.device}")
     r = int(o.shape[0])
@@ -150,19 +154,39 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       itex_tab=itex_tab, stream=stream)
 
     from parallelraytracing_tpu_torch.ops import _build
-    launch = _build.load("trace")
     out = torch.empty((r, 3), dtype=torch.float32, device=o.device)
     ptr = torch.Tensor.data_ptr
-    err = launch(*stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d),
-                 ptr(pix), ptr(out), r, int(seed) & rng.MASK32,
-                 int(max_depth))
+    if not (depth_out or collect_stats):
+        err = _build.load("trace")(
+            *stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d),
+            ptr(pix), ptr(out), r, int(seed) & rng.MASK32, int(max_depth))
+        if err != 0:
+            raise RuntimeError(f"trace kernel launch failed: cudaError_t {err}")
+        trace.launches += 1
+        return out
+    depth = torch.empty((r,), dtype=torch.float32, device=o.device)
+    stats = torch.empty((r, 4), dtype=torch.int32, device=o.device)
+    err = _build.load("probe")(
+        *stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d), ptr(pix),
+        ptr(out), ptr(depth), ptr(stats), r, int(seed) & rng.MASK32,
+        int(max_depth))
     if err != 0:
-        raise RuntimeError(f"trace kernel launch failed: cudaError_t {err}")
-    trace.launches += 1
-    return out
+        raise RuntimeError(f"probe kernel launch failed: cudaError_t {err}")
+    trace.probe_launches += 1
+    return _with_probes(out, depth, stats, depth_out, collect_stats)
 
 
 trace.launches = 0
+trace.probe_launches = 0
+
+
+def _with_probes(rad, depth, stats, depth_out: bool, collect_stats: bool):
+    """The trace's result in ``pallas_trace``'s order: rad, (rad, depth),
+    (rad, stats) or (rad, depth, stats)."""
+    if not (depth_out or collect_stats):
+        return rad
+    return ((rad,) + ((depth,) if depth_out else ())
+            + ((stats,) if collect_stats else ()))
 
 
 def stream_of(device) -> tuple:
@@ -588,8 +612,22 @@ def _closest_hit(ox, oy, oz, dx, dy, dz, sph, quad, tri, t_min, t_cap,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def _light_seed(px, py, pz, wx, wy, wz, row, is_sphl, t_min, t_cap):
+    """(t, hit) of B shadow rays against their own light's primitive test
+    (rows 18-27 of its column `row` of the light table): the seed of the
+    kernel's any-hit shadow walk (``nee_direct``'s sh_t, sh_hit)."""
+    ray = (px, py, pz, wx, wy, wz)
+    ts, oks, _ = _sphere_hits(*ray, row[[2, 3, 4, 27]][:, :, None], t_min,
+                              t_cap)
+    tq, okq, _, _, _ = _quad_hits(
+        *ray, row[[12, 13, 14] + list(range(18, 27))][:, :, None], t_min,
+        t_cap)
+    return (torch.where(is_sphl, ts[:, 0], tq[:, 0]),
+            torch.where(is_sphl, oks[:, 0], okq[:, 0]))
+
+
 def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
-                tri, t_min, t_cap, inst=None):
+                tri, t_min, t_cap, inst=None, record=None):
     """Next-event estimation at B shading points (``nee_direct`` of
     csrc/bounce.cuh, pallas_trace.py l.2748-2895): pick a light from salt
     5, sample a direction toward it from salts 6 and 7, and return the
@@ -597,7 +635,10 @@ def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
     0 elsewhere, and the light's emission (3 x (B,)).  Only the `cand`
     points (Lambertian hits) sample.  Visibility is the closest-hit
     formulation: the brute-force closest hit along the shadow ray is the
-    sampled light's ordinal."""
+    sampled light's ordinal.  With a `record` list, the shadow rays the
+    kernel walks (its seed's test passes too) are appended to it as
+    (points, origin xyz, direction xyz, seed t, light ordinal) for
+    ops/walk_stats.py."""
     nl = lights.shape[1]
     u_l = rng.uniform01(rng_d, 5)
     u_a = rng.uniform01(rng_d, 6)
@@ -669,6 +710,12 @@ def _nee_direct(px, py, pz, nx, ny, nz, cand, rng_d, lights, sph, quad,
     pdf_l = torch.where(is_sphl, pdf_s, pdf_q) / float(nl)
     cos_s = wix * nx + wiy * ny + wiz * nz
     cand = cand & (cos_s > 0.0) & torch.where(is_sphl, s_ok, q_ok)
+    if record is not None:
+        sh_t, sh_hit = _light_seed(px, py, pz, wix, wiy, wiz,
+                                   lights[:, li] + 0.0, is_sphl, t_min, t_cap)
+        sel = torch.nonzero(cand & sh_hit)[:, 0]
+        record.append((sel, *(v[sel] for v in (px, py, pz, wix, wiy, wiz,
+                                                sh_t, lord))))
 
     vis = torch.zeros_like(cand)
     idx = torch.nonzero(cand)[:, 0]
@@ -777,7 +824,7 @@ def _texture_albedo(hit, mid, u, v, px, py, pz, is_sph_k, nrx, nry, nrz,
 
 def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
             t_cap, sky, lights=None, rr_depth: int = 0, inst=None,
-            checker=(), itex=(), itex_tab=None):
+            checker=(), itex=(), itex_tab=None, record=None):
     """One bounce of B alive paths at absolute depth `depth`: the new
     state and the (B,) float32 alive values after it (0 ended, 1 goes on,
     2 goes on from a diffuse vertex under NEE).  `alive` holds the values
@@ -785,7 +832,8 @@ def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
     and is not added again).  `tri` is None when the scene has no
     hittable triangle, `lights` None when NEE is off, `inst` None without
     instances.  `sky` is a spec of ``_check_sky``; the textures of
-    `checker` and `itex` apply before emission, NEE and attenuation."""
+    `checker` and `itex` apply before emission, NEE and attenuation.
+    `record` collects the NEE shadow walks (``_nee_direct``)."""
     nee = lights is not None
     ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb = state
     best_t, gx, gy, gz, fr, is_sph, mid, _, u, v = _closest_hit(
@@ -843,7 +891,8 @@ def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
     if nee:  # reads the throughput before the BSDF's attenuation
         w_l, (ler, leg, leb) = _nee_direct(px, py, pz, nx, ny, nz,
                                            hit & is_lam, rng_d, lights, sph,
-                                           quad, tri, t_min, t_cap, inst)
+                                           quad, tri, t_min, t_cap, inst,
+                                           record)
         rr = rr + tr * m_c0 * w_l * ler
         rg = rg + tg * m_c1 * w_l * leg
         rb = rb + tb * m_c2 * w_l * leb
@@ -942,13 +991,15 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
                     nee: bool = False, lights=None, inst=None, checker=(),
                     itex=(), itex_tab=None, stream=None,
                     depth_out: bool = False,
-                    collect_stats: bool = False) -> torch.Tensor:
+                    collect_stats: bool = False):
     """Plain PyTorch version of ``trace`` (same signature and result).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
     its state unchanged, as in the TPU kernel's dead-tile exit.  The
-    stream tables are validated and not walked: the fold tests every slot
-    column."""
-    _refuse(depth_out=depth_out, collect_stats=collect_stats)
+    stream tables are validated and not walked by the radiance's fold,
+    which tests every slot column.  ``depth_out`` counts the bounces each
+    ray enters alive; ``collect_stats`` records every walk the kernel
+    makes (each alive ray's closest-hit walk per bounce, each NEE shadow
+    ray's any-hit walk) and replays them (ops/walk_stats.py)."""
     lights = _light_table(nee, lights)
     sky = _check_sky(sky)
     _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
@@ -966,16 +1017,36 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
                             ^ (int(seed) & rng.MASK32))
     alive = ones.clone()
     idx = torch.arange(r, device=dev)
+    steps = torch.zeros(r, dtype=torch.int32, device=dev)
+    walks = [] if collect_stats else None
     for depth in range(max_depth):
         if idx.numel() == 0:
             break
+        steps[idx] += 1
         rng_d = (rng_base[idx] + depth * rng.DEPTH_STEP) & rng.MASK32
-        new, alive_out = _bounce([s[idx] for s in state], alive[idx], rng_d,
+        shadows = [] if collect_stats and lights is not None else None
+        ray = [s[idx] for s in state]
+        if collect_stats:
+            walks.append((idx, *ray[:6], torch.full_like(ray[0], BIG),
+                          torch.full_like(ray[0], float(1 << 24)), False))
+        new, alive_out = _bounce(ray, alive[idx], rng_d,
                                  depth, sph, quad, tri if tri_live else None,
                                  mats, t_min, t_cap, sky, lights, rr_depth,
-                                 inst, checker, itex, itex_tab)
+                                 inst, checker, itex, itex_tab, shadows)
+        for sel, *shadow in shadows or ():
+            walks.append((idx[sel], *shadow, True))
         for s, v in zip(state, new):
             s[idx] = v
         alive[idx] = alive_out
         idx = idx[alive_out > 0.0]
-    return torch.stack(state[9:12], dim=1)
+    rad = torch.stack(state[9:12], dim=1)
+    stats = None
+    if collect_stats:
+        from parallelraytracing_tpu_torch.ops import walk_stats
+        stats = torch.zeros((r, 4), dtype=torch.int32, device=dev)
+        stats[:, :3] = walk_stats.per_ray(
+            walks, r, sph, quad, tri if tri_live else None, sph_cl, quad_cl,
+            tri_cl, t_min=t_min, t_cap=t_cap, inst=inst, stream=stream)
+        stats[:, 3] = steps
+    return _with_probes(rad, steps.to(torch.float32), stats, depth_out,
+                        collect_stats)

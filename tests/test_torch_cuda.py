@@ -527,3 +527,94 @@ def test_level6_stream_films_equal_dense(cuda, monkeypatch, engine):
     torch.cuda.synchronize()
     assert torch.isfinite(films[0]).all() and films[0].mean() > 0
     assert torch.equal(films[0], films[1])
+
+
+def probe_vs_plain(r, n_rays=256):
+    """The probe kernel on frame 0 of renderer r against the trace kernel
+    (radiance bit for bit) and, on n_rays sampled rays, against the plain
+    version (depths and counters equal); its depths sum to
+    count_frame_rays' segments."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        count_frame_rays
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    o, d, pix, seed = frame_inputs(r, 0)
+    before = trace.probe_launches
+    rad, depth, stats = traced(r, lambda *a, **kw: trace(
+        *a, **kw, depth_out=True, collect_stats=True))(o, d, pix, seed)
+    assert trace.probe_launches == before + 1
+    assert torch.equal(rad, traced(r, trace)(o, d, pix, seed))
+    assert int(depth.double().sum()) == count_frame_rays(
+        r._tables, o, d, pix, seed, r.config)
+    sel = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(
+        0))[:n_rays].to("cuda")
+    _, p_depth, p_stats = traced(r, lambda *a, **kw: trace_reference(
+        *a, **kw, depth_out=True, collect_stats=True))(
+        o[sel].contiguous(), d[sel].contiguous(), pix[sel].contiguous(), seed)
+    assert torch.equal(p_depth, depth[sel])
+    assert torch.equal(p_stats, stats[sel])
+    assert stats[:, 0].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee", [False, True])
+def test_probe_kernel_matches_plain(cuda, nee):
+    """The probe kernel (csrc/probe.cu) on the sphere tree, with and
+    without NEE's shadow walks."""
+    r, _ = preset_renderer("random_balls_large", 320, 180, max_depth=20,
+                           nee=nee)
+    probe_vs_plain(r)
+
+
+@pytest.mark.cuda
+def test_probe_kernel_matches_plain_on_meshes(cuda, mesh_ply, monkeypatch):
+    """The probe kernel's triangle tree (NEE on), instance trees and
+    stream route against the plain replay."""
+    r, _ = mesh_renderer("fused", mesh_ply, 160, 90, max_depth=20, nee=True)
+    probe_vs_plain(r)
+    r, _ = instanced_renderer("fused", 160, 90, nee=True, max_depth=8)
+    probe_vs_plain(r)
+    set_stream(monkeypatch, 64, 32)
+    r, _ = stream_renderer("fused", make_mesh("ico2"), 160, 90, max_depth=8,
+                           nee=True)
+    assert r._tables.stream is not None
+    probe_vs_plain(r)
+
+
+@pytest.mark.cuda
+def test_depth_sort_films_equal_on_card(cuda):
+    """depth_sort 1 and 13 render depth_sort 0's film bit for bit on the
+    card, one probe launch each."""
+    from parallelraytracing_tpu_torch import (Film, RenderConfig, Scene,
+                                              ScenePreset, create_renderer,
+                                              default_camera)
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    films = []
+    for ds in (0, 1, 13):
+        before = trace.probe_launches
+        film = Film(160, 90, "cuda")
+        r = create_renderer("fused", "cuda")
+        r.depth_sort = ds
+        r.init(film, Scene(ScenePreset.RANDOM_BALLS_LARGE),
+               default_camera(160, 90),
+               RenderConfig(width=160, height=90, max_depth=20))
+        assert trace.probe_launches == before + (ds > 0)
+        for _ in range(2):
+            r.progressive_render()
+        films.append(film.hdr_average())
+    assert torch.equal(films[0], films[1]) and torch.equal(films[0], films[2])
+
+
+@pytest.mark.cuda
+def test_fp32_peak_matches_plain(cuda):
+    """The micro kernel (csrc/micro.cu) against its plain version: within
+    1e-6 relative (its fmaf rounds once where the plain version rounds
+    through float64), a measured rate on the card, and twice the loops
+    taking twice the time (1.8-2.2x), so the kernel runs every iteration
+    it is given."""
+    from parallelraytracing_tpu_torch.benchmarks import micro
+    errs = micro.check_plain("cuda", 64, 4096)
+    assert max(errs.values()) <= 1e-6, errs
+    sec, ops = micro.fp32_peak("fma", loops=256, n=132 * 2048)
+    assert sec > 0 and ops == 132 * 2048 * 256 * 16
+    for mix in micro.MIXES:
+        assert 1.8 <= micro.loop_ratio(mix) <= 2.2, mix

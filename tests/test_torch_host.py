@@ -86,8 +86,8 @@ def test_morton_pixel_perm_equals_jax(size):
 def test_extension_presets_raise(preset):
     """The extension presets build and pack (their textures and sky run in
     the kernels; tests/test_torch_textures.py holds them to the JAX
-    package); what stays refused on their tables raises, naming its ROADMAP
-    item: the depth_out probe and collect_stats."""
+    package), and the trace's probes run on their tables: depth_out's
+    (R,) float32 depths and collect_stats' (R, 4) int32 counters."""
     from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
     from parallelraytracing_tpu_torch.ops.trace import trace
     t, _ = build_scene_tables(T.Scene(T.ScenePreset(preset)), "cpu")
@@ -101,9 +101,12 @@ def test_extension_presets_raise(preset):
               tri_live=t.tri_live, checker=t.checker, itex=t.itex,
               itex_tab=t.itex_tab)
     assert trace(*args, **kw).shape == (2, 3)
-    for extra in (dict(depth_out=True), dict(collect_stats=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trace(*args, **kw, **extra)
+    for extra, shape, dtype in ((dict(depth_out=True), (2,), torch.float32),
+                                (dict(collect_stats=True), (2, 4),
+                                 torch.int32)):
+        rad, probe = trace(*args, **kw, **extra)
+        assert rad.shape == (2, 3) and probe.shape == shape
+        assert probe.dtype == dtype
 
 
 def test_import_leaves_jax_out():
@@ -114,7 +117,11 @@ def test_import_leaves_jax_out():
             "parallelraytracing_tpu_torch.ops.segment, "
             "parallelraytracing_tpu_torch.engines.wavefront_fused, "
             "parallelraytracing_tpu_torch.core.mesh, "
-            "parallelraytracing_tpu_torch.ops._build; "
+            "parallelraytracing_tpu_torch.ops._build, "
+            "parallelraytracing_tpu_torch.ops.walk_stats, "
+            "parallelraytracing_tpu_torch.benchmarks.micro, "
+            "parallelraytracing_tpu_torch.benchmarks.trace_stats, "
+            "parallelraytracing_tpu_torch.benchmarks.roofline; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'parallelraytracing_tpu'"
             " or m.startswith('parallelraytracing_tpu.')]; "
@@ -133,3 +140,17 @@ def test_kernel_cache_key_covers_included_headers():
         assert names == [f"{name}.cu", "bounce.cuh"], names
         assert name in _build.SIGNATURES
     assert _build.library_path("trace") != _build.library_path("segment")
+
+
+def test_probe_and_micro_libraries():
+    """The probe kernel builds from its own source and the shared bounce
+    (so the trace library keeps its instantiations), the micro from its
+    source alone; chip_smoke.py's build phase builds all four."""
+    from parallelraytracing_tpu_torch.ops import _build
+    assert [p.name for p in _build.sources("probe")] == ["probe.cu",
+                                                          "bounce.cuh"]
+    assert [p.name for p in _build.sources("micro")] == ["micro.cu"]
+    assert _build.LIBRARIES == ("trace", "segment", "probe", "micro")
+    assert set(_build.SIGNATURES) == set(_build.LIBRARIES)
+    assert _build.SCENE in _build.SIGNATURES["probe"][1]
+    assert _build.SCENE not in _build.SIGNATURES["micro"][1]

@@ -342,7 +342,7 @@ def test_remaining_refusals_raise():
     checker on an instanced scene; what stays refused raises: the ordered
     instance trees (NotImplementedError), an itri of another row count
     and image textures on instance tables without texture coordinates
-    (ValueError), and the depth_out probe."""
+    (ValueError); the depth_out probe runs."""
     scene = make_scene("tlas", T.Scene)
     with pytest.raises(NotImplementedError, match="item 13"):
         pack_instance_tables(scene._inst_meshes, scene.instances, 3.0,
@@ -370,5 +370,6 @@ def test_remaining_refusals_raise():
         with pytest.raises(ValueError, match="texture coordinates"):
             fn(o, d, pix, 1, *args, **kw, itex=((0.0, 0, 4, 4),),
                itex_tab=torch.zeros((1, 128)))
-        with pytest.raises(NotImplementedError):
-            fn(o, d, pix, 1, *args, **kw, depth_out=True)
+        rad, depth = fn(o, d, pix, 1, *args, **kw, depth_out=True)
+        assert rad.shape == (4, 3) and depth.shape == (4,)
+        assert depth.dtype == torch.float32

@@ -88,9 +88,12 @@ def test_features_outside_the_slice_raise():
         for extra in (dict(checker=((1.0, 0.5, 0.1, 0.2, 0.3),)),
                       dict(sky=sun_sky)):
             assert fn(*args, **{**kw, **extra}).shape == (4, 3)
-        for extra in (dict(depth_out=True), dict(collect_stats=True)):
-            with pytest.raises(NotImplementedError):
-                fn(*args, **{**kw, **extra})
+        # and so do the probes, in pallas_trace's order
+        rad, depth, stats = fn(*args, **kw, depth_out=True,
+                               collect_stats=True)
+        assert rad.shape == (4, 3) and depth.shape == (4,)
+        assert depth.dtype == torch.float32 and stats.dtype == torch.int32
+        assert stats.shape == (4, 4)
         # malformed specs: an image texture without its texel rows, a sky
         # of neither 3 nor 13 values
         for extra in (dict(itex=((1.0, 0, 4, 4),)), dict(sky=(0.1,) * 5)):

@@ -14,15 +14,7 @@ textured scenes give a mesh equirectangular texture coordinates
 import numpy as np
 
 from parallelraytracing_tpu_torch.core import mesh as tmesh
-
-PHI = (1.0 + 5.0 ** 0.5) / 2.0
-ICO_V = ((-1, PHI, 0), (1, PHI, 0), (-1, -PHI, 0), (1, -PHI, 0),
-         (0, -1, PHI), (0, 1, PHI), (0, -1, -PHI), (0, 1, -PHI),
-         (PHI, 0, -1), (PHI, 0, 1), (-PHI, 0, -1), (-PHI, 0, 1))
-ICO_F = ((0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
-         (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
-         (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
-         (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1))
+from parallelraytracing_tpu_torch.core.mesh import ICO_F, ICO_V  # noqa: F401
 OCTA_V = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
 OCTA_F = ((0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4),
           (2, 0, 5), (1, 2, 5), (3, 1, 5), (0, 3, 5))
