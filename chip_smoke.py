@@ -35,11 +35,14 @@ non-zero):
 
 1. probe: the card, its power limit, the torch and CUDA versions;
 2. build: the trace, segment, probe and micro kernels from csrc/ with
-   nvcc (sm_90a), one nvcc each, started together; ptxas registers and
-   spill stores of each of the 48 instantiations of the first three
-   (without triangles, with the dense triangle fold or the stream route's
-   walk, with and without NEE, roulette, instances, the scene
-   extensions) and of the micro's two mixes;
+   nvcc (sm_90a), one nvcc each, started together; ptxas registers,
+   stack frame, spill stores and shared memory of each of the 48
+   instantiations of the first three (without triangles, with the dense
+   triangle fold or the stream route's walk, with and without NEE,
+   roulette, instances, the scene extensions) and of the micro's two
+   mixes; then each trace instantiation's persistent launch (its grid,
+   block, resident blocks per SM, registers and local memory as the
+   runtime reports them);
 3. kernel vs plain PyTorch version on the card: at 320x180 on
    RANDOM_BALLS_LARGE and MATERIAL_TEST, depth 1 without jitter (winning
    radiance per ray within 1e-5 on >= 99.9% of rays) and depth 20 with
@@ -173,7 +176,15 @@ non-zero):
     taking twice the time (1.8-2.2x), its two mixes timed (T ops/s,
     TFLOP/s), the read rate of a 4 GiB tensor, the SASS instruction
     counts; then every counted-visit trace bound and every segment bound
-    of the run at these measured peaks, beside the data sheet's.
+    of the run at these measured peaks, beside the data sheet's;
+26. (run after phase 23's headline probes) the persistent trace kernel's
+    path regeneration: on the headline and CORNELL --nee at 1920x1080,
+    depth 1 and 20, for 0, 1, 31, 33, 4101 rays and the persistent
+    grid's threads + 1, the trace kernel's radiance equals the probe
+    kernel's (one thread per ray, the loop the trace kernel had) bit for
+    bit, and two launches give the same bits; the headline's trace
+    kernel timed on frames 0 and 7, and the records' cost when a caller
+    passes only column tables (the wrapper makes them at each call).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
@@ -184,7 +195,11 @@ the instanced ones), of each kernel's scene-extension
 instantiations ("trace[ext]", "segment[ext]": T1-T3) and of its stream
 instantiations ("trace[stream]", "segment[stream]": phases 20-22), of
 the probe kernel ("trace[probe]": phases 23-24) and of the micro
-("fp32_peak": phase 25); the last line is
+("fp32_peak": phase 25); each trace entry names the launch of its
+scene's instantiation ("launch": grid, block, registers, local and
+shared memory, whether tables were staged in shared memory), and the
+trace entry lists all 48 ("instantiations") and phase 26's cases
+("regeneration"); the last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -295,7 +310,8 @@ def trace_kw(tables, cfg) -> dict:
                 sky=tables.sky, tri_live=tables.tri_live, nee=tables.nee,
                 lights=tables.lights, rr_depth=cfg.russian_roulette_depth,
                 inst=tables.inst, checker=tables.checker, itex=tables.itex,
-                itex_tab=tables.itex_tab, stream=tables.stream)
+                itex_tab=tables.itex_tab, stream=tables.stream,
+                records=tables.records)
 
 
 def both_traces(tables, cfg, o, d, pix, seed):
@@ -451,35 +467,74 @@ def check_film(film, sky, tag: str, png_dir) -> str:
             f"{sky_share:.4f}; PNG {size} bytes")
 
 
-def ptxas_summary(lib: str, log: Path) -> str:
-    """Registers and spill stores of each kernel instantiation in an nvcc
-    build log (-Xptxas -v): "tri" with the dense triangle fold,
-    "tri-stream" with the stream route's two-level walk, "sq" without
-    triangles, "+nee" with the NEE block, "+rr" with Russian roulette,
-    "+inst" with the instance block, "+ext" with the scene extensions
-    (textures and the directional sky)."""
+def ptxas_table(lib: str, log: Path) -> list:
+    """Each kernel instantiation of an nvcc build log (-Xptxas -v): its
+    tag ("tri" with the dense triangle fold, "tri-stream" with the stream
+    route's two-level walk, "sq" without triangles, "+nee" with the NEE
+    block, "+rr" with Russian roulette, "+inst" with the instance block,
+    "+ext" with the scene extensions), its kernel_variant index (None for
+    the micro), registers, stack frame, spill stores and static shared
+    memory (bytes)."""
     if not log.exists():  # built by an earlier run, whose log is gone
-        return ""
-    out, tag, spill = [], lib, ""
+        return []
+    out, cur, props = [], None, None
     for ln in log.read_text().splitlines():
         m = re.search(r"ILi([012])ELb([01])ELb([01])ELb([01])ELb([01])E", ln)
         mix = re.search(r"fp32_peak_kernelILi([01])E", ln)
-        if "Compiling entry function" in ln and mix:
-            tag = f"{lib}[{('fma', 'slab')[int(mix.group(1))]}]"
-            spill = ""
-        elif "Compiling entry function" in ln and m:
-            tag = (f"{lib}[{('sq', 'tri', 'tri-stream')[int(m.group(1))]}"
-                   f"{'+nee' if m.group(2) == '1' else ''}"
-                   f"{'+rr' if m.group(3) == '1' else ''}"
-                   f"{'+inst' if m.group(4) == '1' else ''}"
-                   f"{'+ext' if m.group(5) == '1' else ''}]")
-            spill = ""
-        elif "spill stores" in ln and not spill:
-            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
-        elif "registers" in ln:
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append(f"{tag} {regs} registers, {spill} B spill stores")
-    return "; ".join(out)
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if "Function properties for" in ln:
+            props = ln.split("Function properties for")[1].strip()
+        elif entry and (m or mix):
+            cur = dict(name=entry.group(1))
+            if mix:
+                cur.update(tag=f"{lib}[{('fma', 'slab')[int(mix.group(1))]}]",
+                           variant=None)
+            else:
+                tri, nee, rr, inst, ext = (int(g) for g in m.groups())
+                cur.update(
+                    tag=(f"{lib}[{('sq', 'tri', 'tri-stream')[tri]}"
+                         f"{'+nee' if nee else ''}{'+rr' if rr else ''}"
+                         f"{'+inst' if inst else ''}"
+                         f"{'+ext' if ext else ''}]"),
+                    variant=(32 + ext * 8 + inst * 4 + nee * 2 + rr
+                             if tri == 2 else ext * 16 + inst * 8 + tri * 4
+                             + nee * 2 + rr))
+        elif cur is not None and "stack frame" in ln \
+                and props == cur["name"]:
+            f = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                          ln)
+            cur.update(stack=int(f.group(1)), spill_stores=int(f.group(2)))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+            del cur["name"]
+            out.append(cur)
+            cur = None
+    return out
+
+
+def ptxas_summary(lib: str, log: Path) -> str:
+    """ptxas_table's instantiations as one line: registers, stack frame,
+    spill stores and shared memory of each."""
+    return "; ".join(f"{x['tag']} {x['registers']} registers, "
+                     f"{x.get('stack', 0)} B stack, {x.get('spill_stores', 0)} "
+                     f"B spill stores, {x['smem']} B smem"
+                     for x in ptxas_table(lib, log))
+
+
+def trace_instantiations() -> list:
+    """Each trace instantiation's ptxas record (ptxas_table) with the
+    persistent launch the runtime gives it (ops/trace.trace_config: grid,
+    threads a block, resident blocks per SM, registers, local and shared
+    memory); no trace instantiation stages tables in shared memory."""
+    from parallelraytracing_tpu_torch.ops import _build
+    from parallelraytracing_tpu_torch.ops.trace import trace_config
+    table = {x["variant"]: x for x in ptxas_table(
+        "trace", _build.library_path("trace").with_suffix(".log"))}
+    return [{**table.get(v, {"variant": v}), **trace_config("cuda", v),
+             "staged": False} for v in range(48)]
 
 
 def timed_ms(fn):
@@ -681,14 +736,19 @@ def trace_bounds(r, inputs, segments: int, ext_ops: float = 0.0,
     """The bounds of one trace launch of renderer r on `inputs`: the walk
     shape's (``kernel_bound``: `segments` ray segments, the data sheet's
     peaks) and, under "counted", the counted visits' (the probe kernel's
-    counters of the same launch; phase 25 adds the measured peaks)."""
+    counters of the same launch; phase 25 adds the measured peaks); and
+    under "launch" the instantiation it runs and its persistent launch
+    (engines/tables.trace_launch)."""
+    from parallelraytracing_tpu_torch.engines.tables import trace_launch
     n = int(inputs[0].shape[0])
     counted = counted_bound(r._tables, probe_counts(r, inputs), n,
                             TRACE_RAY_BYTES, ext_ops)
     counted["tag"] = tag
     COUNTED.append(counted)
     return dict(**kernel_bound(r._tables, segments, n, TRACE_RAY_BYTES,
-                               ext_ops), counted=counted)
+                               ext_ops), counted=counted,
+                launch=dict(trace_launch(r._tables, r.config),
+                            staged=False))
 
 
 #: every segment bound of the run (walk-shape operations, the data
@@ -769,6 +829,74 @@ def probe_check(r, tag: str) -> dict:
         raise AssertionError(f"{tag}: the probe kernel disagrees")
     PROBES[tag] = rec
     return rec
+
+
+#: phase 26: the ray counts of the persistent trace kernel's edge cases
+#: (none, one, under a warp, a warp and two more, a ragged count of
+#: blocks); the phase adds the persistent grid's threads + 1
+REGEN_RAYS = (0, 1, 31, 33, 4101)
+
+
+def regeneration_phase(head) -> dict:
+    """Phase 26: the persistent trace kernel regenerates paths without
+    changing a bit.  On the headline and CORNELL --nee at MAIN_W x MAIN_H,
+    depth 1 and MAIN_DEPTH, for each ray count of REGEN_RAYS and the
+    persistent grid's threads + 1 (a prefix of frame 0's rays), the trace
+    kernel's radiance equals the probe kernel's (one thread per ray)
+    bit for bit and a second launch gives the same bits.  Then the
+    headline renderer `head`'s trace kernel on frames 0 and 7 (mean of 5
+    launches each), and the same frame-0 launch with only the column
+    tables passed, the wrapper making the records at each call, beside
+    ``scene_records`` alone.  Raises on a miss; returns the record."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.tables import (trace_launch,
+                                                             with_records)
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    cases = []
+    for preset, nee in (("random_balls_large", False), ("cornell", True)):
+        for depth in (1, MAIN_DEPTH):
+            r, _ = make_renderer(preset, MAIN_W, MAIN_H, max_depth=depth,
+                                 nee=nee, jitter=True)
+            launch = trace_launch(r._tables, r.config)
+            o, d, pix, seed = frame_inputs(r, 0)
+            full = launch["grid"] * launch["threads"] + 1
+            kern = traced_on(r, trace)
+            probe = traced_on(r, functools.partial(trace, depth_out=True))
+            for n in REGEN_RAYS + (full,):
+                args = (o[:n].contiguous(), d[:n].contiguous(),
+                        pix[:n].contiguous(), seed)
+                k1, k2, pk = kern(*args), kern(*args), probe(*args)[0]
+                torch.cuda.synchronize()
+                cases.append(dict(
+                    scene=preset, nee=nee, depth=depth, rays=n,
+                    probe_equal=bool(torch.equal(k1, pk)),
+                    repeat_equal=bool(torch.equal(k1, k2)),
+                    finite=bool(torch.isfinite(k1).all())))
+            del o, d, pix, r
+    bad = [c for c in cases if not (c["probe_equal"] and c["repeat_equal"]
+                                    and c["finite"])]
+    phase("regeneration", f"headline and cornell --nee {MAIN_W}x{MAIN_H} "
+          f"depth 1 and {MAIN_DEPTH}, rays {REGEN_RAYS} and the persistent "
+          f"grid's threads + 1: {len(cases) - len(bad)} of {len(cases)} "
+          f"cases bit-equal to the probe kernel and to a second launch")
+    if bad:
+        raise AssertionError(f"regeneration: {bad}")
+    t = head._tables
+    frames = {}
+    for f in (0, 7):
+        inputs = frame_inputs(head, f)
+        frames[f] = cuda_ms(lambda: traced_on(head, trace)(*inputs), 5)
+    inputs = frame_inputs(head, 0)
+    cols_only = dict(trace_kw(t, head.config), records=None)
+    args = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
+    cols_ms = cuda_ms(lambda: trace(*inputs, *args, **cols_only), 5)
+    pack_ms = cuda_ms(lambda: with_records(t), 5)
+    phase("regeneration", f"headline trace kernel frame 0 {frames[0]:.3f} "
+          f"ms, frame 7 {frames[7]:.3f} ms; frame 0 with only the column "
+          f"tables passed (records made per call) {cols_ms:.3f} ms, "
+          f"scene_records alone {pack_ms:.3f} ms")
+    return dict(cases=cases, frame0_ms=frames[0], frame7_ms=frames[7],
+                columns_only_ms=cols_ms, scene_records_ms=pack_ms)
 
 
 #: phase 24: the depth_sort values driven on the headline
@@ -1274,6 +1402,7 @@ def ext_kernel_record(kernel: str, ext: dict) -> dict:
                 f"NEE, QMC + thin lens), T2 and T3 at {CMP_W}x{CMP_H}; "
                 f"library_ms null: no single PyTorch call computes it",
         "cmp_ms": t1["ms"], "bound": timed, "vs_plain": cmp,
+        **({"launch": timed["launch"]} if kernel == "trace" else {}),
         "engines_agree": ext["engines_agree"],
         "paths": {k: v for k, v in ext["paths"].items()
                   if ("wavefront" in k) == (kernel == "segment")}}
@@ -1911,6 +2040,7 @@ def stream_kernel_record(kernel: str, st: dict) -> dict:
                 f"(levels 6-8, with and without NEE); library_ms null: no "
                 f"single PyTorch call computes it",
         "cmp_ms": cmp_ms, "bound": timed,
+        **({"launch": timed["launch"]} if kernel == "trace" else {}),
         "levels": {k: {kk: vv for kk, vv in v.items() if kk != "paths"}
                    for k, v in st.items() if k.startswith("level")},
         "level6": {k: v for k, v in st.items()
@@ -1962,6 +2092,12 @@ def main(argv=None) -> int:
     phase("build", f"{' + '.join(f'{lib}.cu' for lib in _build.LIBRARIES)} "
                    f"in {build_s:.2f} s; ptxas: "
                    f"{' | '.join(x for x in ptxas if x)}")
+    insts = trace_instantiations()
+    phase("build", "trace persistent launches (grid x threads, blocks/SM, "
+          "registers, local bytes): " + "; ".join(
+              f"{x.get('tag', x['variant'])} {x['grid']}x{x['threads']}, "
+              f"{x['blocks_per_sm']}/SM, {x['registers']} reg, "
+              f"{x['local_bytes']} B" for x in insts))
 
     # 3. kernel vs plain
     for preset in ("random_balls_large", "material_test"):
@@ -1987,7 +2123,8 @@ def main(argv=None) -> int:
               main_r._tables.mats)
     kw = dict(max_depth=MAIN_DEPTH, t_min=main_r.config.t_min,
               t_max=main_r.config.t_max, sky=main_r._tables.sky,
-              tri_live=main_r._tables.tri_live)
+              tri_live=main_r._tables.tri_live,
+              records=main_r._tables.records)
     kernel_ms = cuda_ms(lambda: trace(*args_t, **kw), 5)
     plain_ms = cuda_ms(lambda: trace_reference(*args_t, **kw), 1)
     trace_bound = trace_bounds(main_r, (o, d, pix, seed),
@@ -2018,6 +2155,8 @@ def main(argv=None) -> int:
                                   "random_balls_large", args.png_dir))
     # 23. the probes on the headline
     probe_check(main_r, "headline")
+    # 26. path regeneration: the persistent kernel against the probe's loop
+    regen = regeneration_phase(main_r)
     del main_r, main_film, k, p, err, args_t
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2296,7 +2435,8 @@ def main(argv=None) -> int:
                             + [x["max_abs_err"] for x in trace_recs]),
          "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "launch": trace_bound["launch"],
+         "instantiations": insts, "regeneration": regen,
          "bound": {**trace_bound, "note": counted_note},
          "size": f"ms, plain_ms, launches: random_balls_large {MAIN_W}x"
                  f"{MAIN_H} depth {MAIN_DEPTH} without NEE, one frame "

@@ -21,9 +21,15 @@
 // with its any-hit shadow walk, the branchless Lambertian / metal /
 // dielectric block, Russian roulette and the PCG streams.
 //
-// The tables are the JAX package's (C, N) column layout in read-only
-// global memory (every table of the repo's scenes fits in the H100's
-// 50 MB L2); the walk is per ray, so a ray enters only the boxes it hits.
+// The tables are read as 16-byte records (ops/pack.pack_records: each
+// column of the JAX package's (C, N) layout one record of whole float4s,
+// the values exact copies) in read-only global memory, through 16-byte
+// __ldg loads: a tree node is two loads ({lo, miss}, {hi, leaf word}), a
+// sphere one and, when it beats the carry, one more; a triangle's hit
+// record four and its tail (ordinal, material, normals, texture
+// coordinates) only when it hits.  Every table of the repo's scenes fits
+// in the H100's 50 MB L2; the walk is per ray, so a ray enters only the
+// boxes it hits.
 // Per-ray walks give the same winner as the TPU's whole-tile walk: the
 // fold keeps the lexicographic minimum of (t, ordinal), which does not
 // depend on visit order, and a box a ray misses holds no primitive that
@@ -47,21 +53,27 @@
 
 #include <type_traits>
 
-// The scene as both kernels read it; ops/_build.py mirrors this layout in
-// ctypes and checks it against prt_scene_size() at load.  n_tri is 0 when
-// the triangle kind holds only never-hit pads, n_inst 0 without instances.
+// The scene as the kernels read it: every table as records of float4s
+// (ops/pack.record_rows says which column row each word holds); the
+// acceleration tables' rows and cols are those of their column tables
+// (rows 8: a threaded tree, rows 6: a linear cluster table).
+// ops/_build.py mirrors this layout in ctypes and checks it against
+// prt_scene_size() at load.  n_tri is 0 when the triangle kind holds only
+// never-hit pads, n_inst 0 without instances.
 struct PrtScene {
-  const float* sph;     // (6, n_sph): cx cy cz r2 mid ord
-  const float* sph_cl;  // (8, M) tree or (6, n_cl + 1) linear
+  const float4* sph;     // (n_sph, 2): {c.xyz, r2}, {mid, ord, 0, 0}
+  const float4* sph_cl;  // (cols, 2): {lo.xyz, miss}, {hi.xyz, leaf}
   int n_sph, sph_cl_rows, sph_cl_cols;
-  const float* quad;  // (14, n_quad): n(3) cn us(3) cu vs(3) cv mid ord
-  const float* quad_cl;
+  const float4* quad;  // (n_quad, 4): {n, cn}, {us, cu}, {vs, cv}, {mid, ord}
+  const float4* quad_cl;
   int n_quad, quad_cl_rows, quad_cl_cols;
-  const float* tri;  // (27, n_tri): ng(3) p0ng e1(3) e2(3) e2xp0(3)
-                     // p0xe1(3) mid ord n0(3) n1(3) n2(3)
-  const float* tri_cl;
-  int n_tri, tri_cl_rows, tri_cl_cols;
-  const float* mats;  // (5, n_mats): mtype c(3) extra
+  const float4* tri;  // (n_tri, 4): ng(3) p0ng e1(3) e2(3) e2xp0(3) p0xe1(3)
+  // (n_tri, tri_tail_w): ord mid n0(3) n1(3) n2(3), then with texture
+  // coordinates u0 v0 u1 v1 u2 v2
+  const float4* tri_tail;
+  const float4* tri_cl;
+  int n_tri, tri_cl_rows, tri_cl_cols, tri_tail_w;
+  const float4* mats;  // (n_mats, 2): {mtype, c.xyz}, {extra, 0, 0, 0}
   int n_mats;
   int csize;      // primitives per linear cluster, sphere and quad kinds
   int tri_csize;  // primitives per linear cluster, triangle kind
@@ -71,18 +83,18 @@ struct PrtScene {
   // 1 the gradient, 2 the gradient and the sun.
   float sky[13];
   int sky_mode;
-  const float* lights;  // (28, n_lights): ops/pack.pack_lights_table
+  const float4* lights;  // (n_lights, 7): ops/pack.pack_lights_table's rows
   int n_lights;         // 0: NEE off
   int rr_depth;         // Russian roulette from this absolute depth; 0: off
   // Instances (ops/pack.pack_instance_tables): the unique meshes' local
   // triangles, their concatenated threaded trees, the instances' world
   // boxes and records [root, world->local 3x4, normal 3x3, mid, ord base].
-  const float* itri;  // (25, n_itri): ng(3) p0ng e1(3) e2(3) e2xp0(3)
-                      // p0xe1(3) n0(3) n1(3) n2(3)
-  const float* iacc;  // (8, n_iacc)
-  const float* ibox;  // (6, n_inst)
-  const float* inst;  // (24, n_inst)
-  int n_itri, n_iacc, n_inst;
+  const float4* itri;       // (n_itri, 4): the hit rows, as tri's
+  const float4* itri_tail;  // (n_itri, itri_tail_w): n0(3) n1(3) n2(3) uv
+  const float4* iacc;       // (n_iacc, 2) tree nodes
+  const float4* ibox;       // (n_inst, 2): {lo.xyz, 0}, {hi.xyz, 0}
+  const float4* inst;       // (n_inst, 6): the 24 rows
+  int n_itri, n_iacc, n_inst, itri_tail_w;
   // Textures (ops/trace.texture_table, ops/pack.pack_kernel_textures):
   // per material [kind (0 none, 1 checker, 2 image), then a checker's
   // scale and odd rgb, or an image's first texel row, height, width,
@@ -93,11 +105,11 @@ struct PrtScene {
   const float* mtex;  // (6, n_mats)
   const float* itex;  // (Rt, 128)
   // The stream route of a big mesh (ops/pack.py): tri then holds n_tri =
-  // n_chunks * chunk slot columns and tri_cl the top tree, whose leaf word
+  // n_chunks * chunk slot records and tri_cl the top tree, whose leaf word
   // is chunk index << stream_shift | span; mini the chunks' threaded
-  // mini-trees, chunk c's in columns c * node_rows + k.  Null on the dense
+  // mini-trees, chunk c's in nodes c * node_rows + k.  Null on the dense
   // route.
-  const float* mini;  // (8, n_mini)
+  const float4* mini;  // (n_mini, 2) tree nodes
   int n_mini, chunk, node_rows, stream_shift;
 };
 
@@ -135,16 +147,16 @@ struct Ray {
 
 // Closest-hit carry: the raw winner geometry (sphere center, quad normal,
 // or the triangle's unnormalised interpolated normal) and the winner's
-// compressed material record; with kExt (textured or directional-sky
-// scenes) also its material id and texture coordinates (a sphere's are
-// computed after the fold).  The carry lives in memory across the
-// non-inlined walks, so the instantiations without kExt get a carry
-// without those fields.
+// material id, whose record is read once after the fold; with kExt
+// (textured or directional-sky scenes) also its texture coordinates (a
+// sphere's are computed after the fold).  The carry lives in memory
+// across the non-inlined walks, so the instantiations without kExt get a
+// carry without those fields.
 struct HitBase {
   static constexpr bool kAnyHit = false;
   static constexpr bool kCount = false;
-  float t, gx, gy, gz, c0, c1, c2, extra, ord;
-  int front, is_sph, mtype;
+  float t, gx, gy, gz, ord;
+  int front, is_sph, mid;
 };
 template <bool kExt>
 struct Hit : HitBase {
@@ -153,8 +165,14 @@ struct Hit : HitBase {
 template <>
 struct Hit<true> : HitBase {
   static constexpr bool kUV = true;
-  int mid;
   float u, v;
+};
+
+// The winner's material record: type, albedo (the emission of an
+// emitter) and extra (roughness or index of refraction).
+struct Material {
+  int mtype;
+  float c0, c1, c2, extra;
 };
 
 // Any-hit carry of a shadow ray, seeded with its light's own (t, ord): a
@@ -225,23 +243,39 @@ __device__ __forceinline__ float safe_inv(float v) {
   return 1.0f / (fabsf(v) < eps ? (v < 0.0f ? -eps : eps) : v);
 }
 
+// A scalar of a column table (the texture tables).
 __device__ __forceinline__ float ld(const float* __restrict__ p, int i) {
   return __ldg(p + i);
 }
 
-// Does the ray hit column `col` of a (rows, cols) box table at a t in
-// [t_min, best_t]?  The exact (b - o) * inv form: the hoisted b*inv - o*inv
-// form cancels catastrophically for near-axis-parallel rays whose origin
-// lies on a box plane (pallas_trace.py make_slab).
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ tab,
-                                         int cols, int col, const Ray& r,
+// Word k of record `rec`, a constant after inlining: one 16-byte load.
+__device__ __forceinline__ float word(const float4* __restrict__ rec, int k) {
+  const float4 v = __ldg(rec + (k >> 2));
+  return (k & 3) == 0 ? v.x : (k & 3) == 1 ? v.y : (k & 3) == 2 ? v.z : v.w;
+}
+
+// A tree node or box record: {lo.xyz, miss}, {hi.xyz, leaf word}.
+struct Node {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ Node node_at(const float4* __restrict__ tab,
+                                        int k) {
+  return Node{__ldg(tab + 2 * k), __ldg(tab + 2 * k + 1)};
+}
+
+// Does the ray hit box `b` at a t in [t_min, best_t]?  The exact
+// (b - o) * inv form: the hoisted b*inv - o*inv form cancels
+// catastrophically for near-axis-parallel rays whose origin lies on a box
+// plane (pallas_trace.py make_slab).
+__device__ __forceinline__ bool slab_hit(const Node& b, const Ray& r,
                                          float t_min, float best_t) {
-  float tx0 = (ld(tab, col) - r.ox) * r.ix;
-  float ty0 = (ld(tab, cols + col) - r.oy) * r.iy;
-  float tz0 = (ld(tab, 2 * cols + col) - r.oz) * r.iz;
-  float tx1 = (ld(tab, 3 * cols + col) - r.ox) * r.ix;
-  float ty1 = (ld(tab, 4 * cols + col) - r.oy) * r.iy;
-  float tz1 = (ld(tab, 5 * cols + col) - r.oz) * r.iz;
+  float tx0 = (b.lo.x - r.ox) * r.ix;
+  float ty0 = (b.lo.y - r.oy) * r.iy;
+  float tz0 = (b.lo.z - r.oz) * r.iz;
+  float tx1 = (b.hi.x - r.ox) * r.ix;
+  float ty1 = (b.hi.y - r.oy) * r.iy;
+  float tz1 = (b.hi.z - r.oz) * r.iz;
   float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                    fmaxf(fminf(tz0, tz1), t_min));
   float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
@@ -257,18 +291,15 @@ __device__ __forceinline__ bool beats(float t, float ordv, const Carry& h) {
 }
 
 // Record a winner: the closest-hit carry takes its geometry and material
-// (and with kUV its material id and texture coordinates u, v); an any-hit
-// carry is occluded.
+// id (and with kUV its texture coordinates u, v); an any-hit carry is
+// occluded.
 template <class Carry>
-__device__ __forceinline__ void take(const PrtScene& S, float t, float ordv,
-                                     float mid, float gx, float gy, float gz,
-                                     int front, int is_sph, float u, float v,
-                                     Carry& h) {
+__device__ __forceinline__ void take(float t, float ordv, float mid, float gx,
+                                     float gy, float gz, int front, int is_sph,
+                                     float u, float v, Carry& h) {
   if constexpr (Carry::kAnyHit) {
     h.t = -kBig;
   } else {
-    int mi = (int)mid;
-    int n = S.n_mats;
     h.t = t;
     h.ord = ordv;
     h.gx = gx;
@@ -276,17 +307,19 @@ __device__ __forceinline__ void take(const PrtScene& S, float t, float ordv,
     h.gz = gz;
     h.front = front;
     h.is_sph = is_sph;
-    h.mtype = (int)ld(S.mats, mi);
-    h.c0 = ld(S.mats, n + mi);
-    h.c1 = ld(S.mats, 2 * n + mi);
-    h.c2 = ld(S.mats, 3 * n + mi);
-    h.extra = ld(S.mats, 4 * n + mi);
+    h.mid = (int)mid;
     if constexpr (Carry::kUV) {
-      h.mid = mi;
       h.u = u;
       h.v = v;
     }
   }
+}
+
+// The material record of material `mid`, read once after the fold.
+__device__ __forceinline__ Material material(const PrtScene& S, int mid) {
+  const float4 a = __ldg(S.mats + 2 * mid);
+  const float4 b = __ldg(S.mats + 2 * mid + 1);
+  return Material{(int)a.x, a.y, a.z, a.w, b.x};
 }
 
 // The sphere test's hit distance: the nearer root when it is >= t_min,
@@ -344,69 +377,59 @@ __device__ __forceinline__ bool quad_t(float ox, float oy, float oz,
 template <class Carry>
 __device__ __forceinline__ void sphere_test(const PrtScene& S, int j,
                                             const Ray& r, Carry& h) {
-  const float* __restrict__ s = S.sph;
-  const int n = S.n_sph;
-  float cx = ld(s, j), cy = ld(s, n + j), cz = ld(s, 2 * n + j);
+  const float4 c = __ldg(S.sph + 2 * j);  // c.xyz, r2
   float t;
   bool fr;
-  if (!sphere_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cx, cy, cz,
-                ld(s, 3 * n + j), S.t_min, S.t_cap, t, fr)) {
+  if (!sphere_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, c.x, c.y, c.z, c.w,
+                S.t_min, S.t_cap, t, fr)) {
     return;
   }
-  float ordv = ld(s, 5 * n + j);
-  if (!beats(t, ordv, h)) return;
-  take(S, t, ordv, ld(s, 4 * n + j), cx, cy, cz, fr, 1, 0.0f, 0.0f, h);
+  const float4 m = __ldg(S.sph + 2 * j + 1);  // mid, ord
+  if (!beats(t, m.y, h)) return;
+  take(t, m.y, m.x, c.x, c.y, c.z, fr, 1, 0.0f, 0.0f, h);
 }
 
 template <class Carry>
 __device__ __forceinline__ void quad_test(const PrtScene& S, int j,
                                           const Ray& r, Carry& h) {
-  const float* __restrict__ q = S.quad;
-  const int n = S.n_quad;
-  float qnx = ld(q, j), qny = ld(q, n + j), qnz = ld(q, 2 * n + j);
-  float cn = ld(q, 3 * n + j);
+  const float4* __restrict__ q = S.quad + 4 * j;
+  const float4 pn = __ldg(q), pu = __ldg(q + 1), pv = __ldg(q + 2);
   float t, on;
-  if (!quad_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, qnx, qny, qnz, cn,
-              ld(q, 4 * n + j), ld(q, 5 * n + j), ld(q, 6 * n + j),
-              ld(q, 7 * n + j), ld(q, 8 * n + j), ld(q, 9 * n + j),
-              ld(q, 10 * n + j), ld(q, 11 * n + j), S.t_min, S.t_cap, t,
-              on)) {
+  if (!quad_t(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, pn.x, pn.y, pn.z, pn.w,
+              pu.x, pu.y, pu.z, pu.w, pv.x, pv.y, pv.z, pv.w, S.t_min,
+              S.t_cap, t, on)) {
     return;
   }
-  float ordv = ld(q, 13 * n + j);
-  if (!beats(t, ordv, h)) return;
+  const float4 m = __ldg(q + 3);  // mid, ord
+  if (!beats(t, m.y, h)) return;
   float u = 0.0f, v = 0.0f;
   if constexpr (Carry::kUV) {
     // the winner's half-extent coordinates (as quad_t computed them) to
     // texture coordinates: u = (a + 1) / 2
-    u = 0.5f + 0.5f * quad_coord(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                                 ld(q, 4 * n + j), ld(q, 5 * n + j),
-                                 ld(q, 6 * n + j), ld(q, 7 * n + j), t);
-    v = 0.5f + 0.5f * quad_coord(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                                 ld(q, 8 * n + j), ld(q, 9 * n + j),
-                                 ld(q, 10 * n + j), ld(q, 11 * n + j), t);
+    u = 0.5f + 0.5f * quad_coord(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, pu.x,
+                                 pu.y, pu.z, pu.w, t);
+    v = 0.5f + 0.5f * quad_coord(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, pv.x,
+                                 pv.y, pv.z, pv.w, t);
   }
-  take(S, t, ordv, ld(q, 12 * n + j), qnx, qny, qnz, on - cn > 0.0f, 0, u, v,
-       h);
+  take(t, m.y, m.x, pn.x, pn.y, pn.z, on - pn.w > 0.0f, 0, u, v, h);
 }
 
 // Moller-Trumbore through triple products (pallas_trace.py make_tri_body):
 // div = -d.ng, t = (o.ng - p0.ng) / div, b1 = (w.e2 - d.(e2 x p0)) / div,
-// b2 = (-w.e1 - d.(p0 x e1)) / div with w = o x d, over rows 0-15 of
-// column j of an (rows, n) table: the flat `tri` table and the instanced
-// `itri` table share that layout.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ q, int n,
-                                        int j, const Ray& r, float t_min,
+// b2 = (-w.e1 - d.(p0 x e1)) / div with w = o x d, over the hit record
+// `q` (rows 0-15 of a column): the flat `tri` table and the instanced
+// `itri` table share that record.
+__device__ __forceinline__ bool tri_hit(const float4* __restrict__ q,
+                                        const Ray& r, float t_min,
                                         float t_cap, float& t, float& b1,
                                         float& b2) {
-  float ngx = ld(q, j), ngy = ld(q, n + j), ngz = ld(q, 2 * n + j);
-  float p0ng = ld(q, 3 * n + j);
-  float e1x = ld(q, 4 * n + j), e1y = ld(q, 5 * n + j), e1z = ld(q, 6 * n + j);
-  float e2x = ld(q, 7 * n + j), e2y = ld(q, 8 * n + j), e2z = ld(q, 9 * n + j);
-  float xpx = ld(q, 10 * n + j), xpy = ld(q, 11 * n + j),
-        xpz = ld(q, 12 * n + j);
-  float pex = ld(q, 13 * n + j), pey = ld(q, 14 * n + j),
-        pez = ld(q, 15 * n + j);
+  const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+               q3 = __ldg(q + 3);
+  const float ngx = q0.x, ngy = q0.y, ngz = q0.z, p0ng = q0.w;
+  const float e1x = q1.x, e1y = q1.y, e1z = q1.z;
+  const float e2x = q1.w, e2y = q2.x, e2z = q2.y;
+  const float xpx = q2.z, xpy = q2.w, xpz = q3.x;
+  const float pex = q3.y, pey = q3.z, pez = q3.w;
   float div = -(r.dx * ngx + r.dy * ngy + r.dz * ngz);
   bool div_ok = div != 0.0f;
   float inv = div_ok ? 1.0f / div : 0.0f;
@@ -426,80 +449,72 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ q, int n,
 template <class Carry>
 __device__ __forceinline__ void tri_test(const PrtScene& S, int j,
                                          const Ray& r, Carry& h) {
-  const float* __restrict__ q = S.tri;
-  const int n = S.n_tri;
   float t, b1, b2;
-  if (!tri_hit(q, n, j, r, S.t_min, S.t_cap, t, b1, b2)) return;
-  float ordv = ld(q, 17 * n + j);
-  if (!beats(t, ordv, h)) return;
+  if (!tri_hit(S.tri + 4 * j, r, S.t_min, S.t_cap, t, b1, b2)) return;
+  // the tail: ord mid n0(3) n1(3) n2(3) [u0 v0 u1 v1 u2 v2]
+  const float4* __restrict__ q = S.tri_tail + S.tri_tail_w * j;
+  const float4 a = __ldg(q);
+  if (!beats(t, a.x, h)) return;
   if constexpr (Carry::kAnyHit) {
     h.t = -kBig;
   } else {
+    const float4 b = __ldg(q + 1), c = __ldg(q + 2);
     float b0 = 1.0f - b1 - b2;
-    float inx = b0 * ld(q, 18 * n + j) + b1 * ld(q, 21 * n + j)
-        + b2 * ld(q, 24 * n + j);
-    float iny = b0 * ld(q, 19 * n + j) + b1 * ld(q, 22 * n + j)
-        + b2 * ld(q, 25 * n + j);
-    float inz = b0 * ld(q, 20 * n + j) + b1 * ld(q, 23 * n + j)
-        + b2 * ld(q, 26 * n + j);
+    float inx = b0 * a.z + b1 * b.y + b2 * c.x;
+    float iny = b0 * a.w + b1 * b.z + b2 * c.y;
+    float inz = b0 * b.x + b1 * b.w + b2 * c.z;
     bool back = (r.dx * inx + r.dy * iny + r.dz * inz) > 0.0f;
     float u = 0.0f, v = 0.0f;
     if (Carry::kUV && S.itex) {
-      u = b0 * ld(q, 27 * n + j) + b1 * ld(q, 29 * n + j)
-          + b2 * ld(q, 31 * n + j);
-      v = b0 * ld(q, 28 * n + j) + b1 * ld(q, 30 * n + j)
-          + b2 * ld(q, 32 * n + j);
+      const float4 e = __ldg(q + 3), f = __ldg(q + 4);
+      u = b0 * c.w + b1 * e.y + b2 * e.w;
+      v = b0 * e.x + b1 * e.z + b2 * f.x;
     }
-    take(S, t, ordv, ld(q, 16 * n + j), inx, iny, inz, !back, 0, u, v, h);
+    take(t, a.x, a.y, inx, iny, inz, !back, 0, u, v, h);
   }
 }
 
-// An instanced triangle, itri column j of instance k (pallas_trace.py
-// inst_body's itri_body): the hit test in mesh-local space with the
-// instance's local ray `lr`, whose t is world t.  The winner carries the
-// world normal (rows 13-21 of the instance record, the inverse transpose,
-// applied to the interpolated local normal), the front flag
-// !(world d . that normal > 0), the instance's material (row 22), the
+// An instanced triangle, itri column j of the instance whose record is
+// `I` (pallas_trace.py inst_body's itri_body): the hit test in mesh-local
+// space with the instance's local ray `lr`, whose t is world t.  The
+// winner carries the world normal (rows 13-21 of the instance record, the
+// inverse transpose, applied to the interpolated local normal), the front
+// flag !(world d . that normal > 0), the instance's material (row 22), the
 // ordinal row 23 + j and, with texture coordinates (itri rows 25-30), their
 // barycentric blend; the shadow ray's any-hit carry reads only t and the
 // ordinal.
 template <class Carry>
-__device__ __forceinline__ void itri_test(const PrtScene& S, int k, int j,
+__device__ __forceinline__ void itri_test(const PrtScene& S,
+                                          const float4* __restrict__ I, int j,
                                           const Ray& lr, const Ray& r,
                                           Carry& h) {
-  const float* __restrict__ q = S.itri;
-  const int n = S.n_itri;
   float t, b1, b2;
-  if (!tri_hit(q, n, j, lr, S.t_min, S.t_cap, t, b1, b2)) return;
-  const float* __restrict__ I = S.inst + k;
-  const int ni = S.n_inst;
-  float ordv = ld(I, 23 * ni) + (float)j;
+  if (!tri_hit(S.itri + 4 * j, lr, S.t_min, S.t_cap, t, b1, b2)) return;
+  const float4 g5 = __ldg(I + 5);  // rows 20-23: n(2), mid, ord base
+  float ordv = g5.w + (float)j;
   if (!beats(t, ordv, h)) return;
   if constexpr (Carry::kAnyHit) {
     h.t = -kBig;
   } else {
+    // the tail: n0(3) n1(3) n2(3) [u0 v0 u1 v1 u2 v2]
+    const float4* __restrict__ q = S.itri_tail + S.itri_tail_w * j;
+    const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    const float4 g3 = __ldg(I + 3), g4 = __ldg(I + 4);  // rows 12-19
     float b0 = 1.0f - b1 - b2;
-    float inx = b0 * ld(q, 16 * n + j) + b1 * ld(q, 19 * n + j)
-        + b2 * ld(q, 22 * n + j);
-    float iny = b0 * ld(q, 17 * n + j) + b1 * ld(q, 20 * n + j)
-        + b2 * ld(q, 23 * n + j);
-    float inz = b0 * ld(q, 18 * n + j) + b1 * ld(q, 21 * n + j)
-        + b2 * ld(q, 24 * n + j);
-    float wnx = ld(I, 13 * ni) * inx + ld(I, 14 * ni) * iny
-        + ld(I, 15 * ni) * inz;
-    float wny = ld(I, 16 * ni) * inx + ld(I, 17 * ni) * iny
-        + ld(I, 18 * ni) * inz;
-    float wnz = ld(I, 19 * ni) * inx + ld(I, 20 * ni) * iny
-        + ld(I, 21 * ni) * inz;
+    float inx = b0 * a.x + b1 * a.w + b2 * b.z;
+    float iny = b0 * a.y + b1 * b.x + b2 * b.w;
+    float inz = b0 * a.z + b1 * b.y + b2 * c.x;
+    float wnx = g3.y * inx + g3.z * iny + g3.w * inz;
+    float wny = g4.x * inx + g4.y * iny + g4.z * inz;
+    float wnz = g4.w * inx + g5.x * iny + g5.y * inz;
     bool back = (r.dx * wnx + r.dy * wny + r.dz * wnz) > 0.0f;
     float u = 0.0f, v = 0.0f;
     if (Carry::kUV && S.itex) {
-      u = b0 * ld(q, 25 * n + j) + b1 * ld(q, 27 * n + j)
-          + b2 * ld(q, 29 * n + j);
-      v = b0 * ld(q, 26 * n + j) + b1 * ld(q, 28 * n + j)
-          + b2 * ld(q, 30 * n + j);
+      const float4 e = __ldg(q + 3);
+      u = b0 * c.y + b1 * c.w + b2 * e.y;
+      v = b0 * c.z + b1 * e.x + b2 * e.z;
     }
-    take(S, t, ordv, ld(I, 22 * ni), wnx, wny, wnz, !back, 0, u, v, h);
+    take(t, ordv, g5.z, wnx, wny, wnz, !back, 0, u, v, h);
   }
 }
 
@@ -528,16 +543,16 @@ __device__ __forceinline__ void test_range(const PrtScene& S, int lo, int hi,
 
 // One kind's fold, dispatched like `clustered`: a tiny kind (n <= csize)
 // is a plain loop; an (8, M) table is the threaded tree (hit -> node + 1,
-// miss -> escape link in row 6, row 7 packs a leaf as lo*64 + span); a
+// miss -> the escape link, the leaf word packs a leaf as lo*64 + span); a
 // (6, n_cl + 1) table is the linear cluster scan behind the root pretest
-// in its last column.  `csize` is the kind's own cluster size
+// in its last box.  `csize` is the kind's own cluster size
 // (TRI_CLUSTER for triangles): it sets both the tiny-kind test and the
 // linear runs.  The carry is the closest hit (Hit) or a shadow ray's
 // any-hit (Occluder), which returns as soon as the light is occluded.
 template <int kKind, class Carry>
-__device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl,
-                          int rows, int cols, int csize, const Ray& r,
-                          Carry& h) {
+__device__ void fold_kind(const PrtScene& S, int n,
+                          const float4* __restrict__ cl, int rows, int csize,
+                          const Ray& r, Carry& h) {
   if (n <= csize) {
     test_range<kKind>(S, 0, n, r, h);
     return;
@@ -545,9 +560,10 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
   if (rows == 8) {
     int node = 0;
     while (node >= 0) {
-      bool enter = slab_hit(cl, cols, node, r, S.t_min, h.t);
-      int miss = (int)ld(cl, 6 * cols + node);
-      float lo_f = ld(cl, 7 * cols + node);
+      const Node b = node_at(cl, node);
+      bool enter = slab_hit(b, r, S.t_min, h.t);
+      int miss = (int)b.lo.w;
+      float lo_f = b.hi.w;
       bool leaf = lo_f >= 0.0f;
       if constexpr (Carry::kCount) {
         h.n.visit(enter && leaf, leaf ? (int)lo_f & 63 : 0);
@@ -564,9 +580,10 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
   }
   int n_cl = (n + csize - 1) / csize;
   if constexpr (Carry::kCount) h.n.visit(false, 0);  // the root pretest
-  if (!slab_hit(cl, cols, n_cl, r, S.t_min, h.t)) return;
+  if (!slab_hit(node_at(cl, n_cl), r, S.t_min, h.t)) return;
   for (int ci = 0; ci < n_cl && !occluded(h); ++ci) {
-    if (counted_entry(h, slab_hit(cl, cols, ci, r, S.t_min, h.t), csize)) {
+    if (counted_entry(h, slab_hit(node_at(cl, ci), r, S.t_min, h.t),
+                      csize)) {
       int lo = ci * csize;
       test_range<kKind>(S, lo, min(lo + csize, n), r, h);
     }
@@ -586,15 +603,14 @@ __device__ void fold_kind(const PrtScene& S, int n, const float* __restrict__ cl
 // as it is occluded.
 template <class Carry>
 __device__ void fold_stream(const PrtScene& S, const Ray& r, Carry& h) {
-  const float* __restrict__ top = S.tri_cl;
-  const float* __restrict__ mini = S.mini;
-  const int cols = S.tri_cl_cols;
-  const int mcols = S.n_mini;
+  const float4* __restrict__ top = S.tri_cl;
+  const float4* __restrict__ mini = S.mini;
   int node = 0;
   while (node >= 0) {
-    bool enter = slab_hit(top, cols, node, r, S.t_min, h.t);
-    int miss = (int)ld(top, 6 * cols + node);
-    float enc_f = ld(top, 7 * cols + node);
+    const Node b = node_at(top, node);
+    bool enter = slab_hit(b, r, S.t_min, h.t);
+    int miss = (int)b.lo.w;
+    float enc_f = b.hi.w;
     bool leaf = enc_f >= 0.0f;
     if constexpr (Carry::kCount) h.n.visit(enter && leaf, 0);
     if (enter && leaf) {
@@ -603,9 +619,10 @@ __device__ void fold_stream(const PrtScene& S, const Ray& r, Carry& h) {
       const int slot0 = c * S.chunk;
       int m = base;
       while (m >= 0) {
-        bool m_enter = slab_hit(mini, mcols, m, r, S.t_min, h.t);
-        int m_miss = (int)ld(mini, 6 * mcols + m);
-        float m_enc = ld(mini, 7 * mcols + m);
+        const Node mb = node_at(mini, m);
+        bool m_enter = slab_hit(mb, r, S.t_min, h.t);
+        int m_miss = (int)mb.lo.w;
+        float m_enc = mb.hi.w;
         bool m_leaf = m_enc >= 0.0f;
         if constexpr (Carry::kCount) {
           h.n.visit(m_enter && m_leaf, m_leaf ? (int)m_enc & 63 : 0);
@@ -635,30 +652,32 @@ __device__ void fold_stream(const PrtScene& S, const Ray& r, Carry& h) {
 template <class Carry>
 __device__ void fold_instances(const PrtScene& S, const Ray& r, Carry& h) {
   const int ni = S.n_inst;
-  const int na = S.n_iacc;
-  const float* __restrict__ acc = S.iacc;
+  const float4* __restrict__ acc = S.iacc;
   for (int k = 0; k < ni; ++k) {
-    if (!slab_hit(S.ibox, ni, k, r, S.t_min, h.t)) continue;
-    const float* __restrict__ I = S.inst + k;
-    auto g = [&](int row) { return ld(I, row * ni); };
+    if (!slab_hit(node_at(S.ibox, k), r, S.t_min, h.t)) continue;
+    const float4* __restrict__ I = S.inst + 6 * k;
+    // rows 0-12: the tree root, the world->local affine (3x4, row-major)
+    const float4 g0 = __ldg(I), g1 = __ldg(I + 1), g2 = __ldg(I + 2),
+                 g3 = __ldg(I + 3);
     Ray lr;
-    lr.ox = g(1) * r.ox + g(2) * r.oy + g(3) * r.oz + g(4);
-    lr.oy = g(5) * r.ox + g(6) * r.oy + g(7) * r.oz + g(8);
-    lr.oz = g(9) * r.ox + g(10) * r.oy + g(11) * r.oz + g(12);
-    lr.dx = g(1) * r.dx + g(2) * r.dy + g(3) * r.dz;
-    lr.dy = g(5) * r.dx + g(6) * r.dy + g(7) * r.dz;
-    lr.dz = g(9) * r.dx + g(10) * r.dy + g(11) * r.dz;
+    lr.ox = g0.y * r.ox + g0.z * r.oy + g0.w * r.oz + g1.x;
+    lr.oy = g1.y * r.ox + g1.z * r.oy + g1.w * r.oz + g2.x;
+    lr.oz = g2.y * r.ox + g2.z * r.oy + g2.w * r.oz + g3.x;
+    lr.dx = g0.y * r.dx + g0.z * r.dy + g0.w * r.dz;
+    lr.dy = g1.y * r.dx + g1.z * r.dy + g1.w * r.dz;
+    lr.dz = g2.y * r.dx + g2.z * r.dy + g2.w * r.dz;
     lr.ix = safe_inv(lr.dx);
     lr.iy = safe_inv(lr.dy);
     lr.iz = safe_inv(lr.dz);
     lr.wx = lr.oy * lr.dz - lr.oz * lr.dy;
     lr.wy = lr.oz * lr.dx - lr.ox * lr.dz;
     lr.wz = lr.ox * lr.dy - lr.oy * lr.dx;
-    int node = (int)g(0);
+    int node = (int)g0.x;
     while (node >= 0) {
-      bool enter = slab_hit(acc, na, node, lr, S.t_min, h.t);
-      int miss = (int)ld(acc, 6 * na + node);
-      float lo_f = ld(acc, 7 * na + node);
+      const Node b = node_at(acc, node);
+      bool enter = slab_hit(b, lr, S.t_min, h.t);
+      int miss = (int)b.lo.w;
+      float lo_f = b.hi.w;
       bool leaf = lo_f >= 0.0f;
       if constexpr (Carry::kCount) {
         h.n.visit(enter && leaf, leaf ? (int)lo_f & 63 : 0);
@@ -667,7 +686,7 @@ __device__ void fold_instances(const PrtScene& S, const Ray& r, Carry& h) {
         int enc = (int)lo_f;
         int lo = enc >> 6;
         for (int j = lo; j < lo + (enc & 63) && !occluded(h); ++j) {
-          itri_test(S, k, j, lr, r, h);
+          itri_test(S, I, j, lr, r, h);
         }
         if (occluded(h)) return;
       }
@@ -687,14 +706,12 @@ constexpr int kTriStream = 2;
 template <int kTri, bool kInst, class Carry>
 __device__ __forceinline__ void fold_scene(const PrtScene& S, const Ray& r,
                                            Carry& h) {
-  fold_kind<kSphere>(S, S.n_sph, S.sph_cl, S.sph_cl_rows, S.sph_cl_cols,
-                     S.csize, r, h);
+  fold_kind<kSphere>(S, S.n_sph, S.sph_cl, S.sph_cl_rows, S.csize, r, h);
   if (occluded(h)) return;
-  fold_kind<kQuad>(S, S.n_quad, S.quad_cl, S.quad_cl_rows, S.quad_cl_cols,
-                   S.csize, r, h);
+  fold_kind<kQuad>(S, S.n_quad, S.quad_cl, S.quad_cl_rows, S.csize, r, h);
   if (kTri == kTriDense && !occluded(h)) {
-    fold_kind<kTriangle>(S, S.n_tri, S.tri_cl, S.tri_cl_rows, S.tri_cl_cols,
-                         S.tri_csize, r, h);
+    fold_kind<kTriangle>(S, S.n_tri, S.tri_cl, S.tri_cl_rows, S.tri_csize, r,
+                         h);
   }
   if (kTri == kTriStream && !occluded(h)) {
     fold_stream(S, r, h);
@@ -729,10 +746,11 @@ __device__ __forceinline__ void nee_direct(const PrtScene& S, uint32_t rng_d,
   const float u_a = uniform01(rng_d, 6u);
   const float u_b = uniform01(rng_d, 7u);
   const int li = min((int)(u_l * (float)nl), nl - 1);
-  // The light's rows by direct index; "+ 0.0f" turns a -0.0 entry into
-  // +0.0, as the TPU kernel's blend over the lights (p*(1-m) + row*m) does.
-  const float* __restrict__ L = S.lights + li;
-  auto row = [&](int k) { return ld(L, k * nl) + 0.0f; };
+  // The light's rows by direct index into its record; "+ 0.0f" turns a
+  // -0.0 entry into +0.0, as the TPU kernel's blend over the lights
+  // (p*(1-m) + row*m) does.
+  const float4* __restrict__ L = S.lights + 7 * li;
+  auto row = [&](int k) { return word(L, k) + 0.0f; };
   const bool is_sphl = row(0) == 0.0f;  // kind: 0 sphere, 1 quad
   const float lcx = row(2), lcy = row(3), lcz = row(4);
   float wix, wiy, wiz, pdf, sh_t;
@@ -865,7 +883,7 @@ __device__ __forceinline__ void tex_fetch(const float* __restrict__ tex,
   b = b8 * kInv255;
 }
 
-// The albedo h.c of hit h after its material's texture (pallas_trace.py
+// The albedo m.c of hit h after its material's texture (pallas_trace.py
 // l.2612-2704), before emission, NEE and attenuation read it: an image
 // multiplies it by its bilinear, repeat-wrapped sample at the hit's UV (a
 // sphere's from the outward p - c, whatever the front flag:
@@ -876,7 +894,9 @@ __device__ __forceinline__ void tex_fetch(const float* __restrict__ tex,
 __device__ __forceinline__ void texture_albedo(const PrtScene& S, float px,
                                                float py, float pz, float nrx,
                                                float nry, float nrz,
-                                               float n_ilen, Hit<true>& h) {
+                                               float n_ilen,
+                                               const Hit<true>& h,
+                                               Material& m) {
   const int nm = S.n_mats;
   const float* __restrict__ T = S.mtex + h.mid;
   const float kind = ld(T, 0);
@@ -902,18 +922,18 @@ __device__ __forceinline__ void texture_albedo(const PrtScene& S, float px,
     tex_fetch(tex, y0 + 1.0f, x0, thf, twf, ith, itw, r10, g10, b10);
     tex_fetch(tex, y0 + 1.0f, x0 + 1.0f, thf, twf, ith, itw, r11, g11, b11);
     const float ex = 1.0f - fx, ey = 1.0f - fy;
-    h.c0 = ((r00 * ex + r01 * fx) * ey + (r10 * ex + r11 * fx) * fy) * h.c0;
-    h.c1 = ((g00 * ex + g01 * fx) * ey + (g10 * ex + g11 * fx) * fy) * h.c1;
-    h.c2 = ((b00 * ex + b01 * fx) * ey + (b10 * ex + b11 * fx) * fy) * h.c2;
+    m.c0 = ((r00 * ex + r01 * fx) * ey + (r10 * ex + r11 * fx) * fy) * m.c0;
+    m.c1 = ((g00 * ex + g01 * fx) * ey + (g10 * ex + g11 * fx) * fy) * m.c1;
+    m.c2 = ((b00 * ex + b01 * fx) * ey + (b10 * ex + b11 * fx) * fy) * m.c2;
   } else if (kind == 1.0f) {
     const float cs = ld(T, nm);
     const float cell = floorf(px * cs + kCheckerOff)
         + floorf(py * cs + kCheckerOff) + floorf(pz * cs + kCheckerOff);
     const float odd = cell - 2.0f * floorf(cell * 0.5f);
     if (odd > 0.5f) {
-      h.c0 = ld(T, 2 * nm);
-      h.c1 = ld(T, 3 * nm);
-      h.c2 = ld(T, 4 * nm);
+      m.c0 = ld(T, 2 * nm);
+      m.c1 = ld(T, 3 * nm);
+      m.c2 = ld(T, 4 * nm);
     }
   }
 }
@@ -950,8 +970,7 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   Ray r{ox, oy, oz, dx, dy, dz, safe_inv(dx), safe_inv(dy), safe_inv(dz),
         oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx};
   std::conditional_t<kCount, Counted<Hit<kExt>>, Hit<kExt>> h{
-      Hit<kExt>{{kBig, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-                 (float)(1 << 24), 0, 0, 0}}};
+      Hit<kExt>{{kBig, 0.0f, 0.0f, 0.0f, (float)(1 << 24), 0, 0, 0}}};
   fold_scene<kTri, kInst>(S, r, h);
   if constexpr (kCount) cnt->add(h.n);
 
@@ -963,11 +982,12 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
     s.rb = s.rb + s.tb * k2;
     return 0;
   }
-  if (h.mtype == kEmissive) {  // emission; an emitter does not scatter
+  Material m = material(S, h.mid);
+  if (m.mtype == kEmissive) {  // emission; an emitter does not scatter
     if (!(kNee && alive_in == 2)) {
-      s.rr = s.rr + s.tr * h.c0;
-      s.rg = s.rg + s.tg * h.c1;
-      s.rb = s.rb + s.tb * h.c2;
+      s.rr = s.rr + s.tr * m.c0;
+      s.rg = s.rg + s.tg * m.c1;
+      s.rb = s.rb + s.tb * m.c2;
     }
     return 0;
   }
@@ -988,15 +1008,13 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   float ny = nry * sgn_n;
   float nz = nrz * sgn_n;
 
-  // The albedo is read where it is used: held in registers from here it
-  // would cost the plain sphere instantiation spills.
   if constexpr (kExt) {
-    if (S.mtex) texture_albedo(S, px, py, pz, nrx, nry, nrz, n_ilen, h);
+    if (S.mtex) texture_albedo(S, px, py, pz, nrx, nry, nrz, n_ilen, h, m);
   }
 
-  if (kNee && h.mtype == kLambertian) {
-    nee_direct<kTri, kInst, kCount>(S, rng_d, px, py, pz, nx, ny, nz, h.c0,
-                                    h.c1, h.c2, s, cnt);
+  if (kNee && m.mtype == kLambertian) {
+    nee_direct<kTri, kInst, kCount>(S, rng_d, px, py, pz, nx, ny, nz, m.c0,
+                                    m.c1, m.c2, s, cnt);
   }
 
   float u1 = uniform01(rng_d, 1u);
@@ -1010,20 +1028,20 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   float uz = z;
 
   float sx, sy, sz;
-  if (h.mtype == kLambertian) {
+  if (m.mtype == kLambertian) {
     float lx = nx + ux, ly = ny + uy, lz = nz + uz;
     bool degen = fabsf(lx) < 1e-8f && fabsf(ly) < 1e-8f && fabsf(lz) < 1e-8f;
     sx = degen ? nx : lx;
     sy = degen ? ny : ly;
     sz = degen ? nz : lz;
-  } else if (h.mtype == kMetal) {
+  } else if (m.mtype == kMetal) {
     float dn_ = dx * nx + dy * ny + dz * nz;
-    sx = dx - 2.0f * dn_ * nx + h.extra * ux;
-    sy = dy - 2.0f * dn_ * ny + h.extra * uy;
-    sz = dz - 2.0f * dn_ * nz + h.extra * uz;
+    sx = dx - 2.0f * dn_ * nx + m.extra * ux;
+    sy = dy - 2.0f * dn_ * ny + m.extra * uy;
+    sz = dz - 2.0f * dn_ * nz + m.extra * uz;
   } else {  // dielectric
     float dn_ = dx * nx + dy * ny + dz * nz;
-    float ri = h.front ? 1.0f / h.extra : h.extra;
+    float ri = h.front ? 1.0f / m.extra : m.extra;
     float cos_t = fminf(-(dx * nx + dy * ny + dz * nz), 1.0f);
     float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
     bool cannot = ri * sin_t > 1.0f;
@@ -1051,13 +1069,13 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   sy = sy * ilen;
   sz = sz * ilen;
   // A metal ray scattered below the surface is absorbed.
-  if (h.mtype == kMetal && !((sx * nx + sy * ny + sz * nz) > 0.0f)) {
+  if (m.mtype == kMetal && !((sx * nx + sy * ny + sz * nz) > 0.0f)) {
     return 0;
   }
-  if (h.mtype != kDielectric) {
-    s.tr = s.tr * h.c0;
-    s.tg = s.tg * h.c1;
-    s.tb = s.tb * h.c2;
+  if (m.mtype != kDielectric) {
+    s.tr = s.tr * m.c0;
+    s.tg = s.tg * m.c1;
+    s.tb = s.tb * m.c2;
   }
   // Russian roulette on the attenuated throughput: end the path with
   // probability 1 - p, p = clip(max channel, 0.05, 1); a survivor's
@@ -1082,7 +1100,7 @@ __device__ __forceinline__ int bounce(const PrtScene& S, uint32_t rng_d,
   s.dz = sz;
   // Under NEE a diffuse continuation is marked 2: the next vertex skips
   // the emission this vertex's light sample already counted.
-  return (kNee && alive && h.mtype == kLambertian) ? 2 : alive;
+  return (kNee && alive && m.mtype == kLambertian) ? 2 : alive;
 }
 
 // A kernel's instantiations: 32 of the triangle kind none or dense, and

@@ -7,9 +7,11 @@ ops/pack.py as float32 tensors on one device, plus the host-side facts
 the trace needs (the sky spec, whether any triangle can be hit, whether
 NEE runs, each instance's triangle run, the checker and image-texture
 materials with the packed texel rows), and a mesh on the stream route's
-mini-trees.  The TPU package's
-SMEM/VMEM placement planning and its hot/cold table splits have no
-Hopper analogue: every table is plain read-only device memory.
+mini-trees; beside the column tables, the kernels' copy of them as
+16-byte records (``records``, ops/pack.scene_records), made once per
+scene.  The TPU package's SMEM/VMEM placement planning and its hot/cold
+table splits have no Hopper analogue: every table is plain read-only
+device memory.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from parallelraytracing_tpu_torch.config import RenderConfig
-from parallelraytracing_tpu_torch.ops.pack import StreamTables
+from parallelraytracing_tpu_torch.ops import pack
+from parallelraytracing_tpu_torch.ops.pack import SceneRecords, StreamTables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +79,17 @@ class SceneTables:
     #: and integers; `tri` then holds its slots and `tri_cl` its top tree.
     #: None on the dense route
     stream: Optional[StreamTables] = None
+    #: the kernels' copy of every table the kernels read, as 16-byte
+    #: records (``with_records``); None until made
+    records: Optional[SceneRecords] = None
+
+
+def with_records(t: SceneTables) -> SceneTables:
+    """`t` with the records of its tables (ops/pack.scene_records), on
+    the tables' device."""
+    return dataclasses.replace(t, records=pack.scene_records(
+        t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
+        lights=t.lights, inst=t.inst, stream=t.stream))
 
 
 def sky_spec(host: dict) -> tuple:
@@ -126,7 +140,8 @@ def build_scene_tables(scene, device, nee: bool = False):
     NotImplementedError.  A scene of more than ``ops/pack.STREAM_THRESHOLD``
     triangles takes the stream route in chunks of ``STREAM_CHUNK`` slots
     (``ops/pack.pack_scene_tables``); instanced meshes stay dense, as in
-    the JAX package."""
+    the JAX package.  The tables carry their records (``with_records``),
+    made here once for the scene."""
     from parallelraytracing_tpu_torch.convert import tables_from_numpy
     from parallelraytracing_tpu_torch.ops.nee import extract_lights
     from parallelraytracing_tpu_torch.ops.pack import (pack_instance_tables,
@@ -157,7 +172,7 @@ def build_scene_tables(scene, device, nee: bool = False):
         nee=nee and extract_lights(host) is not None, inst=inst,
         checker=checker_spec(scene), itex=itex, itex_tab=itex_rows,
         stream=packed.stream)
-    return tables, scene_data
+    return with_records(tables), scene_data
 
 
 def trace_tables(t: SceneTables, o, d, pix, seed: int, cfg: RenderConfig,
@@ -171,4 +186,24 @@ def trace_tables(t: SceneTables, o, d, pix, seed: int, cfg: RenderConfig,
                  rr_depth=cfg.russian_roulette_depth, nee=t.nee,
                  lights=t.lights, inst=t.inst, checker=t.checker, itex=t.itex,
                  itex_tab=t.itex_tab, stream=t.stream, depth_out=depth_out,
-                 collect_stats=collect_stats)
+                 collect_stats=collect_stats, records=t.records)
+
+
+def trace_launch(t: SceneTables, cfg: RenderConfig) -> dict:
+    """The trace kernel's launch for tables `t` (on a CUDA device) under
+    `cfg`: its instantiation ("variant", csrc/bounce.cuh kernel_variant)
+    and what that runs with (ops/trace.trace_config: the persistent grid,
+    threads a block, registers, local and shared memory)."""
+    from parallelraytracing_tpu_torch.ops.trace import (scene_arg,
+                                                        trace_config,
+                                                        trace_variant)
+    device = t.sph.device
+    scene = scene_arg(device, t.sph, t.quad, t.tri, t.sph_cl,
+                      t.quad_cl, t.tri_cl, t.mats, t_min=cfg.t_min,
+                      t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
+                      rr_depth=cfg.russian_roulette_depth, nee=t.nee,
+                      lights=t.lights, inst=t.inst, checker=t.checker,
+                      itex=t.itex, itex_tab=t.itex_tab, stream=t.stream,
+                      records=t.records)
+    variant = trace_variant(scene)
+    return dict(variant=variant, **trace_config(device, variant))

@@ -119,7 +119,8 @@ def _run_segment(tables, pix, state, scalars, n_bounces: int,
                   t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
                   tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
                   nee=t.nee, lights=t.lights, inst=t.inst, checker=t.checker,
-                  itex=t.itex, itex_tab=t.itex_tab, stream=t.stream)
+                  itex=t.itex, itex_tab=t.itex_tab, stream=t.stream,
+                  records=t.records)
 
 
 def _initial_state(o, d) -> torch.Tensor:

@@ -43,20 +43,22 @@ U = ctypes.c_uint
 
 
 class PrtScene(ctypes.Structure):
-    """ctypes mirror of ``struct PrtScene`` in csrc/bounce.cuh."""
+    """ctypes mirror of ``struct PrtScene`` in csrc/bounce.cuh: the tables'
+    records (ops/pack.SceneRecords), their widths and the scene's facts."""
     _fields_ = [
         ("sph", P), ("sph_cl", P),
         ("n_sph", I), ("sph_cl_rows", I), ("sph_cl_cols", I),
         ("quad", P), ("quad_cl", P),
         ("n_quad", I), ("quad_cl_rows", I), ("quad_cl_cols", I),
-        ("tri", P), ("tri_cl", P),
+        ("tri", P), ("tri_tail", P), ("tri_cl", P),
         ("n_tri", I), ("tri_cl_rows", I), ("tri_cl_cols", I),
+        ("tri_tail_w", I),
         ("mats", P), ("n_mats", I),
         ("csize", I), ("tri_csize", I),
         ("t_min", F), ("t_cap", F), ("sky", F * 13), ("sky_mode", I),
         ("lights", P), ("n_lights", I), ("rr_depth", I),
-        ("itri", P), ("iacc", P), ("ibox", P), ("inst", P),
-        ("n_itri", I), ("n_iacc", I), ("n_inst", I),
+        ("itri", P), ("itri_tail", P), ("iacc", P), ("ibox", P), ("inst", P),
+        ("n_itri", I), ("n_iacc", I), ("n_inst", I), ("itri_tail_w", I),
         ("mtex", P), ("itex", P),
         ("mini", P), ("n_mini", I), ("chunk", I), ("node_rows", I),
         ("stream_shift", I),
@@ -69,7 +71,7 @@ SCENE = ctypes.POINTER(PrtScene)
 SIGNATURES = {
     "trace": ("prt_trace_launch", [
         I, P, SCENE,           # device, stream, scene
-        P, P, P, P, I,         # o, d, pix, out, n_rays
+        P, P, P, P, P, I,      # o, d, pix, out, next (ray counter), n_rays
         U, I,                  # seed, max_depth
     ]),
     "segment": ("prt_segment_launch", [

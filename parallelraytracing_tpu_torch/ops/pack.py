@@ -69,6 +69,7 @@ import sys
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from parallelraytracing_tpu_torch.core import geometry as geo
 from parallelraytracing_tpu_torch.core.scene import MAT_DIELECTRIC, MAT_EMISSIVE, MAT_METAL
@@ -990,3 +991,126 @@ def pack_lights_table(scene: dict) -> np.ndarray:
         (lc * ln).sum(1)[None], us.T, (lc * us).sum(1)[None], vs.T,
         (lc * vs).sum(1)[None], (lights.radius * lights.radius)[None]],
         axis=0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' 16-byte records
+# ---------------------------------------------------------------------------
+
+def _words(rows) -> tuple:
+    """`rows` zero-padded (-1) to a whole number of float4s."""
+    rows = tuple(rows)
+    return rows + (-1,) * (-len(rows) % 4)
+
+
+def record_rows(kind: str, n_rows: int) -> tuple:
+    """The table row each float of a `kind` record holds (-1: a zero pad
+    word), for a (n_rows, N) table.  Kinds:
+
+    - ``node``: a threaded tree's column (8 rows) as {lo.xyz, miss},
+      {hi.xyz, leaf word}; a linear cluster table's or ``ibox``'s box (6
+      rows) as {lo.xyz, 0}, {hi.xyz, 0};
+    - ``sph``: {c.xyz, r2}, {mid, ord, 0, 0};
+    - ``quad``: its 14 rows in order, in 16 floats;
+    - ``tri``: the hit record of a triangle (``tri`` or ``itri``), rows
+      0-15, what the hit test reads for every candidate;
+    - ``tri_tail``: the rest of a ``tri`` column, read only by a candidate
+      that hits: ord, mid, the three vertex normals, the texture
+      coordinates of a 33-row table;
+    - ``itri_tail``: the three vertex normals and the texture coordinates
+      of a 31-row ``itri``;
+    - ``inst``, ``lights``: their 24 and 28 rows in order;
+    - ``mats``: {mtype, c.xyz}, {extra, 0, 0, 0}."""
+    if kind == "node":
+        if n_rows == TREE_ROWS:
+            return (0, 1, 2, 6, 3, 4, 5, 7)
+        if n_rows == IBOX_ROWS:
+            return (0, 1, 2, -1, 3, 4, 5, -1)
+    elif kind == "sph" and n_rows == 6:
+        return (0, 1, 2, 3, 4, 5, -1, -1)
+    elif kind == "quad" and n_rows == 14:
+        return _words(range(14))
+    elif kind == "tri" and n_rows in (TRI_ROWS, TRI_UV_ROWS, ITRI_ROWS,
+                                      ITRI_UV_ROWS):
+        return tuple(range(16))
+    elif kind == "tri_tail" and n_rows in (TRI_ROWS, TRI_UV_ROWS):
+        return _words((17, 16) + tuple(range(18, n_rows)))
+    elif kind == "itri_tail" and n_rows in (ITRI_ROWS, ITRI_UV_ROWS):
+        return _words(range(16, n_rows))
+    elif kind == "inst" and n_rows == INST_ROWS:
+        return tuple(range(INST_ROWS))
+    elif kind == "lights" and n_rows == LIGHT_ROWS:
+        return tuple(range(LIGHT_ROWS))
+    elif kind == "mats" and n_rows == 5:
+        return _words(range(5))
+    raise ValueError(f"no {kind!r} record for a table of {n_rows} rows")
+
+
+def pack_records(table, kind: str):
+    """The kernels' copy of a (C, N) float32 column table: (N, W) float32
+    on the table's device, record j holding column j's values in the
+    words ``record_rows(kind, C)`` names, zero in the pad words, W a
+    multiple of 4, so every record is whole float4s and 16-byte aligned
+    (a PyTorch allocation is).  The values are exact copies: a kernel
+    that reads a record sees the column's floats.  One stack of row views
+    on the device, no host copy."""
+    rows = record_rows(kind, int(table.shape[0]))
+    zero = table.new_zeros(table.shape[1])
+    return torch.stack([table[r] if r >= 0 else zero for r in rows], dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneRecords:
+    """Every table the kernels read through ``PrtScene``, as the (N, W)
+    records of ``pack_records`` (the texture tables stay columns).  None
+    for a table the scene does not have."""
+    sph: Any
+    sph_cl: Any
+    quad: Any
+    quad_cl: Any
+    tri: Any
+    tri_tail: Any
+    tri_cl: Any
+    mats: Any
+    lights: Any = None
+    itri: Any = None
+    itri_tail: Any = None
+    iacc: Any = None
+    ibox: Any = None
+    inst: Any = None
+    mini: Any = None
+
+
+#: (SceneRecords field, record kind) of each table
+RECORD_KINDS = (("sph", "sph"), ("sph_cl", "node"), ("quad", "quad"),
+                ("quad_cl", "node"), ("tri", "tri"), ("tri_tail", "tri_tail"),
+                ("tri_cl", "node"), ("mats", "mats"), ("lights", "lights"),
+                ("itri", "tri"), ("itri_tail", "itri_tail"),
+                ("iacc", "node"), ("ibox", "node"), ("inst", "inst"),
+                ("mini", "node"))
+
+
+def record_columns(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats,
+                   lights=None, inst=None, stream=None) -> dict:
+    """{SceneRecords field: the column table its records are made of} for
+    a scene's tables: the column tables, the light table or None, the
+    instance tables (an ``engines/tables.InstanceTables``) or None, the
+    stream route's ``StreamTables`` or None."""
+    cols = dict(sph=sph, sph_cl=sph_cl, quad=quad, quad_cl=quad_cl, tri=tri,
+                tri_tail=tri, tri_cl=tri_cl, mats=mats, lights=lights)
+    if inst is not None:
+        cols.update(itri=inst.itri, itri_tail=inst.itri, iacc=inst.iacc,
+                    ibox=inst.ibox, inst=inst.inst)
+    if stream is not None:
+        cols["mini"] = stream.mini
+    return cols
+
+
+def scene_records(*tables, **kw) -> SceneRecords:
+    """The records of a scene's tables (``pack_records`` of each table of
+    ``record_columns``, same arguments).  Made once per scene by
+    ``engines/tables.build_scene_tables``."""
+    cols = record_columns(*tables, **kw)
+    return SceneRecords(**{name: pack_records(cols[name], kind)
+                           for name, kind in RECORD_KINDS
+                           if cols.get(name) is not None})

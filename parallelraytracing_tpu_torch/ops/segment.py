@@ -19,7 +19,8 @@ kernel reads `count` there, so a frame needs no host sync between
 segments); the tables of ops/pack.py, with ``nee`` the light table, with
 ``inst`` the instance tables, and the sky spec and the ``checker`` /
 ``itex`` / ``itex_tab`` textures and the ``stream`` tables of a mesh on
-the stream route (as in ops/trace.py).  The material id
+the stream route, and ``records``, the kernels' copy of the tables (as
+in ops/trace.py: made by the wrapper when None).  The material id
 and texture coordinates of a hit live inside one bounce only: the state
 stays 13 planes.  Returns a new (13, R) state: the 12 planes after
 the segment and alive: 0.0 ended, 1.0 goes on, 2.0 goes on from a
@@ -54,7 +55,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
             mats, *, n_bounces: int, t_min: float, t_max: float, sky,
             tri_live: bool, rr_depth: int = 0, nee: bool = False,
             lights=None, inst=None, checker=(), itex=(),
-            itex_tab=None, stream=None) -> torch.Tensor:
+            itex_tab=None, stream=None, records=None) -> torch.Tensor:
     """Run `n_bounces` bounces over the queue; the new (13, R) state."""
     if state.device.type == "cpu":
         return segment_reference(pix, state, scalars, sph, quad, tri, sph_cl,
@@ -75,7 +76,7 @@ def segment(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
                       lights=lights, inst=inst, checker=checker, itex=itex,
-                      itex_tab=itex_tab, stream=stream)
+                      itex_tab=itex_tab, stream=stream, records=records)
 
     from parallelraytracing_tpu_torch.ops import _build
     launch = _build.load("segment")
@@ -96,8 +97,10 @@ def segment_reference(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
                       tri_cl, mats, *, n_bounces: int, t_min: float,
                       t_max: float, sky, tri_live: bool, rr_depth: int = 0,
                       nee: bool = False, lights=None, inst=None, checker=(),
-                      itex=(), itex_tab=None, stream=None) -> torch.Tensor:
-    """Plain PyTorch version of ``segment`` (same signature and result).
+                      itex=(), itex_tab=None, stream=None,
+                      records=None) -> torch.Tensor:
+    """Plain PyTorch version of ``segment`` (same signature and result;
+    the records are not read).
     Each bounce runs on the slots still alive; a dead slot's state is left
     as it was.  As in ``trace_reference``, the fold tests every slot
     column of a stream route's tables."""

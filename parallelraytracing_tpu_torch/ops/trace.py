@@ -8,7 +8,8 @@ image textures and the directional sky.  Two functions of one signature:
 - ``trace``: the wrapper.  On a CUDA tensor it launches the hand-written
   kernel ``csrc/trace.cu`` (built at first use, ops/_build.py) or raises;
   on a CPU tensor it runs ``trace_reference``.  ``trace.launches`` counts
-  kernel launches.
+  kernel launches.  The kernel is persistent: ``trace_config`` says with
+  which grid, block and resources each instantiation runs.
 - ``trace_reference``: the plain PyTorch version, vectorised over rays.
   Its closest hit is a brute-force fold over every sphere, quad and
   triangle column, and over each instance's own mesh triangles behind
@@ -39,7 +40,12 @@ as engines/tables.py does).  ``rr_depth`` > 0 plays Russian roulette
 from that absolute depth on.  ``inst`` is the scene's
 ``engines/tables.InstanceTables`` (the four tables of
 ``pack_instance_tables`` and each instance's triangle run), or None.
-Returns (R, 3) float32 radiance.
+``records`` is the ``ops/pack.SceneRecords`` of those tables, the copy
+the kernels read (``SceneTables.records``, made once per scene); without
+it the wrapper makes them at each call (``ops/pack.scene_records``: one
+stack of row views a table on the device, ~15 small launches, no host
+sync; the plain version reads the columns and ignores them).  Returns
+(R, 3) float32 radiance.
 
 A triangle kind of never-hit pad columns (``tri_live`` False) is skipped.
 ``stream`` is the ``ops/pack.StreamTables`` of a mesh on the stream route
@@ -81,11 +87,13 @@ from parallelraytracing_tpu_torch.ops import ieee, rng
 from parallelraytracing_tpu_torch.ops.pack import (CLUSTER, IACC_ROWS, IBOX_ROWS,
                                                    INST_ROWS, ITRI_ROWS,
                                                    ITRI_UV_ROWS, KTEX_MAX,
-                                                   LIGHT_ROWS, TEX_LANES,
-                                                   TREE_ROWS,
+                                                   LIGHT_ROWS, RECORD_KINDS,
+                                                   TEX_LANES, TREE_ROWS,
                                                    TRI_CLUSTER, TRI_ROWS,
                                                    TRI_UV_ROWS,
-                                                   check_instance_layout)
+                                                   check_instance_layout,
+                                                   record_columns,
+                                                   record_rows, scene_records)
 from parallelraytracing_tpu_torch.ops.textures import CHECKER_OFFSET
 
 BIG = 3.0e38
@@ -125,7 +133,7 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
           tri_live: bool, rr_depth: int = 0, nee: bool = False,
           lights=None, inst=None, checker=(), itex=(), itex_tab=None,
           stream=None, depth_out: bool = False,
-          collect_stats: bool = False):
+          collect_stats: bool = False, records=None):
     """Trace R rays through up to `max_depth` bounces; (R, 3) radiance,
     with the probes asked for after it (the module's note).
 
@@ -151,15 +159,18 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
                       mats, t_min=t_min, t_max=t_max, sky=sky,
                       tri_live=tri_live, rr_depth=rr_depth, nee=nee,
                       lights=lights, inst=inst, checker=checker, itex=itex,
-                      itex_tab=itex_tab, stream=stream)
+                      itex_tab=itex_tab, stream=stream, records=records)
 
     from parallelraytracing_tpu_torch.ops import _build
     out = torch.empty((r, 3), dtype=torch.float32, device=o.device)
     ptr = torch.Tensor.data_ptr
     if not (depth_out or collect_stats):
+        # the persistent grid's ray counter, 0 at the launch
+        nxt = torch.zeros((1,), dtype=torch.int32, device=o.device)
         err = _build.load("trace")(
             *stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d),
-            ptr(pix), ptr(out), r, int(seed) & rng.MASK32, int(max_depth))
+            ptr(pix), ptr(out), ptr(nxt), r, int(seed) & rng.MASK32,
+            int(max_depth))
         if err != 0:
             raise RuntimeError(f"trace kernel launch failed: cudaError_t {err}")
         trace.launches += 1
@@ -178,6 +189,38 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
 
 trace.launches = 0
 trace.probe_launches = 0
+
+#: the fields of ``trace_config``, in csrc/trace.cu prt_trace_info's order
+TRACE_INFO = ("grid", "threads", "blocks_per_sm", "registers",
+              "local_bytes", "static_smem", "dynamic_smem", "sms")
+
+
+def trace_variant(scene) -> int:
+    """The instantiation a launch picks for a ``scene_arg`` struct
+    (csrc/bounce.cuh kernel_variant)."""
+    from parallelraytracing_tpu_torch.ops import _build
+    lib = _build.load("trace").library
+    lib.prt_trace_variant.argtypes = [_build.SCENE]
+    lib.prt_trace_variant.restype = ctypes.c_int
+    return int(lib.prt_trace_variant(ctypes.byref(scene)))
+
+
+def trace_config(device, variant: int) -> dict:
+    """What the trace kernel's instantiation `variant` runs with on CUDA
+    `device` (the fields of TRACE_INFO): its persistent grid in blocks,
+    threads a block, resident blocks per SM, registers and local memory a
+    thread (bytes), static and dynamic shared memory a block (bytes), and
+    the device's SMs."""
+    from parallelraytracing_tpu_torch.ops import _build
+    lib = _build.load("trace").library
+    lib.prt_trace_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.prt_trace_info.restype = ctypes.c_int
+    info = (ctypes.c_int * len(TRACE_INFO))()
+    index = stream_of(torch.device(device))[0]
+    err = lib.prt_trace_info(index, int(variant), info)
+    if err != 0:
+        raise RuntimeError(f"trace kernel query failed: cudaError_t {err}")
+    return dict(zip(TRACE_INFO, info))
 
 
 def _with_probes(rad, depth, stats, depth_out: bool, collect_stats: bool):
@@ -224,10 +267,10 @@ def _light_table(nee: bool, lights):
 
 
 def _instance_tables(device, inst):
-    """Validate the instance tables a kernel reads: (pointers, widths)
-    for ``PrtScene``, all null and 0 without instances."""
+    """Validate the instance tables a kernel reads: their widths for
+    ``PrtScene``, all 0 without instances."""
     if inst is None:
-        return (None,) * 4 + (0,) * 3
+        return (0,) * 3
     check_instance_layout(inst.itri.shape[0], inst.iacc.shape[0])
     tabs = {"itri": inst.itri, "iacc": inst.iacc, "ibox": inst.ibox,
             "inst": inst.inst}
@@ -240,9 +283,7 @@ def _instance_tables(device, inst):
             f"instance tables: want itri ({ITRI_ROWS}, Nt), iacc "
             f"({IACC_ROWS}, Mb), ibox ({IBOX_ROWS}, Ni), inst ({INST_ROWS}, "
             f"Ni) with Ni >= 1 and one triangle run per instance")
-    ptr = torch.Tensor.data_ptr
-    return (ptr(inst.itri), ptr(inst.iacc), ptr(inst.ibox), ptr(inst.inst),
-            inst.itri.shape[1], inst.iacc.shape[1], n_inst)
+    return inst.itri.shape[1], inst.iacc.shape[1], n_inst
 
 
 def _check_stream(tri, tri_cl, stream) -> None:
@@ -322,13 +363,31 @@ def sky_mode(sky: tuple) -> int:
     return 2 if any(sky[9:12]) else 1
 
 
+def _check_records(records, device, cols: dict) -> None:
+    """Validate `records` (ops/pack.SceneRecords) against the column
+    tables `cols` ({field: table or None}) they stand for: each a
+    contiguous float32 tensor on `device` with one record a column."""
+    for name, kind in RECORD_KINDS:
+        col, rec = cols.get(name), getattr(records, name)
+        if col is None:
+            continue
+        want = (int(col.shape[1]), len(record_rows(kind, int(col.shape[0]))))
+        if rec is None or tuple(rec.shape) != want:
+            raise ValueError(f"records.{name}: want {want} for its "
+                             f"{tuple(col.shape)} table, got "
+                             f"{None if rec is None else tuple(rec.shape)}")
+        check_tensors(device, {f"records.{name}": rec}, {})
+
+
 def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
               t_min: float, t_max: float, sky, tri_live: bool,
               rr_depth: int = 0, nee: bool = False, lights=None, inst=None,
-              checker=(), itex=(), itex_tab=None, stream=None):
-    """Validate the tables a kernel reads and pack them into the
-    ``PrtScene`` struct of csrc/bounce.cuh.  The struct holds raw device
-    pointers: the tables must outlive the launch."""
+              checker=(), itex=(), itex_tab=None, stream=None, records=None):
+    """Validate the tables a kernel reads and pack their records
+    (`records`, or ``ops/pack.scene_records`` of the tables when it is
+    None) into the ``PrtScene`` struct of csrc/bounce.cuh.  The struct
+    holds raw device pointers: the records must outlive the launch; the
+    struct keeps them as its ``records`` attribute."""
     from parallelraytracing_tpu_torch.ops import _build
     sky = _check_sky(sky)
     lights = _light_table(nee, lights)
@@ -357,27 +416,46 @@ def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
                 or (cl.shape[0] == 6 and cl.shape[1] == n_cl + 1)):
             raise ValueError(f"{name} {tuple(cl.shape)}: want an (8, M) "
                              f"tree or a (6, {n_cl + 1}) linear table")
-    ptr = torch.Tensor.data_ptr
+    tabs = (sph, quad, tri, sph_cl, quad_cl, tri_cl, mats)
+    cols = record_columns(*tabs, lights=lights, inst=inst, stream=stream)
+    if records is None:
+        records = scene_records(*tabs, lights=lights, inst=inst,
+                                stream=stream)
+    else:
+        _check_records(records, device, cols)
+
+    def rec(name):
+        return None if cols.get(name) is None else getattr(records,
+                                                           name).data_ptr()
+
+    def width(name):  # float4s a record
+        return 0 if cols.get(name) is None else getattr(records,
+                                                        name).shape[1] // 4
+
     textured = bool(checker) or bool(itex)
     mtex = (texture_table(tuple(tuple(float(x) for x in c) for c in checker),
                           tuple((float(m), int(o), int(h), int(w))
                                 for m, o, h, w in itex),
                           int(mats.shape[1]), device) if textured else None)
-    return _build.PrtScene(
-        ptr(sph), ptr(sph_cl), sph.shape[1], *sph_cl.shape,
-        ptr(quad), ptr(quad_cl), quad.shape[1], *quad_cl.shape,
-        ptr(tri), ptr(tri_cl), tri.shape[1] if tri_live else 0,
-        *tri_cl.shape,
-        ptr(mats), mats.shape[1], CLUSTER, TRI_CLUSTER,
+    scene = _build.PrtScene(
+        rec("sph"), rec("sph_cl"), sph.shape[1], *sph_cl.shape,
+        rec("quad"), rec("quad_cl"), quad.shape[1], *quad_cl.shape,
+        rec("tri"), rec("tri_tail"), rec("tri_cl"),
+        tri.shape[1] if tri_live else 0, *tri_cl.shape, width("tri_tail"),
+        rec("mats"), mats.shape[1], CLUSTER, TRI_CLUSTER,
         float(t_min), _t_cap(t_max),
         (ctypes.c_float * 13)(*(sky + (0.0,) * 10)[:13]),
-        sky_mode(sky), None if lights is None else ptr(lights),
+        sky_mode(sky), rec("lights"),
         0 if lights is None else lights.shape[1], max(int(rr_depth), 0),
-        *inst_arg, None if mtex is None else ptr(mtex),
-        ptr(itex_tab) if itex else None,
+        rec("itri"), rec("itri_tail"), rec("iacc"), rec("ibox"), rec("inst"),
+        *inst_arg, width("itri_tail"),
+        None if mtex is None else mtex.data_ptr(),
+        itex_tab.data_ptr() if itex else None,
         *((None, 0, 0, 0, 0) if stream is None else
-          (ptr(stream.mini), stream.mini.shape[1], int(stream.chunk),
+          (rec("mini"), stream.mini.shape[1], int(stream.chunk),
            int(stream.node_rows), stream.shift)))
+    scene.records = records
+    return scene
 
 
 # ---------------------------------------------------------------------------
@@ -991,8 +1069,9 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
                     nee: bool = False, lights=None, inst=None, checker=(),
                     itex=(), itex_tab=None, stream=None,
                     depth_out: bool = False,
-                    collect_stats: bool = False):
-    """Plain PyTorch version of ``trace`` (same signature and result).
+                    collect_stats: bool = False, records=None):
+    """Plain PyTorch version of ``trace`` (same signature and result; the
+    records are the kernels' copy of the tables and are not read).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
     its state unchanged, as in the TPU kernel's dead-tile exit.  The
     stream tables are validated and not walked by the radiance's fold,

@@ -580,6 +580,43 @@ def test_probe_kernel_matches_plain_on_meshes(cuda, mesh_ply, monkeypatch):
     probe_vs_plain(r)
 
 
+#: ray counts of the persistent trace kernel's edge cases: none, one,
+#: under a warp, a warp and two more, a ragged count of blocks; the test
+#: adds one more ray than the persistent grid has threads
+REGEN_RAYS = (0, 1, 31, 33, 4101)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_depth", [1, 20])
+@pytest.mark.parametrize("preset,nee", [("random_balls_large", False),
+                                        ("cornell", True)])
+def test_persistent_trace_equals_probe(cuda, preset, nee, max_depth):
+    """The persistent trace kernel (path regeneration through its ray
+    counter) against the probe kernel (one thread per ray, the loop the
+    trace kernel had): bit for bit for every ray count of REGEN_RAYS and
+    the persistent grid's threads + 1, and two launches give the same
+    bits, whatever lane and iteration ran each ray."""
+    from parallelraytracing_tpu_torch.engines.tables import trace_launch
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    r, _ = preset_renderer(preset, 128, 72, max_depth=max_depth, nee=nee)
+    launch = trace_launch(r._tables, r.config)
+    assert launch["grid"] >= launch["sms"] and launch["threads"] % 32 == 0
+    o, d, pix, seed = frame_inputs(r, 0)
+    full = launch["grid"] * launch["threads"] + 1
+    reps = -(-full // o.shape[0])
+    o, d, pix = (x.repeat((reps,) + (1,) * (x.dim() - 1)) for x in (o, d, pix))
+    kern = traced(r, trace)
+    probe = traced(r, lambda *a, **kw: trace(*a, **kw, depth_out=True)[0])
+    for n in REGEN_RAYS + (full,):
+        args = (o[:n].contiguous(), d[:n].contiguous(), pix[:n].contiguous(),
+                seed)
+        k1, k2, pk = kern(*args), kern(*args), probe(*args)
+        torch.cuda.synchronize()
+        assert k1.shape == (n, 3) and torch.isfinite(k1).all()
+        assert torch.equal(k1, pk), n
+        assert torch.equal(k1, k2), n
+
+
 @pytest.mark.cuda
 def test_depth_sort_films_equal_on_card(cuda):
     """depth_sort 1 and 13 render depth_sort 0's film bit for bit on the

@@ -318,15 +318,16 @@ def test_tri_heavy_counts_instanced_triangles():
 
 
 def test_kernel_scene_struct_carries_instances():
-    """scene_arg packs the instance tables' widths into PrtScene and
-    refuses tables of the wrong shape."""
+    """scene_arg packs the instance tables' widths and records (the
+    tables' own, made once with them) into PrtScene and refuses tables of
+    the wrong shape."""
     t, _ = build_scene_tables(make_scene("two", T.Scene), "cpu")
     tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
     kw = dict(t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=t.tri_live)
     cpu = torch.device("cpu")
-    s = scene_arg(cpu, *tabs, **kw, inst=t.inst)
+    s = scene_arg(cpu, *tabs, **kw, inst=t.inst, records=t.records)
     assert (s.n_itri, s.n_iacc, s.n_inst) == (100, t.inst.iacc.shape[1], 4)
-    assert s.itri == t.inst.itri.data_ptr() and s.n_tri == 0
+    assert s.itri == t.records.itri.data_ptr() and s.n_tri == 0
     assert scene_arg(cpu, *tabs, **kw).n_inst == 0
     bad = dataclasses.replace(t.inst, ibox=t.inst.ibox[:, :3].contiguous())
     with pytest.raises(ValueError, match="instance tables"):

@@ -200,8 +200,10 @@ def test_stream_tables_are_validated(monkeypatch):
     st = t.stream
     tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
     kw = dict(t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=t.tri_live)
-    s = scene_arg(torch.device("cpu"), *tabs, **kw, stream=st)
-    assert s.mini == st.mini.data_ptr() and s.n_mini == st.mini.shape[1]
+    s = scene_arg(torch.device("cpu"), *tabs, **kw, stream=st,
+                  records=t.records)
+    assert s.mini == t.records.mini.data_ptr()
+    assert s.n_mini == st.mini.shape[1]
     assert (s.chunk, s.node_rows, s.stream_shift) == (CHUNK, 16, 6)
     assert s.n_tri == t.tri.shape[1] == st.mini.shape[1] // 16 * CHUNK
     assert scene_arg(torch.device("cpu"), *tabs, **kw).mini is None
