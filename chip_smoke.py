@@ -40,9 +40,9 @@ non-zero):
    instantiations of the first three (without triangles, with the dense
    triangle fold or the stream route's walk, with and without NEE,
    roulette, instances, the scene extensions) and of the micro's two
-   mixes; then each trace instantiation's persistent launch (its grid,
-   block, resident blocks per SM, registers and local memory as the
-   runtime reports them);
+   mixes; then each trace and segment instantiation's persistent launch
+   (its grid, block, resident blocks per SM, registers and local memory
+   as the runtime reports them);
 3. kernel vs plain PyTorch version on the card: at 320x180 on
    RANDOM_BALLS_LARGE and MATERIAL_TEST, depth 1 without jitter (winning
    radiance per ray within 1e-5 on >= 99.9% of rays) and depth 20 with
@@ -54,17 +54,20 @@ non-zero):
    sky, and a PNG;
 5. mesh, kernels vs plain at 320x180: the trace kernel (depth 1 without
    jitter, and depth 20 with jitter over 4 frames, with the bounds of
-   phase 3); the segment kernel (the 13 planes after one 2-bounce
-   segment from the camera rays within 1e-5 on >= 99.9% of slots, and
-   segmented_trace over the default schedule, depth 20 over 4 frames,
-   HDR RMSE < 1e-3);
+   phase 3); the segment kernel (one 2-bounce segment from the camera
+   rays, its slots matched to the plain version's by pixel id: each live
+   slot's outcome, a survivor's 13 planes or an ended path's radiance,
+   within 1e-5 on >= 99.9% of them, the same survivors with the alive
+   plane equal, the sort keys those of the survivors' planes exactly;
+   and segmented_trace over the default schedule, depth 20 over 4
+   frames, HDR RMSE < 1e-3);
 6. mesh, engines agree on the card: the films of wavefront_fused and
    fused at 320x180, depth 20, over 16 frames (HDR RMSE < 1e-3; the max
    abs difference is printed, 0 expected);
 7. mesh main path: WavefrontFusedRenderer from
    create_renderer("wavefront_fused") at 1920x1080, depth 20: first each
-   segment of frame 0 against the plain version at its real queue (the
-   13 planes of the live slots within 1e-5 on >= 99.9% of them); then 2
+   segment of frame 0 against the plain version at its real queue (phase
+   5's bounds), each segment's bound; then 2
    warm-up frames and >= 8 timed with CUDA events; ms/frame,
    Msamples/s, Mrays/s over count_frame_rays, segment launches per
    frame, a finite film that is neither black nor sky, and a PNG; then
@@ -81,9 +84,9 @@ non-zero):
 9. Russian roulette: RANDOM_BALLS_LARGE with rr_depth 3, NEE off, at
    1920x1080, with phase 8's bounds;
 10. path C at 1920x1080: every segment of frame 0 of the (3,)-bounce
-    default schedule against the plain segment at its real queue (13
-    planes within 1e-5 on >= 99.9% of live slots, the alive plane of 0, 1
-    and 2 exactly equal); the wavefront_fused and fused films over 16
+    default schedule against the plain segment at its real queue (phase
+    5's bounds, the alive plane's 1 and 2 exactly equal on the same
+    survivors); the wavefront_fused and fused films over 16
     frames (HDR RMSE < 1e-3, max abs difference printed, 0 expected);
     then timed;
 11. path D: at 320x180 (a 1080p plain mesh frame with NEE would take
@@ -99,8 +102,7 @@ non-zero):
 13. instances, kernels vs plain at 320x180, with and without NEE: the
     trace kernel (depth 1 without jitter and frame 0 at depth 8 per ray
     within 1e-5 on >= 99.9% of rays; films of 4 frames, HDR RMSE < 1e-3)
-    and one 2-bounce segment (13 planes within 1e-5 on >= 99.9% of
-    slots, the alive plane exactly equal);
+    and one 2-bounce segment (phase 5's bounds);
 14. instances, the engines agree: wavefront_fused and fused films over 16
     frames at 320x180 (HDR RMSE < 1e-3, max abs difference printed, 0
     expected); and instanced against baked: bench's tlas_blas scene (4
@@ -119,8 +121,7 @@ non-zero):
 17. the scene extensions, kernels vs plain at 320x180 (the kernels'
     kExt instantiations): T1 with and without NEE and with QMC + thin
     lens, T2, T3; the trace kernel as in phase 13 and one 2-bounce
-    segment (13 planes within 1e-5 on >= 99.9% of slots, the alive plane
-    equal);
+    segment (phase 5's bounds);
 18. the engines agree on T1 and T3: wavefront_fused and fused films over
     16 frames at 320x180 (HDR RMSE < 1e-3, 0 expected);
 19. T1-T3 timed at 1920x1080: T1 fused, wavefront_fused, fused with the
@@ -133,15 +134,16 @@ non-zero):
     threshold of 24,576): the stream instantiations of both kernels
     against their plain versions on 4,096 random camera rays, with and
     without NEE (the trace at depth 1 without jitter and at depth 8,
-    within 1e-5 on >= 99.9% of rays; one 2-bounce segment on all 13
-    planes, the alive plane equal), then on every camera ray of a frame
+    within 1e-5 on >= 99.9% of rays; one 2-bounce segment with phase 5's
+    bounds), then on every camera ray of a frame
     (the trace at depth 1 without jitter, one 2-bounce segment over the
     full queue, the same bounds); the films of 4 frames at 960x540, depth
     8, at chunk 64 against dense and against chunk 128 on both engines,
     bit for bit; the fused trace kernel's time, streamed and dense; with
     --stream-sweep also the same frames one bounce at a time through the
-    segment kernel, dense against chunks 64, 128 and 256: every slot that
-    differs equals the plain version in one of the two layouts (a tree
+    segment kernel, dense against chunks 64, 128 and 256: every pixel
+    whose outcome differs equals the plain version in one of the two
+    layouts (a tree
     culled a hit grazing a vertex on a box face), on at most 1e-5 of the
     segments;
 21. level 7 (327,680 triangles, past the dense layout's 2^18 cap): the
@@ -184,12 +186,27 @@ non-zero):
     kernel's (one thread per ray, the loop the trace kernel had) bit for
     bit, and two launches give the same bits; the headline's trace
     kernel timed on frames 0 and 7, and the records' cost when a caller
-    passes only column tables (the wrapper makes them at each call).
+    passes only column tables (the wrapper makes them at each call);
+27. (run inside phases 7, 10, 14, 18 and 21) the sort modes: on the
+    mesh, path C, the instanced scene and T1 at 1920x1080 and level 7 at
+    960x540, wavefront_fused under sort_rays "octant", "origin" and ""
+    renders the fused engine's sample buffers bit for bit (frames 0 and
+    1), each segment boundary timed in the frame (CUDA events between the
+    segment launches) and its argsort and two gathers alone, and each
+    mode's frame timed beside the fused engine's;
+28. (after phase 11) the segment kernel's queue at its edges: on the
+    mesh and CORNELL --nee --rr-depth 3 at 1920x1080, the first segment
+    over 0, 1, 31, 33, 4101 live slots and the persistent grid's threads
+    + 1 equals the plain version bit for bit (survivors' planes, pixel
+    ids and keys, ended paths' radiance) and a second launch; a whole
+    frame into a NaN-filled radiance buffer leaves no NaN and ends one
+    path per pixel.
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
 path's timed frames, its bound on the card for the measured launch at
-the measured peaks (the trace kernel's from counted visits), its
+the measured peaks (the trace kernel's from counted visits; every
+segment's of the segment kernel's frame), its
 NEE, roulette and instanced comparisons, and the timed paths A-D and
 the instanced ones), of each kernel's scene-extension
 instantiations ("trace[ext]", "segment[ext]": T1-T3) and of its stream
@@ -197,9 +214,11 @@ instantiations ("trace[stream]", "segment[stream]": phases 20-22), of
 the probe kernel ("trace[probe]": phases 23-24) and of the micro
 ("fp32_peak": phase 25); each trace entry names the launch of its
 scene's instantiation ("launch": grid, block, registers, local and
-shared memory, whether tables were staged in shared memory), and the
-trace entry lists all 48 ("instantiations") and phase 26's cases
-("regeneration"); the last line is
+shared memory, whether tables were staged in shared memory; likewise
+each segment entry), the trace and segment entries list all 48
+("instantiations"), the trace entry phase 26's cases ("regeneration"),
+the segment entry phase 27's sort modes ("sort_modes") and phase 28's
+cases ("queue_edges"); the last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -222,9 +241,8 @@ from pathlib import Path
 import numpy as np
 
 from parallelraytracing_tpu_torch.benchmarks.roofline import (
-    CHECKER_OPS, SEGMENT_RAY_BYTES, SKY_OPS, SPH_UV_OPS, TEX_OPS,
-    TRACE_RAY_BYTES, bound_from, counted_bound, kernel_bound, sum_counts,
-    table_bytes)
+    CHECKER_OPS, SKY_OPS, SPH_UV_OPS, TEX_OPS, TRACE_RAY_BYTES, bound_from,
+    counted_bound, kernel_bound, segment_io_bytes, sum_counts, table_bytes)
 
 SOURCE = "parallelraytracing_tpu_torch/csrc/trace.cu"
 REPLACES = "parallelraytracing_tpu/ops/pallas_trace.py:3214"
@@ -407,23 +425,115 @@ def ray_share(k, p) -> float:
     return float(((k - p).abs().amax(1) <= RAY_ATOL).float().mean())
 
 
-def segment_both(r, n_bounces: int = 2):
-    """(kernel state, plain state, kernel ms, plain ms) of one segment of
-    `n_bounces` bounces from frame 0's camera rays of renderer `r`."""
+def segment_outcomes(res, rad):
+    """Each pixel's outcome of a segment launch, (P, 16): a survivor's 13
+    planes (NaN for a pixel that did not survive) and the radiance its
+    path wrote to `rad` (NaN where none was written: `rad` is filled with
+    NaN before the launch).  `res` is the launch's (state, pix, key,
+    count)."""
     import torch
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars)
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
-    o, d, pix, seed = frame_inputs(r, 0)
-    state = _initial_state(o, d)
-    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+    state, pix, _, count = res
+    c = int(count)
+    planes = torch.full((rad.shape[0], 13), float("nan"), device=rad.device)
+    planes[pix[:c].long()] = state[:, :c].t()
+    return torch.cat([planes, rad], 1)
 
-    def run(fn):
-        return _run_segment(r._tables, pix, state, _scalars(seed, 0, count),
-                            n_bounces, r.config, fn)
-    k, p = run(segment), run(segment_reference)
-    return k, p, cuda_ms(lambda: run(segment), 5), cuda_ms(
-        lambda: run(segment_reference), 1)
+
+def compare_outcomes(k, p, live) -> dict:
+    """Kernel outcomes `k` against plain ones `p` (segment_outcomes) on
+    the pixels `live` of the live input slots: the share whose outcome
+    agrees (the same end, survivor or ended, each value within RAY_ATOL),
+    whether the alive plane is equal on every pixel (the same survivors,
+    with the same NEE mark), the max abs error where both hold a value,
+    and whether the two are equal bit for bit."""
+    import torch
+    k, p = k[live], p[live]
+    both = torch.isnan(k) & torch.isnan(p)
+    diff = (k - p).abs()
+    close = (diff <= RAY_ATOL) | both
+    held = ~torch.isnan(diff)
+    return dict(share=float(close.all(1).float().mean()) if len(live) else 1.0,
+                alive_equal=bool(((k[:, 12] == p[:, 12]) | both[:, 12]).all()),
+                max_abs_err=float(diff[held].max()) if held.any() else 0.0,
+                bit_equal=bool(torch.equal(k.view(torch.int32),
+                                           p.view(torch.int32))))
+
+
+def key_exact(res, bb, mode: str) -> bool:
+    """The kernel's sort keys are the plain sort_key of its own survivors'
+    planes, bit for bit, and DEAD_KEY past them (True without a key)."""
+    import torch
+    from parallelraytracing_tpu_torch.ops.segment import DEAD_KEY, sort_key
+    state, _, key, count = res
+    if key is None:
+        return True
+    c = int(count)
+    return bool(torch.equal(key[:c], sort_key(state[:, :c], bb, mode))
+                and (key[c:] == DEAD_KEY).all())
+
+
+def queue_vs_plain(r, pix, state, count, seed: int, depth0: int,
+                   n_bounces: int, sort_rays: str, reps: int = 5,
+                   out=None) -> tuple:
+    """One segment of wavefront_fused renderer r over the queue (pix,
+    state) with `count` live, through the kernel and its plain version,
+    each writing to its own NaN-filled radiance: the comparison of their
+    outcomes (compare_outcomes, key_exact), the survivor counts, the
+    kernel's ms (mean of `reps` launches on the same input, 0 for none)
+    and the plain version's.  Returns (record, the kernel's result, its
+    radiance): a timed launch leaves the same survivors and radiance."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _run_segment
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    t, cfg = r._tables, r.config
+    rads = [torch.full((cfg.width * cfg.height, 3), float("nan"),
+                       device="cuda") for _ in range(2)]
+
+    def run(fn, rad, queue_out=None):
+        return _run_segment(t, (state, pix), count, rad, seed, depth0,
+                            n_bounces, cfg, sort_rays, fn, out=queue_out)
+    p, plain_ms = timed_ms(lambda: run(segment_reference, rads[1]))
+    k = run(segment, rads[0], out)
+    live = pix[:int(count)].long()
+    rec = compare_outcomes(segment_outcomes(k, rads[0]),
+                           segment_outcomes(p, rads[1]), live)
+    rec.update(key_exact=key_exact(k, t.bb, sort_rays), live=int(count),
+               survivors=int(k[3]), plain_survivors=int(p[3]),
+               bounces=n_bounces, plain_ms=plain_ms,
+               ms=cuda_ms(lambda: run(segment, rads[0], out), reps)
+               if reps else 0.0)
+    return rec, k, rads[0]
+
+
+def segment_both(r, n_bounces: int = 2) -> dict:
+    """queue_vs_plain's record of one segment of `n_bounces` bounces from
+    frame 0's camera rays of renderer `r`, every slot live."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _initial_state
+    o, d, pix, seed = frame_inputs(r, 0)
+    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+    return queue_vs_plain(r, pix, _initial_state(o, d), count, seed, 0,
+                          n_bounces, r.sort_rays)[0]
+
+
+def segment_agrees(rec: dict) -> bool:
+    """A segment comparison holds: RAY_SHARE of the live pixels' outcomes
+    within RAY_ATOL, the alive plane equal, the keys exact."""
+    return (rec["share"] >= RAY_SHARE and rec["alive_equal"]
+            and rec["key_exact"])
+
+
+def segment_line(rec: dict) -> str:
+    """queue_vs_plain's record as the end of a phase line."""
+    return (f"{rec['share']:.6f} of the {rec['live']} live slots' outcomes "
+            f"(a survivor's 13 planes, an ended path's radiance) within "
+            f"{RAY_ATOL}, alive plane equal {rec['alive_equal']}, keys exact "
+            f"{rec['key_exact']}, bit-equal {rec['bit_equal']}, survivors "
+            f"{rec['survivors']} (plain {rec['plain_survivors']}), max abs "
+            f"err {rec['max_abs_err']:.3e}; segment kernel {rec['ms']:.3f} "
+            f"ms, plain {rec['plain_ms']:.3f} ms")
 
 
 def film_rmse(r, frames: int, fn_k, fn_p) -> float:
@@ -537,6 +647,24 @@ def trace_instantiations() -> list:
              "staged": False} for v in range(48)]
 
 
+def segment_launch(r) -> dict:
+    """The segment kernel's launch for wavefront_fused renderer r: its
+    instantiation and what that runs with (engines/tables.trace_launch)."""
+    from parallelraytracing_tpu_torch.engines.tables import trace_launch
+    return trace_launch(r._tables, r.config, "segment")
+
+
+def segment_instantiations() -> list:
+    """Each segment instantiation's ptxas record (ptxas_table) with the
+    persistent launch the runtime gives it (ops/segment.segment_config)."""
+    from parallelraytracing_tpu_torch.ops import _build
+    from parallelraytracing_tpu_torch.ops.segment import segment_config
+    table = {x["variant"]: x for x in ptxas_table(
+        "segment", _build.library_path("segment").with_suffix(".log"))}
+    return [{**table.get(v, {"variant": v}), **segment_config("cuda", v)}
+            for v in range(48)]
+
+
 def timed_ms(fn):
     """(fn(), milliseconds between CUDA events around the one call)."""
     import torch
@@ -601,27 +729,23 @@ def kernel_vs_plain(r, tag: str, label: str = "nee-vs-plain") -> dict:
 
 def check_segments(r, tag: str) -> list:
     """Each segment of frame 0 of wavefront_fused renderer r at its real
-    queue: the kernel and the plain version on the same input, the
-    kernel's state carried on.  Every live slot's 13 planes within
-    RAY_ATOL on RAY_SHARE of them, and the alive plane (0, 1, or NEE's 2)
-    equal on every slot.  Raises on a miss; returns one record each."""
+    queue: the kernel and the plain version on the same input
+    (queue_vs_plain, slots matched by pixel id), the kernel's queue and
+    radiance carried on.  RAY_SHARE of the live slots' outcomes within
+    RAY_ATOL, the alive plane (1, or NEE's 2) equal on every survivor and
+    the same survivors, the keys exact.  Raises on a miss; returns one
+    record each."""
+    import torch
     from parallelraytracing_tpu_torch.engines.wavefront_fused import \
         segmented_trace
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     segs = []
 
-    def checked(pix, state, scalars, *tabs, **kw):
-        k = segment(pix, state, scalars, *tabs, **kw)
-        p, p_ms = timed_ms(lambda: segment_reference(pix, state, scalars,
-                                                     *tabs, **kw))
-        live = int(scalars[2])
-        segs.append(dict(
-            bounces=kw["n_bounces"], live=live,
-            share=ray_share(k[:, :live].t(), p[:, :live].t()) if live
-            else 1.0, alive_equal=bool((k[12] == p[12]).all()),
-            max_abs_err=float((k - p).abs().max()),
-            ms=cuda_ms(lambda: segment(pix, state, scalars, *tabs, **kw), 5),
-            plain_ms=p_ms))
+    def checked(pix, state, count, rad, *tabs, **kw):
+        rec, k, k_rad = queue_vs_plain(
+            r, pix, state, count, kw["seed"], kw["depth0"], kw["n_bounces"],
+            kw["sort_rays"], out=kw["out"])
+        segs.append(rec)
+        rad.copy_(torch.where(torch.isnan(k_rad), rad, k_rad))
         return k
     segmented_trace(r._tables, *frame_inputs(r, 0), r.config,
                     sort_rays=r.sort_rays, schedule=tuple(r.segment_lengths()),
@@ -629,17 +753,206 @@ def check_segments(r, tag: str) -> list:
     cfg = r.config
     for sg in segs:
         phase("segment-vs-plain", f"{tag} {cfg.width}x{cfg.height} frame 0, "
-              f"segment of {sg['bounces']} bounces over {sg['live']} live "
-              f"slots: {sg['share']:.6f} within {RAY_ATOL} on all 13 planes, "
-              f"alive plane equal {sg['alive_equal']}, max abs err "
-              f"{sg['max_abs_err']:.3e}; segment kernel {sg['ms']:.3f} ms, "
-              f"plain {sg['plain_ms']:.3f} ms")
-        if sg["share"] < RAY_SHARE or not sg["alive_equal"]:
+              f"segment of {sg['bounces']} bounces: {segment_line(sg)}")
+        if not segment_agrees(sg):
             raise AssertionError(f"{tag}: segment kernel disagrees with plain")
     if len(segs) != len(r.segment_lengths()):
         raise AssertionError(f"{tag}: {len(segs)} segments checked, want "
                              f"{len(r.segment_lengths())}")
     return segs
+
+
+def boundary_times(w, frames: int = 3) -> dict:
+    """wavefront_fused renderer w's segment boundaries as its sort_rays
+    runs them: each boundary's time in the frame (CUDA events from the end
+    of one segment launch to the start of the next, mean over frames
+    0..frames-1: the argsort and the two gathers, or nothing under ""),
+    and, with a sort, each boundary's argsort and two gathers alone on
+    frame 0's pushed queues (mean of 5)."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        segmented_trace
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    marks, kept = [], []
+
+    def marked(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = segment(*a, **kw)
+        end.record()
+        marks.append((start, end))
+        return res
+
+    def keep(*a, **kw):
+        res = segment(*a, **kw)
+        if res[2] is not None:
+            kept.append(tuple(x.clone() for x in res[:3]))
+        return res
+
+    def frame(f, fn):
+        segmented_trace(w._tables, *frame_inputs(w, f), w.config,
+                        sort_rays=w.sort_rays,
+                        schedule=tuple(w.segment_lengths()), seg_fn=fn)
+        torch.cuda.synchronize()
+    gaps = []
+    for f in range(frames):
+        marks.clear()
+        frame(f, marked)
+        gaps.append([marks[i][1].elapsed_time(marks[i + 1][0])
+                     for i in range(len(marks) - 1)])
+    alone = []
+    if w.sort_rays:
+        frame(0, keep)
+        for state, pix, key in kept:
+            def boundary():
+                order = torch.argsort(key, stable=True)
+                return state.index_select(1, order), pix.index_select(0, order)
+            alone.append(cuda_ms(boundary, 5))
+    return dict(in_frame_ms=[sum(g[i] for g in gaps) / frames
+                             for i in range(len(gaps[0]))],
+                sort_gather_ms=alone)
+
+
+#: the sort modes' records by scene (sort_modes_phase), and the frames
+#: whose sample buffers are held bit-equal to the fused engine's
+SORTS, BIT_FRAMES = {}, 2
+
+
+def pixel_order(r, buf):
+    """Renderer r's sample buffer in pixel order: the fused engine keeps
+    its rays' (and film's) Morton order, buffer row j being pixel
+    r._ids[j]; wavefront_fused's is in pixel order already."""
+    if r.film_layout() is None:
+        return buf
+    out = buf.new_empty(buf.shape)
+    out[r._ids.long()] = buf
+    return out
+
+
+def sort_modes_phase(w, f, tag: str) -> dict:
+    """Each sort mode of wavefront_fused renderer w against fused renderer
+    f on the same scene, size and config: the sample buffers of frames
+    0..BIT_FRAMES-1 (what the film accumulates) bit-equal to f's; the
+    segment boundaries timed (boundary_times); the frame timed (TIMED
+    frames after WARMUP), beside f's.  w's sort_rays is restored.
+    Raises unless every mode's buffers are bit-equal; returns the record
+    (also kept in SORTS)."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        SORT_MODES
+    want = [pixel_order(f, f.render_sample_buffer(i))
+            for i in range(BIT_FRAMES)]
+    default, cfg = w.sort_rays, w.config
+    rec = {}
+    for mode in SORT_MODES:
+        w.sort_rays = mode
+        equal = all(torch.equal(w.render_sample_buffer(i), want[i])
+                    for i in range(BIT_FRAMES))
+        times = boundary_times(w)
+        for _ in range(WARMUP):
+            w.progressive_render()
+        ms = cuda_ms(w.progressive_render, TIMED)
+        rec[mode or "none"] = dict(bit_equal=equal, ms_per_frame=ms, **times)
+        phase("sort-modes", f"{tag} {cfg.width}x{cfg.height} depth "
+              f"{cfg.max_depth}, schedule {tuple(w.segment_lengths())}, "
+              f"sort_rays {mode!r}: frames 0-{BIT_FRAMES - 1} bit-equal to "
+              f"fused {equal}; boundaries in the frame " + " + ".join(
+                  f"{x:.3f}" for x in times["in_frame_ms"]) + " ms"
+              + ("; argsort + 2 gathers alone " + " + ".join(
+                  f"{x:.3f}" for x in times["sort_gather_ms"]) + " ms"
+                 if mode else "") + f"; {ms:.3f} ms/frame over {TIMED}")
+    w.sort_rays = default
+    for _ in range(WARMUP):
+        f.progressive_render()
+    rec["fused_ms_per_frame"] = cuda_ms(f.progressive_render, TIMED)
+    phase("sort-modes", f"{tag}: fused {rec['fused_ms_per_frame']:.3f} "
+          f"ms/frame over {TIMED}")
+    if not all(rec[m or "none"]["bit_equal"] for m in SORT_MODES):
+        raise AssertionError(f"{tag}: a sort mode's frame differs from "
+                             f"the fused engine's")
+    SORTS[tag] = rec
+    return rec
+
+
+#: phase 28: the live counts of the queue's edge cases (none, one, under
+#: a warp, a warp and two more, a ragged count of blocks); the phase adds
+#: the segment kernel's persistent grid's threads + 1
+EDGE_COUNTS = (0, 1, 31, 33, 4101)
+
+
+def queue_edge_phase(ply: str) -> dict:
+    """Phase 28: the segment kernel's queue at its edges, on the level-5
+    mesh (wavefront_fused, 1920x1080, depth 20) and CORNELL --nee
+    --rr-depth 3: for each live count of EDGE_COUNTS and the persistent
+    grid's threads + 1, the first segment of frame 0 over that prefix of
+    the camera rays' queue equals the plain version bit for bit (each
+    survivor's 13 planes, its pixel id and key, each ended path's
+    radiance: queue_vs_plain), and a second launch gives the same
+    survivors and radiance; then a whole frame into a radiance buffer
+    filled with NaN leaves no NaN, and its segments end exactly one path
+    per pixel.  Raises on a miss; returns the record."""
+    import torch
+    from parallelraytracing_tpu_torch.engines.tables import trace_launch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, segmented_trace)
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    rec = dict(cases=[], frames={})
+    for tag in ("mesh", "cornell nee rr"):
+        if tag == "mesh":
+            r, _ = mesh_renderer("wavefront_fused", ply, MAIN_W, MAIN_H,
+                                 max_depth=MAIN_DEPTH, jitter=True)
+        else:
+            r, _ = make_renderer("cornell", MAIN_W, MAIN_H, "wavefront_fused",
+                                 max_depth=MAIN_DEPTH, jitter=True, nee=True,
+                                 russian_roulette_depth=RR_DEPTH)
+        launch = trace_launch(r._tables, r.config, "segment")
+        full = launch["grid"] * launch["threads"] + 1
+        o, d, pix, seed = frame_inputs(r, 0)
+        state = _initial_state(o, d)
+        n_b = r.segment_lengths()[0]
+        for n in EDGE_COUNTS + (full,):
+            count = torch.full((1,), n, dtype=torch.int32, device="cuda")
+            cmp, k, k_rad = queue_vs_plain(r, pix, state, count, seed, 0, n_b,
+                                           r.sort_rays, reps=0)
+            first = segment_outcomes(k, k_rad)
+            _, k2, k2_rad = queue_vs_plain(r, pix, state, count, seed, 0, n_b,
+                                           r.sort_rays, reps=0)
+            again = segment_outcomes(k2, k2_rad)
+            rec["cases"].append(dict(
+                scene=tag, count=n, survivors=cmp["survivors"],
+                plain_bit_equal=cmp["bit_equal"], key_exact=cmp["key_exact"],
+                repeat_equal=bool(torch.equal(first.view(torch.int32),
+                                              again.view(torch.int32)))))
+        ends = []
+
+        def counted(pix_, state_, count_, rad_, *tabs, **kw):
+            res = segment(pix_, state_, count_, rad_, *tabs, **kw)
+            ends.append(int(count_) - int(res[3]))
+            return res
+        rad = torch.full((MAIN_W * MAIN_H, 3), float("nan"), device="cuda")
+        segmented_trace(r._tables, o, d, pix, seed, r.config,
+                        sort_rays=r.sort_rays,
+                        schedule=tuple(r.segment_lengths()), seg_fn=counted,
+                        rad=rad)
+        rec["frames"][tag] = dict(launch=launch, nan=int(torch.isnan(rad).sum()),
+                                  ended=sum(ends), pixels=MAIN_W * MAIN_H,
+                                  ended_by_segment=ends)
+        del r, o, d, pix, state, rad
+    bad = [c for c in rec["cases"] if not (c["plain_bit_equal"]
+                                          and c["key_exact"]
+                                          and c["repeat_equal"])]
+    phase("queue-edges", f"mesh and cornell --nee --rr-depth {RR_DEPTH} "
+          f"{MAIN_W}x{MAIN_H}, first segment over live counts {EDGE_COUNTS} "
+          f"and the persistent grid's threads + 1: "
+          f"{len(rec['cases']) - len(bad)} of {len(rec['cases'])} cases "
+          f"bit-equal to the plain version and to a second launch; whole "
+          f"frames into NaN-filled radiance: " + "; ".join(
+              f"{k} {v['nan']} NaN left, {v['ended']} paths ended for "
+              f"{v['pixels']} pixels" for k, v in rec["frames"].items()))
+    if bad or any(v["nan"] or v["ended"] != v["pixels"]
+                  for v in rec["frames"].values()):
+        raise AssertionError(f"queue edges: {bad}, {rec['frames']}")
+    return rec
 
 
 def timed_path(r, film, tag: str, png_dir) -> dict:
@@ -745,7 +1058,7 @@ def trace_bounds(r, inputs, segments: int, ext_ops: float = 0.0,
                             TRACE_RAY_BYTES, ext_ops)
     counted["tag"] = tag
     COUNTED.append(counted)
-    return dict(**kernel_bound(r._tables, segments, n, TRACE_RAY_BYTES,
+    return dict(**kernel_bound(r._tables, segments, n * TRACE_RAY_BYTES,
                                ext_ops), counted=counted,
                 launch=dict(trace_launch(r._tables, r.config),
                             staged=False))
@@ -756,14 +1069,32 @@ def trace_bounds(r, inputs, segments: int, ext_ops: float = 0.0,
 WALK = []
 
 
-def segment_bound(rec: dict, t, segments: int, n_rays: int,
-                  extra_ops: float = 0.0) -> dict:
-    """Add to `rec` the walk-shape bound (``kernel_bound``) of one
-    segment launch over tables t and register it in WALK."""
-    rec.update(kernel_bound(t, segments, n_rays, SEGMENT_RAY_BYTES,
-                            extra_ops))
-    WALK.append(rec)
-    return rec
+def segment_bounds(segs: list, t, counts: list, sort_rays: str,
+                   first_ops: float = 0.0) -> list:
+    """Add to each segment record of a frame (its "bounces", in order) the
+    walk-shape bound (``kernel_bound``) of its launch over tables t and
+    register it in WALK: its ray segments and queue bytes from the rays
+    entering each bounce `counts` (live input slots: the rays entering its
+    first bounce; survivors: those entering the next segment's, 0 at the
+    frame's end; a key written with `sort_rays` except at the end);
+    `first_ops`, the scene extensions' work, on the first segment.  The
+    first record also keeps the byte count of the one-thread-per-slot
+    form (every slot's 13 planes and pixel id read, 13 planes written)
+    as ``slot_io_bytes``."""
+    depth0 = 0
+    for i, sg in enumerate(segs):
+        end = depth0 + sg["bounces"]
+        live, survivors = counts[depth0], counts[end] if end < len(counts) else 0
+        io = segment_io_bytes(live, survivors, bool(sort_rays and survivors))
+        sg.update(kernel_bound(t, sum(counts[depth0:end]), io,
+                               first_ops if i == 0 else 0.0),
+                  io_bytes=io, counted_live=live,
+                  counted_survivors=survivors)
+        WALK.append(sg)
+        depth0 = end
+    if segs:
+        segs[0]["slot_io_bytes"] = counts[0] * (13 * 4 * 2 + 4)
+    return segs
 
 
 #: phase 23: each scene's probe records, and the rays sampled for the
@@ -1132,11 +1463,12 @@ def time_segments(r) -> list:
     from parallelraytracing_tpu_torch.ops.segment import segment
     segs = []
 
-    def timed(pix, state, scalars, *tabs, **kw):
-        segs.append(dict(bounces=kw["n_bounces"], live=int(scalars[2]),
-                         ms=cuda_ms(lambda: segment(pix, state, scalars,
-                                                    *tabs, **kw), 5)))
-        return segment(pix, state, scalars, *tabs, **kw)
+    def timed(pix, state, count, rad, *tabs, **kw):
+        ms = cuda_ms(lambda: segment(pix, state, count, rad, *tabs, **kw), 5)
+        res = segment(pix, state, count, rad, *tabs, **kw)
+        segs.append(dict(bounces=kw["n_bounces"], live=int(count),
+                         survivors=int(res[3]), ms=ms))
+        return res
     segmented_trace(r._tables, *frame_inputs(r, 0), r.config,
                     sort_rays=r.sort_rays, schedule=tuple(r.segment_lengths()),
                     seg_fn=timed)
@@ -1204,21 +1536,14 @@ def instanced_phases(ply: str, png_dir) -> dict:
         trace_rec = kernel_vs_plain(r, tag)
         w_r, _ = scene_renderer("wavefront_fused", scene, INST_EYE, INST_DIR,
                                 CMP_W, CMP_H, nee=nee, **cmp_kw)
-        k, p, s_ms, s_plain_ms = segment_both(w_r)
-        seg_rec = dict(share=ray_share(k.t(), p.t()),
-                       alive_equal=bool((k[12] == p[12]).all()),
-                       max_abs_err=float((k - p).abs().max()), ms=s_ms,
-                       plain_ms=s_plain_ms)
+        seg_rec = segment_both(w_r)
         phase("segment-vs-plain", f"{tag} {CMP_W}x{CMP_H}, one 2-bounce "
-              f"segment: {seg_rec['share']:.6f} of slots within {RAY_ATOL} "
-              f"on all 13 planes, alive plane equal {seg_rec['alive_equal']}"
-              f", max abs err {seg_rec['max_abs_err']:.3e}; segment kernel "
-              f"{s_ms:.3f} ms, plain {s_plain_ms:.3f} ms")
-        if seg_rec["share"] < RAY_SHARE or not seg_rec["alive_equal"]:
+              f"segment: {segment_line(seg_rec)}")
+        if not segment_agrees(seg_rec):
             raise AssertionError(f"{tag}: segment kernel disagrees with plain")
         cmp["nee" if nee else "plain"] = dict(trace=trace_rec,
                                               segment=seg_rec)
-        del k, p, w_r
+        del w_r
     rec["vs_plain"] = cmp
     phase("instances", f"torch.cuda.max_memory_allocated() "
           f"{torch.cuda.max_memory_allocated()} bytes (phases 12-13)")
@@ -1243,6 +1568,11 @@ def instanced_phases(ply: str, png_dir) -> dict:
         raise AssertionError("instances: wavefront_fused and fused disagree")
     rec["engines_agree"] = agree
     del w_r, w_film, f_r, f_film, diff
+    # 27. the sort modes at 1920x1080: films bit-equal, boundaries timed
+    sort_modes_phase(*(scene_renderer(e, scene, INST_EYE, INST_DIR, MAIN_W,
+                                      MAIN_H, max_depth=INST_DEPTH,
+                                      jitter=True)[0]
+                       for e in ("wavefront_fused", "fused")), "instances")
 
     films = {}
     for baked in (False, True):
@@ -1285,15 +1615,9 @@ def instanced_phases(ply: str, png_dir) -> dict:
                 probe_check(r, tag)  # 23. the probes on the instances
                 del inputs
             else:
-                segs = time_segments(r)
-                depth0 = 0
-                for sg in segs:
-                    segment_bound(
-                        sg, r._tables,
-                        sum(counts[depth0:depth0 + sg["bounces"]]),
-                        MAIN_W * MAIN_H)
-                    depth0 += sg["bounces"]
-                kern = dict(segments=segs)
+                segs = segment_bounds(time_segments(r), r._tables, counts,
+                                      r.sort_rays)
+                kern = dict(segments=segs, launch=segment_launch(r))
                 detail = "segment kernels " + " + ".join(
                     f"{sg['ms']:.3f}" for sg in segs) + " ms"
             phase("instances-kernels", f"{tag} {MAIN_W}x{MAIN_H} depth "
@@ -1402,7 +1726,9 @@ def ext_kernel_record(kernel: str, ext: dict) -> dict:
                 f"NEE, QMC + thin lens), T2 and T3 at {CMP_W}x{CMP_H}; "
                 f"library_ms null: no single PyTorch call computes it",
         "cmp_ms": t1["ms"], "bound": timed, "vs_plain": cmp,
-        **({"launch": timed["launch"]} if kernel == "trace" else {}),
+        "launch": (timed if kernel == "trace" else path["kernels"])["launch"],
+        **({} if kernel == "trace" else {"segment_bounds_ms": [
+            sg["bound_ms"] for sg in path["kernels"]["segments"]]}),
         "engines_agree": ext["engines_agree"],
         "paths": {k: v for k, v in ext["paths"].items()
                   if ("wavefront" in k) == (kernel == "segment")}}
@@ -1448,20 +1774,13 @@ def extension_phases(bunny, png_dir) -> dict:
             raise AssertionError(f"{tag}: the scene extensions are not on")
         trace_rec = kernel_vs_plain(r, tag, "ext-vs-plain")
         w_r, _ = renderer(wl, "wavefront_fused", CMP_W, CMP_H, **opts[opt])
-        k, p, s_ms, s_plain_ms = segment_both(w_r)
-        seg_rec = dict(share=ray_share(k.t(), p.t()),
-                       alive_equal=bool((k[12] == p[12]).all()),
-                       max_abs_err=float((k - p).abs().max()), ms=s_ms,
-                       plain_ms=s_plain_ms)
+        seg_rec = segment_both(w_r)
         phase("ext-segment-vs-plain", f"{tag} {CMP_W}x{CMP_H}, one 2-bounce "
-              f"segment: {seg_rec['share']:.6f} of slots within {RAY_ATOL} "
-              f"on all 13 planes, alive plane equal {seg_rec['alive_equal']}"
-              f", max abs err {seg_rec['max_abs_err']:.3e}; segment kernel "
-              f"{s_ms:.3f} ms, plain {s_plain_ms:.3f} ms")
-        if seg_rec["share"] < RAY_SHARE or not seg_rec["alive_equal"]:
+              f"segment: {segment_line(seg_rec)}")
+        if not segment_agrees(seg_rec):
             raise AssertionError(f"{tag}: segment kernel disagrees with plain")
         cmp[tag] = dict(trace=trace_rec, segment=seg_rec)
-        del r, w_r, k, p
+        del r, w_r
     rec["vs_plain"] = cmp
 
     # 18. the engines agree
@@ -1485,6 +1804,9 @@ def extension_phases(bunny, png_dir) -> dict:
             raise AssertionError(f"{wl}: wavefront_fused and fused disagree")
         del w_r, f_r, w_film, f_film, diff
     rec["engines_agree"] = agree
+    # 27. the sort modes on T1 at 1920x1080
+    sort_modes_phase(*(renderer("T1", e, MAIN_W, MAIN_H)[0]
+                       for e in ("wavefront_fused", "fused")), "T1")
 
     # 19. T1-T3 timed at MAIN_W x MAIN_H
     paths = {}
@@ -1508,14 +1830,9 @@ def extension_phases(bunny, png_dir) -> dict:
                       f" of it")
             del inputs
         else:
-            segs = time_segments(r)
-            depth0 = 0
-            for i, sg in enumerate(segs):
-                segment_bound(
-                    sg, r._tables, sum(counts[depth0:depth0 + sg["bounces"]]),
-                    MAIN_W * MAIN_H, ext_ops if i == 0 else 0.0)
-                depth0 += sg["bounces"]
-            kern = dict(segments=segs)
+            segs = segment_bounds(time_segments(r), r._tables, counts,
+                                  r.sort_rays, ext_ops)
+            kern = dict(segments=segs, launch=segment_launch(r))
             detail = "segment kernels " + " + ".join(
                 f"{sg['ms']:.3f}" for sg in segs) + " ms, bounds " + " + ".join(
                 f"{sg['bound_ms']:.4f}" for sg in segs) + " ms"
@@ -1633,27 +1950,15 @@ def sampled_rays(r, jitter=None):
 def segment_vs_plain(w, rays) -> dict:
     """One 2-bounce segment of wavefront_fused renderer w from camera
     `rays` (o, d, pixel ids, path seed), every slot live, through the
-    segment kernel and its plain version: the share of slots within
-    RAY_ATOL on all 13 planes, whether the alive plane is equal, the max
-    abs error, the kernel's ms (mean of 5) and the plain version's."""
+    segment kernel and its plain version: queue_vs_plain's record."""
     import torch
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars)
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _initial_state
     o, d, pix, seed = rays
-    state = _initial_state(o, d)
     count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
-
-    def run(fn):
-        return _run_segment(w._tables, pix, state, _scalars(seed, 0, count),
-                            2, w.config, fn)
-    ks = run(segment)
-    ps, plain_ms = timed_ms(lambda: run(segment_reference))
-    ms = cuda_ms(lambda: run(segment), 5)
-    return dict(share=ray_share(ks.t(), ps.t()),
-                alive_equal=bool((ks[12] == ps[12]).all()),
-                max_abs_err=float((ks - ps).abs().max()), ms=ms,
-                plain_ms=plain_ms, slots=int(o.shape[0]))
+    rec = queue_vs_plain(w, pix, _initial_state(o, d), count, seed, 0, 2,
+                         w.sort_rays)[0]
+    return dict(rec, slots=int(o.shape[0]))
 
 
 def full_frame_vs_plain(r, w, tag: str) -> dict:
@@ -1674,11 +1979,8 @@ def full_frame_vs_plain(r, w, tag: str) -> dict:
           f"0: trace depth 1 no jitter {rec['depth1_share']:.6f} within "
           f"{RAY_ATOL}, max abs err {rec['max_abs_err']:.3e} (kernel and "
           f"plain {both_ms / 1e3:.1f} s); 2-bounce segment over the full "
-          f"queue {sg['share']:.6f} on all 13 planes, alive plane equal "
-          f"{sg['alive_equal']}, max abs err {sg['max_abs_err']:.3e}, kernel "
-          f"{sg['ms']:.3f} ms, plain {sg['plain_ms']:.3f} ms")
-    if min(rec["depth1_share"], sg["share"]) < RAY_SHARE \
-            or not sg["alive_equal"]:
+          f"queue: {segment_line(sg)}")
+    if rec["depth1_share"] < RAY_SHARE or not segment_agrees(sg):
         raise AssertionError(f"{tag}: a stream kernel disagrees with plain "
                              f"on the whole frame")
     return rec
@@ -1712,12 +2014,9 @@ def stream_vs_plain(r, w, tag: str) -> dict:
           f"no jitter {rec['depth1_share']:.6f} within {RAY_ATOL}, depth "
           f"{cfg.max_depth} {rec['share']:.6f}, max abs err "
           f"{rec['max_abs_err']:.3e}, kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; 2-bounce segment {sg['share']:.6f} on all 13 "
-          f"planes, alive plane equal {sg['alive_equal']}, max abs err "
-          f"{sg['max_abs_err']:.3e}, kernel {sg['ms']:.3f} ms, plain "
-          f"{sg['plain_ms']:.3f} ms")
-    if min(rec["depth1_share"], rec["share"], sg["share"]) < RAY_SHARE \
-            or not sg["alive_equal"]:
+          f"{plain_ms:.3f} ms; 2-bounce segment: {segment_line(sg)}")
+    if min(rec["depth1_share"], rec["share"]) < RAY_SHARE \
+            or not segment_agrees(sg):
         raise AssertionError(f"{tag}: a stream kernel disagrees with plain")
     return rec
 
@@ -1736,7 +2035,6 @@ def kernel_times(r, counts, tag: str) -> dict:
     ray counts per bounce `counts`."""
     from parallelraytracing_tpu_torch.ops.trace import trace
     cfg = r.config
-    n = cfg.width * cfg.height
     if r.name == "fused":
         inputs = frame_inputs(r, 0)
         k_ms = cuda_ms(lambda: traced_on(r, trace)(*inputs), 5)
@@ -1745,13 +2043,9 @@ def kernel_times(r, counts, tag: str) -> dict:
                   f"ms ({kern['bound_by']}), {kern['bound_ms'] / k_ms:.1%} of "
                   f"it")
     else:
-        segs = time_segments(r)
-        depth0 = 0
-        for sg in segs:
-            segment_bound(sg, r._tables,
-                          sum(counts[depth0:depth0 + sg["bounces"]]), n)
-            depth0 += sg["bounces"]
-        kern = dict(segments=segs)
+        segs = segment_bounds(time_segments(r), r._tables, counts,
+                              r.sort_rays)
+        kern = dict(segments=segs, launch=segment_launch(r))
         detail = "segment kernels " + " + ".join(
             f"{sg['ms']:.3f}" for sg in segs) + " ms, bounds " + " + ".join(
             f"{sg['bound_ms']:.4f}" for sg in segs) + " ms"
@@ -1809,6 +2103,9 @@ def big_level(level: int, png_dir, sweep: bool) -> dict:
             raise AssertionError(f"{name}: wavefront_fused and fused disagree")
         rec["engines_agree"] = agree
         del films, diff
+        # 27. the sort modes at BIG_W x BIG_H
+        sort_modes_phase(*(big_renderer(e, scene)[0]
+                           for e in ("wavefront_fused", "fused")), name)
         paths = {}
         for engine in ("wavefront_fused", "fused"):
             for nee in (False, True):
@@ -1868,9 +2165,10 @@ def layout_divergence(scene) -> dict:
     """The layouts ray by ray: frames 0..BIG_FRAMES-1 of a big-mesh scene
     at BIG_W x BIG_H traced one bounce at a time by the segment kernel on
     the dense tables and on the stream route at each chunk of CHUNK_SWEEP,
-    each bounce from the dense tables' state.  Where a layout's state
+    each bounce from the dense tables' queue.  Where a layout's outcome
+    for a pixel (the survivor's 13 planes, or the ended path's radiance)
     differs from the dense one, one of the two must equal the plain
-    version's (all 13 planes within RAY_ATOL): the layouts may differ only
+    version's (each value within RAY_ATOL): the layouts may differ only
     where one tree's box test culls a hit that the triangle test takes (a
     ray grazing a triangle's vertex on a box face, rounded differently by
     the two tests), which the plain version's brute force does not cull.
@@ -1879,44 +2177,59 @@ def layout_divergence(scene) -> dict:
     layouts the plain version sided with.  Only with --stream-sweep."""
     import torch
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars)
+        _initial_state, _run_segment)
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     rs = {"dense": big_renderer("fused", scene, threshold=DENSE)[0]}
     for chunk in CHUNK_SWEEP:
         rs[chunk] = big_renderer("fused", scene, chunk=chunk)[0]
     out = {chunk: dict(slots=0, plain_sides_with_stream=0,
                        plain_sides_with_dense=0) for chunk in CHUNK_SWEEP}
+    cfg = rs["dense"].config
+    n_pix = cfg.width * cfg.height
+
+    def outcomes(r, pix, state, count, seed, b, fn):
+        rad = torch.full((n_pix, 3), float("nan"), device="cuda")
+        res = _run_segment(r._tables, (state, pix), count, rad, seed, b, 1,
+                           r.config, "", fn)
+        return res, segment_outcomes(res, rad)
+
+    def near(x, y):  # every value within RAY_ATOL, or held by neither
+        return (((x - y).abs() <= RAY_ATOL)
+                | (torch.isnan(x) & torch.isnan(y))).all(1)
     segments = 0
     for f in range(BIG_FRAMES):
         o, d, pix, seed = frame_inputs(rs["dense"], f)
         state = _initial_state(o, d)
         count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
         for b in range(BIG_DEPTH):
-            sc = _scalars(seed, b, count)
-            segments += int((state[12] > 0).sum())
-            outs = {n: _run_segment(r._tables, pix, state, sc, 1, r.config,
-                                    segment) for n, r in rs.items()}
+            n = int(count)
+            segments += n
+            outs = {k: outcomes(r, pix, state, count, seed, b, segment)
+                    for k, r in rs.items()}
+            slot = torch.empty(n_pix, dtype=torch.long, device="cuda")
+            slot[pix[:n].long()] = torch.arange(n, device="cuda")
             for chunk in CHUNK_SWEEP:
-                idx = torch.nonzero((outs[chunk] != outs["dense"]).any(0))[:, 0]
-                if not idx.numel():
+                differs = (outs[chunk][1].view(torch.int32)
+                           != outs["dense"][1].view(torch.int32)).any(1)
+                px = torch.nonzero(differs)[:, 0]
+                if not px.numel():
                     continue
-                n = torch.full((1,), idx.numel(), dtype=torch.int32,
+                idx = slot[px]
+                m = torch.full((1,), idx.numel(), dtype=torch.int32,
                                device="cuda")
-                plain = _run_segment(rs["dense"]._tables, pix[idx],
-                                     state[:, idx].contiguous(),
-                                     _scalars(seed, b, n), 1,
-                                     rs["dense"].config, segment_reference)
-                near_s = ((outs[chunk][:, idx] - plain).abs() <= RAY_ATOL).all(0)
-                near_d = ((outs["dense"][:, idx] - plain).abs()
-                          <= RAY_ATOL).all(0)
+                _, plain = outcomes(rs["dense"], pix[idx].contiguous(),
+                                    state[:, idx].contiguous(), m, seed, b,
+                                    segment_reference)
+                near_s = near(outs[chunk][1][px], plain[px])
+                near_d = near(outs["dense"][1][px], plain[px])
                 o_ = out[chunk]
-                o_["slots"] += idx.numel()
+                o_["slots"] += px.numel()
                 o_["plain_sides_with_stream"] += int(near_s.sum())
                 o_["plain_sides_with_dense"] += int(near_d.sum())
                 if not bool((near_s | near_d).all()):
                     raise AssertionError(f"level6 chunk {chunk}: a slot "
                                          f"differs from dense and from plain")
-            state = outs["dense"]
+            state, pix, _, count = outs["dense"][0]
     worst = max(o_["slots"] for o_ in out.values())
     if worst > LAYOUT_SHARE * segments:
         raise AssertionError(f"level6: {worst} of {segments} slots differ "
@@ -2040,7 +2353,9 @@ def stream_kernel_record(kernel: str, st: dict) -> dict:
                 f"(levels 6-8, with and without NEE); library_ms null: no "
                 f"single PyTorch call computes it",
         "cmp_ms": cmp_ms, "bound": timed,
-        **({"launch": timed["launch"]} if kernel == "trace" else {}),
+        "launch": (timed if kernel == "trace" else path["kernels"])["launch"],
+        **({} if kernel == "trace" else {"segment_bounds_ms": [
+            sg["bound_ms"] for sg in path["kernels"]["segments"]]}),
         "levels": {k: {kk: vv for kk, vv in v.items() if kk != "paths"}
                    for k, v in st.items() if k.startswith("level")},
         "level6": {k: v for k, v in st.items()
@@ -2093,11 +2408,13 @@ def main(argv=None) -> int:
                    f"in {build_s:.2f} s; ptxas: "
                    f"{' | '.join(x for x in ptxas if x)}")
     insts = trace_instantiations()
-    phase("build", "trace persistent launches (grid x threads, blocks/SM, "
-          "registers, local bytes): " + "; ".join(
-              f"{x.get('tag', x['variant'])} {x['grid']}x{x['threads']}, "
-              f"{x['blocks_per_sm']}/SM, {x['registers']} reg, "
-              f"{x['local_bytes']} B" for x in insts))
+    seg_insts = segment_instantiations()
+    for lib, xs in (("trace", insts), ("segment", seg_insts)):
+        phase("build", f"{lib} persistent launches (grid x threads, "
+              f"blocks/SM, registers, local bytes): " + "; ".join(
+                  f"{x.get('tag', x['variant'])} {x['grid']}x{x['threads']}, "
+                  f"{x['blocks_per_sm']}/SM, {x['registers']} reg, "
+                  f"{x['local_bytes']} B" for x in xs))
 
     # 3. kernel vs plain
     for preset in ("random_balls_large", "material_test"):
@@ -2193,9 +2510,8 @@ def main(argv=None) -> int:
         if share1 < RAY_SHARE or not rmse < FILM_RMSE:
             raise AssertionError("mesh: trace kernel disagrees with plain")
 
-        k, p, seg_ms, seg_plain_ms = segment_both(wf_r)
-        seg_share = ray_share(k.t(), p.t())
-        seg_err = float((k - p).abs().max())
+        seg_cmp = segment_both(wf_r)
+        seg_err = seg_cmp["max_abs_err"]
 
         def segmented(fn):
             return lambda o, d, pix, seed: segmented_trace(
@@ -2203,14 +2519,11 @@ def main(argv=None) -> int:
                 seg_fn=fn)
         seg_rmse = film_rmse(wf_r, CMP_FRAMES, segmented(segment),
                              segmented(segment_reference))
-        phase("mesh-segment-vs-plain", f"{size}: one 2-bounce segment "
-              f"{seg_share:.6f} of slots within {RAY_ATOL} on all 13 planes, "
-              f"max abs err {seg_err:.3e}, segment kernel {seg_ms:.3f} ms, "
-              f"plain {seg_plain_ms:.3f} ms; segmented_trace {sched} "
+        phase("mesh-segment-vs-plain", f"{size}: one 2-bounce segment: "
+              f"{segment_line(seg_cmp)}; segmented_trace {sched} "
               f"x{CMP_FRAMES} frames HDR RMSE {seg_rmse:.3e}")
-        if seg_share < RAY_SHARE or not seg_rmse < FILM_RMSE:
+        if not segment_agrees(seg_cmp) or not seg_rmse < FILM_RMSE:
             raise AssertionError("mesh: segment kernel disagrees with plain")
-        del k, p
 
         # 6. mesh: the two engines' films on the card
         for _ in range(AGREE_FRAMES):
@@ -2232,10 +2545,17 @@ def main(argv=None) -> int:
         rays = count_frame_rays(mw_r._tables, *frame_inputs(mw_r, 0),
                                 mw_r.config)
         per_frame = len(mw_r.segment_lengths())
-        segs = check_segments(mw_r, "mesh")
-        seg_bound = segment_bound(
-            {}, mw_r._tables, sum(depth_counts(mw_r)[:segs[0]["bounces"]]),
-            MAIN_W * MAIN_H)
+        segs = segment_bounds(check_segments(mw_r, "mesh"), mw_r._tables,
+                              depth_counts(mw_r), mw_r.sort_rays)
+        seg_bound = segs[0]
+        seg_main_launch = segment_launch(mw_r)
+        phase("segment-bounds", "mesh frame 0, every segment's walk-shape "
+              "bound at the data sheet's rates (queue bytes: live slots "
+              "read, survivors and ended paths written): " + "; ".join(
+                  f"{sg['bounces']} bounces {sg['bound_ms']:.4f} ms "
+                  f"({sg['bound_by']}, {sg['io_bytes']} queue bytes)"
+                  for sg in segs) + f"; the first segment's queue bytes in "
+              f"the one-thread-per-slot form {segs[0]['slot_io_bytes']}")
         for _ in range(WARMUP):
             mw_r.progressive_render()
         torch.cuda.synchronize()
@@ -2257,7 +2577,6 @@ def main(argv=None) -> int:
         phase("mesh-main-path", check_film(mw_film, mw_r._tables.sky,
                                            "mesh_wavefront_fused",
                                            args.png_dir))
-        del mw_r, mw_film
 
         mf_r, mf_film = mesh_renderer("fused", ply, MAIN_W, MAIN_H,
                                       max_depth=MAIN_DEPTH, jitter=True)
@@ -2294,7 +2613,9 @@ def main(argv=None) -> int:
         phase("mesh-main-path", check_film(mf_film, mf_r._tables.sky,
                                            "mesh_fused", args.png_dir))
         probe_check(mf_r, "mesh")  # 23. the probes on the level-5 mesh
-        del mf_r, mf_film
+        # 27. the sort modes at 1920x1080: films bit-equal, boundaries timed
+        sort_modes_phase(mw_r, mf_r, "mesh")
+        del mf_r, mf_film, mw_r, mw_film
 
         # 8. paths A and B: NEE, kernel vs plain at 1920x1080, then timed
         paths, nee_recs = {}, {}
@@ -2323,7 +2644,8 @@ def main(argv=None) -> int:
                      russian_roulette_depth=RR_DEPTH)
         c_r, c_film = make_renderer("cornell", MAIN_W, MAIN_H,
                                     "wavefront_fused", **cfg_c)
-        segs_c = check_segments(c_r, "path C: cornell nee rr")
+        segs_c = segment_bounds(check_segments(c_r, "path C: cornell nee rr"),
+                                c_r._tables, depth_counts(c_r), c_r.sort_rays)
         cf_r, cf_film = make_renderer("cornell", MAIN_W, MAIN_H, **cfg_c)
         for _ in range(AGREE_FRAMES):
             c_r.progressive_render()
@@ -2335,6 +2657,7 @@ def main(argv=None) -> int:
               f"HDR RMSE {c_rmse:.3e}, max abs diff {c_max!r}")
         if not c_rmse < FILM_RMSE:
             raise AssertionError("path C: wavefront_fused and fused disagree")
+        sort_modes_phase(c_r, cf_r, "path C")  # 27.
         del cf_r, cf_film, diff
         paths["C"] = timed_path(c_r, c_film, "path_C_cornell_nee_rr",
                                 args.png_dir)
@@ -2350,25 +2673,20 @@ def main(argv=None) -> int:
         del d_r
         dw_r, _ = mesh_renderer("wavefront_fused", ply, CMP_W, CMP_H,
                                 max_depth=MAIN_DEPTH, jitter=True, nee=True)
-        k, p, d_seg_ms, d_seg_plain_ms = segment_both(dw_r)
-        mesh_nee_seg = dict(
-            share=ray_share(k.t(), p.t()), alive_equal=bool((k[12] == p[12]).all()),
-            max_abs_err=float((k - p).abs().max()), ms=d_seg_ms,
-            plain_ms=d_seg_plain_ms)
+        mesh_nee_seg = segment_both(dw_r)
         phase("segment-vs-plain", f"path D: mesh nee {size}, one 2-bounce "
-              f"segment: {mesh_nee_seg['share']:.6f} of slots within "
-              f"{RAY_ATOL} on all 13 planes, alive plane equal "
-              f"{mesh_nee_seg['alive_equal']}, max abs err "
-              f"{mesh_nee_seg['max_abs_err']:.3e}; segment kernel "
-              f"{d_seg_ms:.3f} ms, plain {d_seg_plain_ms:.3f} ms")
-        if mesh_nee_seg["share"] < RAY_SHARE or not mesh_nee_seg["alive_equal"]:
+              f"segment: {segment_line(mesh_nee_seg)}")
+        if not segment_agrees(mesh_nee_seg):
             raise AssertionError("path D: segment kernel disagrees with plain")
-        del dw_r, k, p
+        del dw_r
         dm_r, dm_film = mesh_renderer("wavefront_fused", ply, MAIN_W, MAIN_H,
                                       max_depth=MAIN_DEPTH, jitter=True,
                                       nee=True)
         paths["D"] = timed_path(dm_r, dm_film, "path_D_mesh_nee", args.png_dir)
         del dm_r, dm_film
+
+        # 28. the segment kernel's queue at its edges
+        edges = queue_edge_phase(ply)
 
         # 12-15. the instanced path
         inst = instanced_phases(ply, args.png_dir)
@@ -2469,8 +2787,11 @@ def main(argv=None) -> int:
                  f"launches over its {TIMED} timed frames); max_abs_err over "
                  f"every segment comparison of the run; library_ms null: no "
                  f"single PyTorch call computes a path segment",
+         "launch": seg_main_launch, "instantiations": seg_insts,
+         "segment_bounds_ms": [sg["bound_ms"] for sg in segs],
          "segments": segs, "nee_rr_segments": segs_c,
-         "mesh_nee_segment": mesh_nee_seg,
+         "mesh_nee_segment": mesh_nee_seg, "sort_modes": SORTS,
+         "queue_edges": edges,
          "paths": {k: paths[k] for k in "CD"},
          "instances": {"paths": {k: v for k, v in inst_paths.items()
                                  if "wavefront" in k}}},

@@ -64,9 +64,13 @@ SLAB_OPS, SPH_OPS, QUAD_OPS, TRI_OPS, ENTRY_OPS, SHADE_OPS = \
 #: each counted as 20), a checker's cell parity, the gradient and sun sky
 #: of a miss (sun power 256: nine squarings)
 TEX_OPS, SPH_UV_OPS, CHECKER_OPS, SKY_OPS = 115, 46, 16, 45
-#: bytes per ray of a trace launch (o, d, pixel id in; radiance out) and
-#: of a segment launch (13 planes and the pixel id in, 13 planes out)
-TRACE_RAY_BYTES, SEGMENT_RAY_BYTES = 3 * 4 + 3 * 4 + 4 + 3 * 4, 13 * 4 * 2 + 4
+#: bytes per ray of a trace launch (o, d, pixel id in; radiance out)
+TRACE_RAY_BYTES = 3 * 4 + 3 * 4 + 4 + 3 * 4
+#: bytes of a segment launch per live input slot (13 planes and the pixel
+#: id read), per survivor (13 planes, the pixel id and the sort key
+#: written) and per ended path (its radiance written)
+SEGMENT_IN_BYTES, SEGMENT_OUT_BYTES, SEGMENT_END_BYTES = \
+    13 * 4 + 4, 13 * 4 + 4 + 4, 3 * 4
 
 
 def tree_depths(cl, roots=(0,)) -> np.ndarray:
@@ -190,23 +194,33 @@ def unread_bytes(t) -> int:
             + int((~reach).sum()) * mini.shape[0] * t.stream.mini.element_size())
 
 
-def launch_bytes(t, n_rays: int, ray_bytes: int) -> int:
-    """Bytes a launch must move: each ray's inputs read once and outputs
-    written once, each table read once (the texel rows included, the
-    stream route's columns that no walk reads left out)."""
-    return n_rays * ray_bytes + table_bytes(t) - unread_bytes(t)
+def segment_io_bytes(live: int, survivors: int, key: bool = True) -> int:
+    """Bytes of a segment launch's queues: `live` input slots read, and of
+    them `survivors` pushed (with a sort key when `key`) and the rest
+    ended (their radiance written)."""
+    out = SEGMENT_OUT_BYTES - (0 if key else 4)
+    return (live * SEGMENT_IN_BYTES + survivors * out
+            + (live - survivors) * SEGMENT_END_BYTES)
 
 
-def kernel_bound(t, segments: int, n_rays: int, ray_bytes: int,
+def launch_bytes(t, io_bytes: int) -> int:
+    """Bytes a launch must move: its rays' or queues' `io_bytes` (each
+    input read once and each output written once), each table read once
+    (the texel rows included, the stream route's columns that no walk
+    reads left out)."""
+    return io_bytes + table_bytes(t) - unread_bytes(t)
+
+
+def kernel_bound(t, segments: int, io_bytes: int,
                  extra_ops: float = 0.0) -> dict:
     """The walk-shape bound of one launch at the data sheet's rates: the
-    larger of its bytes (``launch_bytes``) over the read rate and its
-    operations (`segments` ray segments of segment_ops each, plus
-    `extra_ops`, the scene extensions' work) over the instruction rate
-    (``bound_from``); ``datasheet_bound_ms`` keeps it when the caller
+    larger of its bytes (``launch_bytes`` of its `io_bytes`) over the read
+    rate and its operations (`segments` ray segments of segment_ops each,
+    plus `extra_ops`, the scene extensions' work) over the instruction
+    rate (``bound_from``); ``datasheet_bound_ms`` keeps it when the caller
     recomputes ``bound_ms`` at measured rates.  The walk term counts the
     shallowest path, not the nodes each ray visits."""
-    nbytes = launch_bytes(t, n_rays, ray_bytes)
+    nbytes = launch_bytes(t, io_bytes)
     slab, other = segment_ops(t)
     ops = dict(slab_ops=float(segments * slab),
                other_ops=float(segments * other + extra_ops))
@@ -275,7 +289,7 @@ def counted_bound(t, counts: dict, n_rays: int, ray_bytes: int,
     terms at ``DATASHEET``'s instruction rate).  Without `peaks` the
     measured fields are left out."""
     ops = counted_ops(t, counts, ext_ops)
-    nbytes = launch_bytes(t, n_rays, ray_bytes)
+    nbytes = launch_bytes(t, n_rays * ray_bytes)
     sheet = bound_from(ops["slab_ops"], ops["other_ops"], nbytes, DATASHEET)
     rec = dict(counts={k: int(v) for k, v in counts.items()}, bytes=nbytes,
                operations=ops["slab_ops"] + ops["other_ops"], **ops,

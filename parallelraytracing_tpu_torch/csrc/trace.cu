@@ -41,12 +41,9 @@
 // was measured and not kept (PERF.md).
 
 #include "bounce.cuh"
+#include "persistent.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kMaxDevices = 16;
 
 struct TraceArgs {
   const float* __restrict__ o;  // (R, 3)
@@ -62,8 +59,6 @@ struct TraceArgs {
 template <int kTri, bool kNee, bool kRR, bool kInst, bool kExt>
 __global__ void __launch_bounds__(kThreads)
     trace_kernel(const PrtScene S, const TraceArgs A) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
   int i = -1;  // this lane's ray, -1 while it holds no path
   PathState s;
   uint32_t rng_base = 0;
@@ -73,34 +68,24 @@ __global__ void __launch_bounds__(kThreads)
   // Every lane stays in the loop until its warp holds no path and no ray
   // is left, so each _sync below runs with the whole warp.
   for (;;) {
-    const unsigned idle = __ballot_sync(kFullMask, i < 0);
-    if (idle != 0u && left) {
-      const int leader = __ffs(idle) - 1;
-      const int n_idle = __popc(idle);
-      int base = 0;
-      if (lane == leader) base = atomicAdd(A.next, n_idle);
-      base = __shfl_sync(kFullMask, base, leader);
-      left = base + n_idle < A.n_rays;
-      const int k = base + __popc(idle & below);
-      if (i < 0 && k < A.n_rays) {
-        if (A.max_depth > 0) {
-          i = k;
-          s = PathState{A.o[3 * k], A.o[3 * k + 1], A.o[3 * k + 2],
-                        A.d[3 * k], A.d[3 * k + 1], A.d[3 * k + 2],
-                        1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
-          // Pixel-keyed streams: the image does not depend on ray order.
-          rng_base = pcg_hash((uint32_t)A.pix[k] ^ A.seed);
-          depth = 0;
-          // The alive value carries NEE's no-emit mark (2) from bounce to
-          // bounce.
-          alive = 1;
-        } else {  // no bounce: the radiance is 0
-          A.out[3 * k] = 0.0f;
-          A.out[3 * k + 1] = 0.0f;
-          A.out[3 * k + 2] = 0.0f;
-        }
+    refill(A.next, A.n_rays, i < 0, left, [&](int k) {
+      if (A.max_depth > 0) {
+        i = k;
+        s = PathState{A.o[3 * k], A.o[3 * k + 1], A.o[3 * k + 2],
+                      A.d[3 * k], A.d[3 * k + 1], A.d[3 * k + 2],
+                      1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+        // Pixel-keyed streams: the image does not depend on ray order.
+        rng_base = pcg_hash((uint32_t)A.pix[k] ^ A.seed);
+        depth = 0;
+        // The alive value carries NEE's no-emit mark (2) from bounce to
+        // bounce.
+        alive = 1;
+      } else {  // no bounce: the radiance is 0
+        A.out[3 * k] = 0.0f;
+        A.out[3 * k + 1] = 0.0f;
+        A.out[3 * k + 2] = 0.0f;
       }
-    }
+    });
     if (__all_sync(kFullMask, i < 0)) break;
     if (i >= 0) {
       alive = bounce<kTri, kNee, kRR, kInst, kExt>(
@@ -124,24 +109,6 @@ const TraceKernel kTraceKernels[kVariants] = PRT_VARIANTS(trace_kernel);
 // blocks per SM times the SMs (0: not asked yet).
 int g_grid[kMaxDevices][kVariants];
 
-// The persistent grid of instantiation v on `device`, cached; 0 with the
-// error in *err when the runtime refuses the query.
-int persistent_grid(int device, int v, cudaError_t* err) {
-  int& g = g_grid[device % kMaxDevices][v];
-  if (g == 0) {
-    int per_sm = 0, sms = 0;
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kTraceKernels[v], kThreads, 0);
-    if (*err == cudaSuccess) {
-      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device);
-    }
-    if (*err != cudaSuccess) return 0;
-    g = per_sm * sms;
-  }
-  return g;
-}
-
 }  // namespace
 
 // sizeof(PrtScene) as this library was built; ops/_build.py compares it
@@ -149,31 +116,16 @@ int persistent_grid(int device, int v, cudaError_t* err) {
 extern "C" int prt_scene_size() { return (int)sizeof(PrtScene); }
 
 // What a launch of instantiation `variant` on `device` runs with, into
-// info[0..7]: the persistent grid (blocks), threads a block, resident
-// blocks per SM, registers a thread, local memory a thread (bytes: the
-// stack frame and spills), static and dynamic shared memory a block
-// (bytes), and the SM count.  Returns the cudaError_t of the queries.
+// info[0..7] (persistent.cuh launch_info): the persistent grid (blocks),
+// threads a block, resident blocks per SM, registers a thread, local
+// memory a thread, static and dynamic shared memory a block, the SMs.
+// Returns the cudaError_t of the queries.
 extern "C" int prt_trace_info(int device, int variant, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (variant < 0 || variant >= kVariants) return (int)cudaErrorInvalidValue;
-  const int grid = persistent_grid(device, variant, &err);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, kTraceKernels[variant]);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = grid;
-  info[1] = kThreads;
-  info[2] = sms > 0 ? grid / sms : 0;
-  info[3] = fa.numRegs;
-  info[4] = (int)fa.localSizeBytes;
-  info[5] = (int)fa.sharedSizeBytes;
-  info[6] = 0;
-  info[7] = sms;
-  return 0;
+  return (int)launch_info(kTraceKernels[variant], device,
+                          g_grid[device % kMaxDevices][variant], info);
 }
 
 // The kernel_variant() index of a scene, as a launch picks it.
@@ -195,7 +147,8 @@ extern "C" int prt_trace_launch(int device, void* stream,
   if (err != cudaSuccess) return (int)err;
   if (n_rays <= 0) return 0;
   const int v = kernel_variant(*scene);
-  int blocks = persistent_grid(device, v, &err);
+  int blocks = persistent_grid(kTraceKernels[v], device,
+                               g_grid[device % kMaxDevices][v], &err);
   if (err != cudaSuccess) return (int)err;
   const int needed = (n_rays + kThreads - 1) / kThreads;
   if (needed < blocks) blocks = needed;

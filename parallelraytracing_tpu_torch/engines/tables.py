@@ -189,13 +189,17 @@ def trace_tables(t: SceneTables, o, d, pix, seed: int, cfg: RenderConfig,
                  collect_stats=collect_stats, records=t.records)
 
 
-def trace_launch(t: SceneTables, cfg: RenderConfig) -> dict:
-    """The trace kernel's launch for tables `t` (on a CUDA device) under
-    `cfg`: its instantiation ("variant", csrc/bounce.cuh kernel_variant)
-    and what that runs with (ops/trace.trace_config: the persistent grid,
-    threads a block, registers, local and shared memory)."""
+def trace_launch(t: SceneTables, cfg: RenderConfig,
+                 kernel: str = "trace") -> dict:
+    """The launch of persistent kernel `kernel` ("trace" or "segment") for
+    tables `t` (on a CUDA device) under `cfg`: its instantiation
+    ("variant", csrc/bounce.cuh kernel_variant, the same index in both
+    libraries) and what that runs with (ops/_build.launch_config: the
+    persistent grid, threads a block, registers, local and shared
+    memory)."""
+    from parallelraytracing_tpu_torch.ops import _build
     from parallelraytracing_tpu_torch.ops.trace import (scene_arg,
-                                                        trace_config,
+                                                        stream_of,
                                                         trace_variant)
     device = t.sph.device
     scene = scene_arg(device, t.sph, t.quad, t.tri, t.sph_cl,
@@ -206,4 +210,5 @@ def trace_launch(t: SceneTables, cfg: RenderConfig) -> dict:
                       itex=t.itex, itex_tab=t.itex_tab, stream=t.stream,
                       records=t.records)
     variant = trace_variant(scene)
-    return dict(variant=variant, **trace_config(device, variant))
+    return dict(variant=variant, **_build.launch_config(
+        kernel, stream_of(device)[0], variant))

@@ -4,18 +4,20 @@ The counterpart of ``parallelraytracing_tpu.engines.wavefront_fused``.  Per
 frame: derive the frame's seeds (ops/rays.frame_stream_seeds), generate
 jittered camera rays straight from the Morton-permuted pixel ids, then
 trace them in segments of bounces (ops/segment.segment, the CUDA kernel
-on a card).  Between segments one stable argsort both compacts and
-re-sorts the queue: dead rays key to 2^30 and go last, survivors order by
-a coherence key (direction octant over origin Morton code, by default);
-one gather moves the (13, R) state and one the pixel ids.  The live count
-stays a device tensor that the next segment reads, so a frame has no host
-sync.  Radiance rides the state; one scatter at the end of the frame puts
-it back in pixel order.
+on a card).  Each segment compacts the queue itself: a path that ends
+writes its radiance to the frame's buffer in pixel order, a survivor is
+pushed to the next queue with its coherence key (direction octant over
+origin Morton code, by default).  Between segments one stable argsort of
+the keys re-sorts the queue (the slots past the survivors key last) and
+one gather moves the (13, R) state and one the pixel ids; with
+``sort_rays=""`` the next segment reads the queue as it is.  The live
+count stays a device tensor that the next segment reads, so a frame has
+no host sync.
 
 Streams are keyed on (pixel id, absolute depth) and both engines share
 the bounce (csrc/bounce.cuh; ops/trace._bounce on the CPU), so the image
-does not depend on the schedule, the sort key or the engine: it is the
-fused engine's, bit for bit.
+does not depend on the schedule, the sort key, the queue's order or the
+engine: it is the fused engine's, bit for bit.
 
 Left out of the port, on purpose: the TPU's pad of the queue to a
 (rows, 128) tile multiple with its drop row for pad rays, and the ``rows``
@@ -36,8 +38,6 @@ from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm, raygen
 from parallelraytracing_tpu_torch.ops.rays import frame_stream_seeds, sample_key
 from parallelraytracing_tpu_torch.ops.segment import segment
 
-#: the sort key of a dead ray: past every live key (30-bit Morton codes)
-DEAD_KEY = 1 << 30
 SORT_MODES = ("octant", "origin", "")
 #: a scene of more triangles than this is triangle-heavy: the renderer's
 #: default is the growing schedule, and the CLI's "auto" picks this engine
@@ -49,39 +49,6 @@ def scene_triangles(scene) -> int:
     one copy of each unique instanced mesh (the JAX engine's count)."""
     return len(scene._tri) + sum(len(m.indices) // 3
                                  for m in scene._inst_meshes)
-
-
-def _part1by2(v: torch.Tensor) -> torch.Tensor:
-    """Spread the low 10 bits of int32 v over 30 (x -> x00 interleave)."""
-    v = v & 0x3FF
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
-def _origin_morton(ox, oy, oz, bb_lo, inv_ext) -> torch.Tensor:
-    """30-bit Morton code of ray origins quantised in the scene box."""
-    def q(o, lo, ie):
-        return torch.clamp((o - lo) * ie * 1024.0, 0.0, 1023.0).to(torch.int32)
-    return (_part1by2(q(ox, bb_lo[0], inv_ext[0])) << 2) \
-        | (_part1by2(q(oy, bb_lo[1], inv_ext[1])) << 1) \
-        | _part1by2(q(oz, bb_lo[2], inv_ext[2]))
-
-
-def _sort_key(state, bb, mode: str) -> torch.Tensor:
-    """Coherence key of each queue slot: "origin" is the origin's 30-bit
-    Morton code; "octant" puts the direction octant (3 bits) over the top
-    27 bits of it, grouping rays by where they are and which way they
-    point."""
-    m = _origin_morton(state[0], state[1], state[2], *bb)
-    if mode == "origin":
-        return m
-    oct_ = ((state[3] < 0).to(torch.int32) << 2) \
-        | ((state[4] < 0).to(torch.int32) << 1) \
-        | (state[5] < 0).to(torch.int32)
-    return (oct_ << 27) | (m >> 3)
 
 
 def segment_lengths(max_depth: int, segment: int, first_segment: int = 0,
@@ -103,21 +70,18 @@ def segment_lengths(max_depth: int, segment: int, first_segment: int = 0,
     return lens
 
 
-def _scalars(seed: int, depth0: int, count: torch.Tensor) -> torch.Tensor:
-    """[seed, depth0, count] int32 on count's device, made there by fills
-    (no host-to-device copy, which would wait for the stream)."""
-    sd = torch.full((2,), seed, dtype=torch.int32, device=count.device)
-    sd[1] = depth0
-    return torch.cat([sd, count])
-
-
-def _run_segment(tables, pix, state, scalars, n_bounces: int,
-                 cfg: RenderConfig, seg_fn) -> torch.Tensor:
+def _run_segment(tables, queue, count, rad, seed: int, depth0: int,
+                 n_bounces: int, cfg: RenderConfig, sort_rays: str, seg_fn,
+                 out=None):
+    """One segment over `queue` ((13, R) state, (R,) pixel ids) with its
+    live count: (state, pix, key, count) of the next queue."""
     t = tables
-    return seg_fn(pix, state, scalars, t.sph, t.quad, t.tri, t.sph_cl,
-                  t.quad_cl, t.tri_cl, t.mats, n_bounces=n_bounces,
-                  t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-                  tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
+    return seg_fn(queue[1], queue[0], count, rad, t.sph, t.quad, t.tri,
+                  t.sph_cl, t.quad_cl, t.tri_cl, t.mats, seed=seed,
+                  depth0=depth0, max_depth=cfg.max_depth,
+                  n_bounces=n_bounces, t_min=cfg.t_min, t_max=cfg.t_max,
+                  sky=t.sky, tri_live=t.tri_live, sort_rays=sort_rays,
+                  bb=t.bb, out=out, rr_depth=cfg.russian_roulette_depth,
                   nee=t.nee, lights=t.lights, inst=t.inst, checker=t.checker,
                   itex=t.itex, itex_tab=t.itex_tab, stream=t.stream,
                   records=t.records)
@@ -133,64 +97,70 @@ def _initial_state(o, d) -> torch.Tensor:
 def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
                     segment_len: int = 3, sort_rays: str = "octant",
                     first_segment: int = 0, schedule: Tuple[int, ...] = (),
-                    seg_fn=None) -> torch.Tensor:
+                    seg_fn=None, rad=None) -> torch.Tensor:
     """(R, 3) radiance in pixel order for camera rays (o, d) of pixel ids
-    `pix` ((R,) int32, a permutation of range(R), rays in any order).
+    `pix` ((R,) int32, a permutation of range(R), rays in any order),
+    written to `rad` when given (else to new zeros): each pixel once.
 
     `seed` is the frame's path seed; the segments follow
     ``segment_lengths(cfg.max_depth, segment_len, first_segment,
     schedule)``.  `seg_fn` is ops/segment.segment by default; passing
-    ``segment_reference`` runs the plain version on any device."""
+    ``segment_reference`` runs the plain version on any device.  Two
+    queues take turns: a segment reads one and pushes to the other; a
+    re-sort gathers the pushed queue back into the first (the caller's
+    `pix` is read, never written)."""
     if sort_rays not in SORT_MODES:
         raise ValueError(f"sort_rays {sort_rays!r}: want one of {SORT_MODES}")
     seg_fn = seg_fn or segment
     r = o.shape[0]
     dev = o.device
-    state = _initial_state(o, d)
+    if rad is None:
+        rad = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    a = (_initial_state(o, d), torch.empty_like(pix))
+    b = (torch.empty_like(a[0]), torch.empty_like(pix),
+         torch.empty((r,), dtype=torch.int32, device=dev)
+         if sort_rays else None)
+    queue = (a[0], pix)
     count = torch.full((1,), r, dtype=torch.int32, device=dev)
     lens = segment_lengths(cfg.max_depth, segment_len, first_segment, schedule)
     depth0 = 0
     for s, n_bounces in enumerate(lens):
-        state = _run_segment(tables, pix, state, _scalars(seed, depth0, count),
-                             n_bounces, cfg, seg_fn)
+        last = s + 1 == len(lens)  # every path ends: no key, no next queue
+        state, ids, key, count = _run_segment(
+            tables, queue, count, rad, seed, depth0, n_bounces, cfg,
+            "" if last else sort_rays, seg_fn, out=b)
         depth0 += n_bounces
-        if s + 1 < len(lens):
-            alive = state[12] > 0.0
-            key = (_sort_key(state, tables.bb, sort_rays) if sort_rays
-                   else torch.arange(r, dtype=torch.int32, device=dev))
-            order = torch.argsort(torch.where(alive, key, DEAD_KEY),
-                                  stable=True)
-            count = alive.sum(dtype=torch.int32).reshape(1)
-            state = state.index_select(1, order)
-            pix = pix.index_select(0, order)
-    rad = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-    return rad.index_copy_(0, pix.long(), state[9:12].t())
+        if last:
+            break
+        if key is None:  # the next segment reads the pushed queue as it is
+            a, b = (state, ids), (*a, None)
+        else:
+            order = torch.argsort(key, stable=True)
+            torch.index_select(state, 1, order, out=a[0])
+            torch.index_select(ids, 0, order, out=a[1])
+        queue = a
+    return rad
 
 
 def count_depth_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
                      seg_fn=None) -> list:
     """The rays entering each bounce of one frame (the camera rays first),
     from one-bounce segments over the same pixel-keyed streams the engines
-    trace (compacted, never re-sorted), so paths that Russian roulette
-    ends count as the engines trace them.  NEE's shadow rays are not
-    counted."""
+    trace (compacted, never re-sorted: each segment's survivor count is
+    the next bounce's), so paths that Russian roulette ends count as the
+    engines trace them.  NEE's shadow rays are not counted."""
     seg_fn = seg_fn or segment
     r = o.shape[0]
     dev = o.device
-    state = _initial_state(o, d)
+    rad = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    queue = (_initial_state(o, d), pix)
     count = torch.full((1,), r, dtype=torch.int32, device=dev)
     counts = []
     for depth in range(cfg.max_depth):
         counts.append(count)
-        state = _run_segment(tables, pix, state, _scalars(seed, depth, count),
-                             1, cfg, seg_fn)
-        alive = state[12] > 0.0
-        key = torch.where(alive, torch.arange(r, dtype=torch.int32, device=dev),
-                          DEAD_KEY)
-        order = torch.argsort(key, stable=True)
-        count = alive.sum(dtype=torch.int32).reshape(1)
-        state = state.index_select(1, order)
-        pix = pix.index_select(0, order)
+        state, ids, _, count = _run_segment(tables, queue, count, rad, seed,
+                                            depth, 1, cfg, "", seg_fn)
+        queue = (state, ids)
     return [int(c) for c in torch.cat(counts).tolist()]
 
 

@@ -76,7 +76,10 @@ SIGNATURES = {
     ]),
     "segment": ("prt_segment_launch", [
         I, P, SCENE,           # device, stream, scene
-        P, P, P, P, I, I,      # pix, in, out, scalars, n_rays, n_bounces
+        P, P, P,               # input queue: pix, state, count
+        P, P, P, P, P,         # pix_out, out, key_out, rad, counters
+        I, U, I, I, I, I,      # n_rays, seed, depth0, n_bounces, max_depth, key_mode
+        ctypes.POINTER(F),     # bb: the scene box's low corner, 1 / extent
     ]),
     "probe": ("prt_probe_launch", [
         I, P, SCENE,           # device, stream, scene
@@ -88,6 +91,11 @@ SIGNATURES = {
         P, P, I, I, I,         # x, out, n, loops, mix
     ]),
 }
+
+#: the fields of a persistent kernel's launch query (``launch_config``),
+#: in csrc/persistent.cuh launch_info's order
+LAUNCH_INFO = ("grid", "threads", "blocks_per_sm", "registers",
+               "local_bytes", "static_smem", "dynamic_smem", "sms")
 
 #: every kernel library, in the order chip_smoke.py's build phase lists them
 LIBRARIES = ("trace", "segment", "probe", "micro")
@@ -188,3 +196,20 @@ def load(name: str):
     fn.restype = ctypes.c_int
     fn.library = lib  # keep the library loaded while the function lives
     return fn
+
+
+def launch_config(name: str, device_index: int, variant: int) -> dict:
+    """What instantiation `variant` of persistent kernel library `name`
+    ("trace" or "segment") runs with on CUDA device `device_index`, from
+    its ``prt_<name>_info`` (the fields of LAUNCH_INFO): its persistent
+    grid in blocks, threads a block, resident blocks per SM, registers
+    and local memory a thread (bytes), static and dynamic shared memory a
+    block (bytes), and the device's SMs."""
+    info_fn = getattr(load(name).library, f"prt_{name}_info")
+    info_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info_fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(LAUNCH_INFO))()
+    err = info_fn(device_index, int(variant), info)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel query failed: cudaError_t {err}")
+    return dict(zip(LAUNCH_INFO, info))

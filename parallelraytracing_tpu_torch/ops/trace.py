@@ -190,11 +190,6 @@ def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
 trace.launches = 0
 trace.probe_launches = 0
 
-#: the fields of ``trace_config``, in csrc/trace.cu prt_trace_info's order
-TRACE_INFO = ("grid", "threads", "blocks_per_sm", "registers",
-              "local_bytes", "static_smem", "dynamic_smem", "sms")
-
-
 def trace_variant(scene) -> int:
     """The instantiation a launch picks for a ``scene_arg`` struct
     (csrc/bounce.cuh kernel_variant)."""
@@ -207,20 +202,12 @@ def trace_variant(scene) -> int:
 
 def trace_config(device, variant: int) -> dict:
     """What the trace kernel's instantiation `variant` runs with on CUDA
-    `device` (the fields of TRACE_INFO): its persistent grid in blocks,
-    threads a block, resident blocks per SM, registers and local memory a
-    thread (bytes), static and dynamic shared memory a block (bytes), and
-    the device's SMs."""
+    `device` (ops/_build.launch_config: its persistent grid, threads a
+    block, resident blocks per SM, registers, local and shared memory,
+    the device's SMs)."""
     from parallelraytracing_tpu_torch.ops import _build
-    lib = _build.load("trace").library
-    lib.prt_trace_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.prt_trace_info.restype = ctypes.c_int
-    info = (ctypes.c_int * len(TRACE_INFO))()
-    index = stream_of(torch.device(device))[0]
-    err = lib.prt_trace_info(index, int(variant), info)
-    if err != 0:
-        raise RuntimeError(f"trace kernel query failed: cudaError_t {err}")
-    return dict(zip(TRACE_INFO, info))
+    return _build.launch_config("trace", stream_of(torch.device(device))[0],
+                                variant)
 
 
 def _with_probes(rad, depth, stats, depth_out: bool, collect_stats: bool):

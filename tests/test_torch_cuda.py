@@ -12,11 +12,15 @@ winning radiance agrees per ray within 1e-5 on >= 99.9% of rays (the
 kernel's per-ray tree walk and the plain brute-force fold pick the same
 primitive except where a box test and a hit test round differently); at
 depth 20 the films of 4-16 jittered frames agree to an HDR RMSE < 1e-3.
-The segment kernel is held to the same bounds on the 13 planes of one
-segment, and the wavefront_fused and fused films on a mesh to the RMSE
-bound (the two kernels share their bounce, so 0 is expected).  With NEE
-and Russian roulette the same bounds hold, and the segment's alive plane
-(0, 1, or 2 for NEE's no-emit mark) is equal on every slot; so do they
+The segment kernel is held to the same bounds on one segment, its
+slots matched to the plain version's by pixel id (its queue's order is
+the atomics'): each live slot's outcome, a survivor's 13 planes or an
+ended path's radiance, and the survivors' sort keys exactly; at the
+queue's edges, bit for bit; and the wavefront_fused and fused films on a
+mesh to the RMSE bound (the two kernels share their bounce, so 0 is
+expected).  With NEE and Russian roulette the same bounds hold, and the
+survivors are the same with the alive plane (1, or 2 for NEE's no-emit
+mark) equal; so do they
 on an instanced scene, where the plain version tests each instance's own
 mesh triangles by brute force against the kernel's tree walks, and on the
 scene extensions (checker and image textures, the directional sky, thin
@@ -199,18 +203,80 @@ def test_mesh_trace_kernel_matches_plain(cuda, mesh_ply):
     assert rmse < FILM_RMSE, rmse
 
 
+def segment_outcomes(res, rad):
+    """Each pixel's outcome of a segment launch, (P, 16): a survivor's 13
+    planes (NaN if the pixel's path did not survive) and the radiance an
+    ended path wrote to `rad` (filled with NaN before the launch)."""
+    state, pix, _, count = res
+    c = int(count)
+    planes = torch.full((rad.shape[0], 13), float("nan"), device=rad.device)
+    planes[pix[:c].long()] = state[:, :c].t()
+    return torch.cat([planes, rad], 1)
+
+
+def queue_both(r, pix, state, count, seed, depth0, n_bounces, fns=None):
+    """One segment of wavefront_fused renderer r over the queue (pix,
+    state) with `count` live, through the kernel and the plain version
+    (or `fns`): each one's (result, per-pixel outcomes), and the pixels
+    of the live slots."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _run_segment
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    out = []
+    for fn in fns or (segment, segment_reference):
+        rad = torch.full((r.config.width * r.config.height, 3), float("nan"),
+                         device="cuda")
+        res = _run_segment(r._tables, (state, pix), count, rad, seed, depth0,
+                           n_bounces, r.config, r.sort_rays, fn)
+        out.append((res, segment_outcomes(res, rad)))
+    return out, pix[:int(count)].long()
+
+
+def outcomes_agree(k, p, live):
+    """The kernel's outcomes against the plain version's on the live
+    pixels: the same survivors with the alive plane equal, and every
+    value within RAY_ATOL on RAY_SHARE of the pixels."""
+    k, p = k[live], p[live]
+    both = torch.isnan(k) & torch.isnan(p)
+    assert bool(((k[:, 12] == p[:, 12]) | both[:, 12]).all())
+    close = (((k - p).abs() <= RAY_ATOL) | both).all(1)
+    assert not len(live) or float(close.float().mean()) >= RAY_SHARE
+
+
+def keys_exact(res, bb, mode):
+    """The kernel's keys are the plain sort_key of its own survivors'
+    planes, and DEAD_KEY past them."""
+    from parallelraytracing_tpu_torch.ops.segment import DEAD_KEY, sort_key
+    state, _, key, count = res
+    c = int(count)
+    assert torch.equal(key[:c], sort_key(state[:, :c], bb, mode))
+    assert bool((key[c:] == DEAD_KEY).all())
+
+
+def first_segment_agrees(w, n_bounces=2):
+    """One segment of wavefront_fused renderer w from frame 0's camera
+    rays, every slot live: kernel and plain agree (outcomes_agree), the
+    kernel's keys exact."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _initial_state
+    o, d, pix, seed = frame_inputs(w, 0)
+    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
+    ((k, k_out), (_, p_out)), live = queue_both(
+        w, pix, _initial_state(o, d), count, seed, 0, n_bounces)
+    outcomes_agree(k_out, p_out, live)
+    keys_exact(k, w._tables.bb, w.sort_rays)
+
+
 @pytest.mark.cuda
 def test_segment_kernel_matches_plain(cuda, mesh_ply):
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars, segmented_trace)
+    """One 2-bounce segment of the mesh, slots matched by pixel id
+    (outcomes_agree), then 4 frames of segmented_trace through the kernel
+    and through the plain version (RMSE)."""
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        segmented_trace
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     r, _ = mesh_renderer("wavefront_fused", mesh_ply, 160, 90, max_depth=20)
-    o, d, pix, seed = frame_inputs(r, 0)
-    state = _initial_state(o, d)
-    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
-    k, p = (_run_segment(r._tables, pix, state, _scalars(seed, 0, count), 2,
-                         r.config, fn) for fn in (segment, segment_reference))
-    assert ray_share(k.t(), p.t()) >= RAY_SHARE
+    first_segment_agrees(r)
     sched = tuple(r.segment_lengths())
     assert sched == (2, 4, 14)
 
@@ -228,29 +294,37 @@ def test_segment_wrapper_checks(cuda, mesh_ply):
     t = r._tables
     pix = torch.arange(4, dtype=torch.int32, device="cuda")
     state = torch.zeros((PLANES, 4), device="cuda")
-    scalars = torch.tensor([1, 0, 4], dtype=torch.int32, device="cuda")
+    count = torch.tensor([4], dtype=torch.int32, device="cuda")
+    rad = torch.zeros((4, 3), device="cuda")
     tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(n_bounces=1, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=True)
+    kw = dict(seed=1, depth0=0, max_depth=4, n_bounces=1, t_min=1e-3,
+              t_max=1e16, sky=t.sky, tri_live=True)
     before = segment.launches
-    assert segment(pix, state, scalars, *tabs, **kw).shape == (PLANES, 4)
+    s, p, k, c = segment(pix, state, count, rad, *tabs, **kw)
+    assert s.shape == (PLANES, 4) and k is None and c.shape == (1,)
     with pytest.raises(TypeError):
-        segment(pix.long(), state, scalars, *tabs, **kw)
+        segment(pix.long(), state, count, rad, *tabs, **kw)
     with pytest.raises(ValueError):
-        segment(pix, state[:12].contiguous(), scalars, *tabs, **kw)
+        segment(pix, state[:12].contiguous(), count, rad, *tabs, **kw)
     with pytest.raises(ValueError):
-        segment(pix.cpu(), state, scalars, *tabs, **kw)
+        segment(pix.cpu(), state, count, rad, *tabs, **kw)
     with pytest.raises(ValueError, match="light table"):
-        segment(pix, state, scalars, *tabs, **kw, nee=True)
+        segment(pix, state, count, rad, *tabs, **kw, nee=True)
+    with pytest.raises(ValueError, match="sort_rays"):
+        segment(pix, state, count, rad, *tabs, **kw, sort_rays="depth")
+    with pytest.raises(ValueError, match="scene box"):
+        segment(pix, state, count, rad, *tabs, **kw, sort_rays="octant")
     assert segment.launches == before + 1
 
 
 @pytest.mark.cuda
 def test_segment_nee_rr_kernel_matches_plain(cuda):
     """Every segment of a CORNELL frame with NEE and rr_depth 3 against
-    the plain segment at its real queue (the kernel's state carried on):
-    the alive plane equal on every slot, the other planes within
-    RAY_ATOL on RAY_SHARE of the live slots; then the wavefront_fused and
-    fused films (RMSE bound, 0 expected)."""
+    the plain segment at its real queue (the kernel's queue carried on),
+    slots matched by pixel id: the same survivors with the alive plane
+    (1, or NEE's 2) equal, the outcomes within RAY_ATOL on RAY_SHARE of
+    the live slots, the keys exact; then the wavefront_fused and fused
+    films (RMSE bound, 0 expected)."""
     from parallelraytracing_tpu_torch.engines.wavefront_fused import \
         segmented_trace
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
@@ -260,14 +334,19 @@ def test_segment_nee_rr_kernel_matches_plain(cuda):
     assert r._tables.nee and r.segment_lengths() == [3] * 6 + [2]
     checked = []
 
-    def both(pix, state, scalars, *tabs, **kw):
-        k = segment(pix, state, scalars, *tabs, **kw)
-        p = segment_reference(pix, state, scalars, *tabs, **kw)
-        live = int(scalars[2])
-        assert torch.equal(k[12], p[12])
-        if live:
-            assert ray_share(k[:12, :live].t(), p[:12, :live].t()) >= RAY_SHARE
-        checked.append(live)
+    def both(pix, state, count, rad, *tabs, **kw):
+        outs = []
+        for fn in (segment_reference, segment):
+            r_ = torch.full_like(rad, float("nan"))
+            res = fn(pix, state, count, r_, *tabs, **{
+                **kw, "out": kw["out"] if fn is segment else None})
+            outs.append((res, segment_outcomes(res, r_), r_))
+        (_, p_out, _), (k, k_out, k_rad) = outs
+        outcomes_agree(k_out, p_out, pix[:int(count)].long())
+        if kw["sort_rays"]:
+            keys_exact(k, r._tables.bb, kw["sort_rays"])
+        rad.copy_(torch.where(torch.isnan(k_rad), rad, k_rad))
+        checked.append(int(count))
         return k
     segmented_trace(r._tables, *frame_inputs(r, 0), r.config,
                     schedule=tuple(r.segment_lengths()), seg_fn=both)
@@ -278,6 +357,56 @@ def test_segment_nee_rr_kernel_matches_plain(cuda):
         f.progressive_render()
     diff = wf_film.hdr_average() - fused_film.hdr_average()
     assert float(diff.pow(2).mean().sqrt()) < FILM_RMSE
+
+
+#: live counts of the queue's edge cases: none, one, under a warp, a warp
+#: and two more, a ragged count of blocks; the test adds one more than
+#: the segment kernel's persistent grid has threads
+EDGE_COUNTS = (0, 1, 31, 33, 4101)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["mesh", "cornell"])
+def test_queue_edge_cases(cuda, mesh_ply, scene):
+    """The segment kernel's persistent queue at its edges (the mesh, and
+    CORNELL with NEE and rr_depth 3, 640x360): for each live count of
+    EDGE_COUNTS and the persistent grid's threads + 1, the first segment
+    equals the plain version bit for bit (survivors' planes and pixel
+    ids, ended paths' radiance) with exact keys, and a second launch
+    gives the same survivors and radiance; then a whole frame into a
+    radiance buffer filled with NaN leaves no NaN."""
+    from parallelraytracing_tpu_torch.engines.tables import trace_launch
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
+        _initial_state, segmented_trace)
+    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    if scene == "mesh":
+        r, _ = mesh_renderer("wavefront_fused", mesh_ply, 640, 360,
+                             max_depth=20)
+    else:
+        r, _ = preset_renderer("cornell", 640, 360, "wavefront_fused",
+                               max_depth=20, nee=True,
+                               russian_roulette_depth=3)
+    launch = trace_launch(r._tables, r.config, "segment")
+    assert launch["grid"] >= launch["sms"] and launch["threads"] % 32 == 0
+    full = launch["grid"] * launch["threads"] + 1
+    o, d, pix, seed = frame_inputs(r, 0)
+    assert full <= o.shape[0]
+    state = _initial_state(o, d)
+    n_b = r.segment_lengths()[0]
+    for n in EDGE_COUNTS + (full,):
+        count = torch.full((1,), n, dtype=torch.int32, device="cuda")
+        ((k1, o1), (_, o2), (_, p_out)), _ = queue_both(
+            r, pix, state, count, seed, 0, n_b,
+            (segment, segment, segment_reference))
+        assert torch.equal(o1.view(torch.int32), o2.view(torch.int32)), n
+        assert torch.equal(o1.view(torch.int32), p_out.view(torch.int32)), n
+        keys_exact(k1, r._tables.bb, r.sort_rays)
+        assert int(k1[3]) <= n
+    rad = torch.full((o.shape[0], 3), float("nan"), device="cuda")
+    segmented_trace(r._tables, o, d, pix, seed, r.config,
+                    sort_rays=r.sort_rays,
+                    schedule=tuple(r.segment_lengths()), rad=rad)
+    assert not torch.isnan(rad).any()
 
 
 @pytest.mark.cuda
@@ -340,22 +469,14 @@ def test_instanced_trace_kernel_matches_plain(cuda, nee):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nee", [False, True])
 def test_instanced_segment_kernel_matches_plain(cuda, nee):
-    """One 2-bounce segment of the instanced scene: the 13 planes within
-    RAY_ATOL on RAY_SHARE of the slots, the alive plane equal on every
-    slot; then the wavefront_fused ((2, 6) at depth 8) and fused films."""
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars)
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    """One 2-bounce segment of the instanced scene, slots matched by
+    pixel id (first_segment_agrees: the same survivors with the alive
+    plane equal, the outcomes within RAY_ATOL on RAY_SHARE of the slots);
+    then the wavefront_fused ((2, 6) at depth 8) and fused films."""
     r, wf_film = instanced_renderer("wavefront_fused", 160, 90, nee=nee,
                                     max_depth=8)
     assert r.segment_lengths() == [2, 6]
-    o, d, pix, seed = frame_inputs(r, 0)
-    state = _initial_state(o, d)
-    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
-    k, p = (_run_segment(r._tables, pix, state, _scalars(seed, 0, count), 2,
-                         r.config, fn) for fn in (segment, segment_reference))
-    assert torch.equal(k[12], p[12])
-    assert ray_share(k.t(), p.t()) >= RAY_SHARE
+    first_segment_agrees(r)
     f, fused_film = instanced_renderer("fused", 160, 90, nee=nee, max_depth=8)
     for _ in range(4):
         r.progressive_render()
@@ -403,10 +524,8 @@ def test_extension_kernels_match_plain(cuda, name, cfg_kw):
     """The textured and sky instantiations of both kernels against their
     plain versions: the trace at depth 1 without jitter and one 2-bounce
     segment (every ray or slot within RAY_ATOL on RAY_SHARE of them, the
-    alive plane equal), and 4 frames of the trace at depth 8 (RMSE)."""
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars)
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    same survivors with the alive plane equal: first_segment_agrees), and
+    4 frames of the trace at depth 8 (RMSE)."""
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
     r, _ = extension_renderer(name, "fused", 160, 90, max_depth=8, **cfg_kw)
     assert r._tables.checker or r._tables.itex or len(r._tables.sky) == 13
@@ -418,13 +537,7 @@ def test_extension_kernels_match_plain(cuda, name, cfg_kw):
     assert rmse < FILM_RMSE, rmse
     w, _ = extension_renderer(name, "wavefront_fused", 160, 90, max_depth=8,
                               **cfg_kw)
-    o, d, pix, seed = frame_inputs(w, 0)
-    state = _initial_state(o, d)
-    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
-    ks, ps = (_run_segment(w._tables, pix, state, _scalars(seed, 0, count), 2,
-                           w.config, fn) for fn in (segment, segment_reference))
-    assert torch.equal(ks[12], ps[12])
-    assert ray_share(ks.t(), ps.t()) >= RAY_SHARE
+    first_segment_agrees(w)
 
 
 @pytest.mark.cuda
@@ -477,11 +590,8 @@ def set_stream(monkeypatch, threshold, chunk=None):
 def test_stream_kernels_match_plain(cuda, monkeypatch, knobs, nee):
     """The stream instantiations of both kernels on the ico2 scene: the
     trace at depth 1 without jitter and at depth 8 (every ray within
-    RAY_ATOL on RAY_SHARE of them), one 2-bounce segment (the 13 planes on
-    RAY_SHARE of the slots, the alive plane equal on every slot)."""
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment, _scalars)
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    RAY_ATOL on RAY_SHARE of them), one 2-bounce segment
+    (first_segment_agrees)."""
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
     mesh = make_mesh("ico2")
     set_stream(monkeypatch, *knobs)
@@ -496,13 +606,7 @@ def test_stream_kernels_match_plain(cuda, monkeypatch, knobs, nee):
                      traced(r, trace_reference)(*inputs)) >= RAY_SHARE
     w, _ = stream_renderer("wavefront_fused", mesh, 160, 90, max_depth=8,
                            nee=nee)
-    o, d, pix, seed = frame_inputs(w, 0)
-    state = _initial_state(o, d)
-    count = torch.full((1,), o.shape[0], dtype=torch.int32, device="cuda")
-    ks, ps = (_run_segment(w._tables, pix, state, _scalars(seed, 0, count), 2,
-                           w.config, fn) for fn in (segment, segment_reference))
-    assert torch.equal(ks[12], ps[12])
-    assert ray_share(ks.t(), ps.t()) >= RAY_SHARE
+    first_segment_agrees(w)
 
 
 @pytest.mark.cuda

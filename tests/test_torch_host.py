@@ -132,12 +132,13 @@ def test_import_leaves_jax_out():
 
 
 def test_kernel_cache_key_covers_included_headers():
-    """Both kernel libraries include csrc/bounce.cuh, so its hash is part
-    of both cache keys: an edit to the shared bounce rebuilds both."""
+    """Both kernel libraries include csrc/bounce.cuh and the persistent
+    launch of csrc/persistent.cuh, so their hashes are part of both cache
+    keys: an edit to a shared header rebuilds both."""
     from parallelraytracing_tpu_torch.ops import _build
     for name in ("trace", "segment"):
         names = [p.name for p in _build.sources(name)]
-        assert names == [f"{name}.cu", "bounce.cuh"], names
+        assert names == [f"{name}.cu", "persistent.cuh", "bounce.cuh"], names
         assert name in _build.SIGNATURES
     assert _build.library_path("trace") != _build.library_path("segment")
 

@@ -45,7 +45,7 @@ from parallelraytracing_tpu_torch.engines.fused import FusedRenderer  # noqa: E4
 from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # noqa: E402
 from parallelraytracing_tpu_torch.ops.pack import (instance_ranges,  # noqa: E402
                                                    pack_instance_tables)
-from parallelraytracing_tpu_torch.ops.segment import PLANES, segment  # noqa: E402
+from parallelraytracing_tpu_torch.ops.segment import PLANES, segment_slots  # noqa: E402
 from parallelraytracing_tpu_torch.ops.trace import (scene_arg, trace,  # noqa: E402
                                                     trace_reference)
 from torch_meshes import (ICO_F, ICO_V, make_mesh, tlas_scene,  # noqa: E402
@@ -226,12 +226,12 @@ def test_segment_matches_pallas_segment(nee):
         cfg.t_min, cfg.t_max, jt.sky, interpret=True, nee=nee, inst=jt.inst,
         itri_vmem=jt.itri_vmem)
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
-    got = segment(torch.from_numpy(ids), torch.from_numpy(state),
-                  torch.tensor([SEED, 1, COUNT], dtype=torch.int32), t.sph,
-                  t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-                  n_bounces=2, t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-                  tri_live=t.tri_live, nee=t.nee, lights=t.lights,
-                  inst=t.inst).numpy()
+    got = segment_slots(
+        torch.from_numpy(ids), torch.from_numpy(state),
+        torch.tensor([SEED, 1, COUNT], dtype=torch.int32), t.sph, t.quad,
+        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
+        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
+        nee=t.nee, lights=t.lights, inst=t.inst).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     np.testing.assert_array_equal(got[12], ref[12])
     np.testing.assert_allclose(got[:12, :COUNT], ref[:12, :COUNT], rtol=0,

@@ -50,7 +50,7 @@ from parallelraytracing_tpu_torch.engines.wavefront_fused import \
     segmented_trace  # noqa: E402
 from parallelraytracing_tpu_torch.ops.nee import extract_lights  # noqa: E402
 from parallelraytracing_tpu_torch.ops.pack import pack_lights_table  # noqa: E402
-from parallelraytracing_tpu_torch.ops.segment import PLANES, segment  # noqa: E402
+from parallelraytracing_tpu_torch.ops.segment import PLANES, segment_slots  # noqa: E402
 from parallelraytracing_tpu_torch.ops.trace import trace  # noqa: E402
 from parallelraytracing_tpu_torch.utils.png import read_png  # noqa: E402
 
@@ -227,12 +227,12 @@ def test_segment_nee_rr_matches_pallas_segment(tmp_path, name):
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
 
     t = _port_tables(jt)
-    got = segment(torch.from_numpy(ids), torch.from_numpy(state),
-                  torch.tensor([SEED, 2, COUNT], dtype=torch.int32), t.sph,
-                  t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-                  n_bounces=2, t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-                  tri_live=t.tri_live, rr_depth=2, nee=True,
-                  lights=t.lights).numpy()
+    got = segment_slots(
+        torch.from_numpy(ids), torch.from_numpy(state),
+        torch.tensor([SEED, 2, COUNT], dtype=torch.int32), t.sph, t.quad,
+        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
+        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
+        rr_depth=2, nee=True, lights=t.lights).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     live = slice(0, COUNT)
     np.testing.assert_array_equal(got[12], ref[12])

@@ -37,7 +37,8 @@ from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # no
 from parallelraytracing_tpu_torch.engines.wavefront_fused import (  # noqa: E402
     count_frame_rays, segment_lengths)
 from parallelraytracing_tpu_torch.ops.segment import (PLANES, segment,  # noqa: E402
-                                                      segment_reference)
+                                                      segment_reference,
+                                                      segment_slots)
 
 W = H = 32  # 1024 slots: one 8x128 Pallas tile
 COUNT = 700  # live queue prefix; slots 700.. are dead
@@ -80,11 +81,12 @@ def test_segment_matches_pallas_segment(tmp_path, name):
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
 
     t = convert.tables_from_numpy(*raw, sky, "cpu")
-    got = segment(torch.from_numpy(ids), torch.from_numpy(state),
-                  torch.tensor([SEED, 0, COUNT], dtype=torch.int32), t.sph,
-                  t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-                  n_bounces=2, t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-                  tri_live=t.tri_live).numpy()
+    got = segment_slots(
+        torch.from_numpy(ids), torch.from_numpy(state),
+        torch.tensor([SEED, 0, COUNT], dtype=torch.int32), t.sph, t.quad,
+        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
+        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
+        tri_live=t.tri_live).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     live = slice(0, COUNT)
     assert (got[12, live] == ref[12, live]).mean() >= 0.995
@@ -220,13 +222,14 @@ def test_wavefront_fused_runs_nee_and_rr(tmp_path):
     assert all(not torch.equal(base, f) for k, f in films.items() if k)
     t = r._tables
     args = (torch.zeros(4, dtype=torch.int32), torch.zeros((PLANES, 4)),
-            torch.tensor([1, 0, 4], dtype=torch.int32), t.sph, t.quad, t.tri,
-            t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(n_bounces=1, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=True)
+            torch.tensor([4], dtype=torch.int32), torch.zeros((4, 3)), t.sph,
+            t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
+    kw = dict(seed=1, depth0=0, max_depth=6, n_bounces=1, t_min=1e-3,
+              t_max=1e16, sky=t.sky, tri_live=True)
     for fn in (segment, segment_reference):
-        assert fn(*args, **kw).shape == (PLANES, 4)
+        assert fn(*args, **kw)[0].shape == (PLANES, 4)
         assert fn(*args, **kw, nee=True, lights=t.lights,
-                  rr_depth=2).shape == (PLANES, 4)
+                  rr_depth=2)[0].shape == (PLANES, 4)
         with pytest.raises(ValueError, match="light table"):
             fn(*args, **kw, nee=True)
 

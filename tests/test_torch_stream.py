@@ -34,7 +34,7 @@ from parallelraytracing_tpu_torch import cli, convert  # noqa: E402
 from parallelraytracing_tpu_torch.core.mesh import subdivide  # noqa: E402
 from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # noqa: E402
 from parallelraytracing_tpu_torch.ops import pack  # noqa: E402
-from parallelraytracing_tpu_torch.ops.segment import PLANES, segment  # noqa: E402
+from parallelraytracing_tpu_torch.ops.segment import PLANES, segment_slots  # noqa: E402
 from parallelraytracing_tpu_torch.ops.trace import (scene_arg, trace,  # noqa: E402
                                                     trace_reference)
 from parallelraytracing_tpu_torch.utils.png import read_png  # noqa: E402
@@ -271,11 +271,12 @@ def test_segment_matches_pallas_segment_stream(monkeypatch):
         tri_stream=jt.tri_stream, tri_pack=jt.tri_pack,
         tri_snode=jt.tri_snode)
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
-    got = segment(torch.from_numpy(ids), torch.from_numpy(state),
-                  torch.tensor([SEED, 0, r], dtype=torch.int32), t.sph,
-                  t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-                  n_bounces=1, t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-                  tri_live=t.tri_live, stream=t.stream).numpy()
+    got = segment_slots(
+        torch.from_numpy(ids), torch.from_numpy(state),
+        torch.tensor([SEED, 0, r], dtype=torch.int32), t.sph, t.quad, t.tri,
+        t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=1, t_min=cfg.t_min,
+        t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
+        stream=t.stream).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     np.testing.assert_array_equal(got[12], ref[12])
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

@@ -58,7 +58,7 @@ from parallelraytracing_tpu_torch.ops.pack import (KTEX_MAX,  # noqa: E402
                                                    pack_instance_tables,
                                                    pack_kernel_textures,
                                                    pack_scene_tables)
-from parallelraytracing_tpu_torch.ops.segment import PLANES, segment  # noqa: E402
+from parallelraytracing_tpu_torch.ops.segment import PLANES, segment_slots  # noqa: E402
 from parallelraytracing_tpu_torch.ops.trace import trace  # noqa: E402
 from torch_meshes import (ICO_F, ICO_V, bench_image, checker_scene,  # noqa: E402
                           image_scene, make_mesh, textured_instance_scene,
@@ -278,12 +278,13 @@ def test_segment_matches_pallas_segment():
         cfg.t_min, cfg.t_max, jt.sky, interpret=True, nee=True,
         checker=jt.checker, itex=jt.itex, itex_tab=jt.itex_tab)
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
-    got = segment(torch.from_numpy(ids), torch.from_numpy(state),
-                  torch.tensor([SEED, 1, count], dtype=torch.int32), t.sph,
-                  t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-                  n_bounces=2, t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-                  tri_live=t.tri_live, nee=t.nee, lights=t.lights,
-                  checker=t.checker, itex=t.itex, itex_tab=t.itex_tab).numpy()
+    got = segment_slots(
+        torch.from_numpy(ids), torch.from_numpy(state),
+        torch.tensor([SEED, 1, count], dtype=torch.int32), t.sph, t.quad,
+        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
+        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
+        nee=t.nee, lights=t.lights, checker=t.checker, itex=t.itex,
+        itex_tab=t.itex_tab).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     np.testing.assert_array_equal(got[12], ref[12])
     np.testing.assert_allclose(got[:12, :count], ref[:12, :count], rtol=0,
