@@ -100,12 +100,13 @@ non-zero):
     of the instance tables against those the baked flat tables would
     need, and torch.cuda.max_memory_allocated();
 13. instances, kernels vs plain at 320x180, with and without NEE: the
-    trace kernel (depth 1 without jitter and frame 0 at depth 8 per ray
+    trace kernel (depth 1 without jitter and frame 0 at depth 4 per ray
     within 1e-5 on >= 99.9% of rays; films of 4 frames, HDR RMSE < 1e-3)
-    and one 2-bounce segment (phase 5's bounds);
+    and one 2-bounce segment (phase 5's bounds); depth 4, lowered from 8
+    to make room for phases 29-32 (INST_CMP_DEPTH);
 14. instances, the engines agree: wavefront_fused and fused films over 16
-    frames at 320x180 (HDR RMSE < 1e-3, max abs difference printed, 0
-    expected); and instanced against baked: bench's tlas_blas scene (4
+    frames at 320x180, depth 4 (HDR RMSE < 1e-3, max abs difference
+    printed, 0 expected); and instanced against baked: bench's tlas_blas scene (4
     icosahedron instances over a ground quad, 64x48, depth 10, 32 spp x
     8 frames) through the kernel, instanced and baked with add_mesh, HDR
     RMSE < 1e-3;
@@ -120,8 +121,8 @@ non-zero):
     that of 8 frames without NEE);
 17. the scene extensions, kernels vs plain at 320x180 (the kernels'
     kExt instantiations): T1 with and without NEE and with QMC + thin
-    lens, T2, T3; the trace kernel as in phase 13 and one 2-bounce
-    segment (phase 5's bounds);
+    lens, T2, T3 (at depth 4, as phase 13); the trace kernel as in phase
+    13 and one 2-bounce segment (phase 5's bounds);
 18. the engines agree on T1 and T3: wavefront_fused and fused films over
     16 frames at 320x180 (HDR RMSE < 1e-3, 0 expected);
 19. T1-T3 timed at 1920x1080: T1 fused, wavefront_fused, fused with the
@@ -200,7 +201,32 @@ non-zero):
     + 1 equals the plain version bit for bit (survivors' planes, pixel
     ids and keys, ended paths' radiance) and a second launch; a whole
     frame into a NaN-filled radiance buffer leaves no NaN and ends one
-    path per pixel.
+    path per pixel;
+29. bench.py's converged-spp gates (bench.py:455-602) against the port's
+    megakernel engine (plain PyTorch, brute force, threefry streams: an
+    oracle written apart from the kernels): 64x48, depth 10, 32 samples
+    a frame, HDR RMSE of the mean < 1e-3 for fused and wavefront_fused
+    on MATERIAL_TEST at 4096 spp, wavefront_fused on bench's bunny scene
+    and camera with the level-3 icosphere (1,280 triangles) for the
+    bunny (the brute-force oracle's time grows with the triangles: 31 s
+    on these 1,280), wavefront_fused on the instanced
+    tlas_blas scene at 8192 spp (the oracle on the same transforms
+    baked), fused on bench's textured-image scene; one line a row with
+    its RMSE, spp and the kernels' launches (bench's bvh equal-streams
+    row waits for the bvh engine);
+30. one megakernel frame of the headline at 1920x1080, depth 20, timed
+    with CUDA events beside the fused engine's ms/frame;
+31. the adaptive engine on the headline at 1920x1080, depth 20: 4
+    warm-up films bit-equal to fused's; on the first adaptive frame the
+    trace kernel on the selected ids against the plain version (within
+    1e-5 on >= 99.9% of rays), the budget in ids, the kernel on the
+    subset, the selection and the slot add timed; 4 adaptive frames with
+    one trace launch each, ms/frame;
+32. the à-trous denoiser: the guide pass and 4 levels at 1920x1080
+    timed; at 128x96 on CORNELL the denoised 8-frame image nearer (MSE)
+    a 256-frame fused truth than the raw one; the CLI's ``--engine
+    adaptive --denoise 4`` and ``--engine megakernel`` write their PNGs
+    (kept with --png-dir).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
@@ -218,7 +244,9 @@ shared memory, whether tables were staged in shared memory; likewise
 each segment entry), the trace and segment entries list all 48
 ("instantiations"), the trace entry phase 26's cases ("regeneration"),
 the segment entry phase 27's sort modes ("sort_modes") and phase 28's
-cases ("queue_edges"); the last line is
+cases ("queue_edges"), the trace entry phases 29-32 ("gates",
+"megakernel_frame", "adaptive": the kernel's launches and times on the
+adaptive path, "denoise"); the last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -272,6 +300,11 @@ TRUTH_FRAMES, NEE_FRAMES, MEAN_REL, RMSE_RATIO = 1024, 8, 0.06, 0.6
 #: the instanced path: bench.py's multimesh rows (depth min(8, 20)) and
 #: its camera; the tlas_blas gate's scene, size, depth and samples
 INST_DEPTH = 8
+#: the depth of the instanced and T3 scenes' kernel-vs-plain comparisons
+#: at CMP_W x CMP_H (phases 13, 14 and 17; the plain version's brute
+#: force over every instance's triangles took 9-13 s a frame at depth 8,
+#: and the gates of phase 29 needed the run's time: lowered from 8)
+INST_CMP_DEPTH = 4
 INST_EYE, INST_DIR = (0.0, 12.0, 30.0), (0.0, -7.0, -30.0)
 TLAS_W, TLAS_H, TLAS_DEPTH, TLAS_SPP, TLAS_FRAMES = 64, 48, 10, 32, 8
 #: the stream route's workloads: bench's big-mesh scene (big_mesh_scene)
@@ -1490,7 +1523,7 @@ def instanced_phases(ply: str, png_dir) -> dict:
     bunny, ico = load_ply(ply), icosahedron()
     scene = multimesh_scene(bunny, ico)
     torch.cuda.reset_peak_memory_stats()
-    cmp_kw = dict(max_depth=INST_DEPTH, jitter=True)
+    cmp_kw = dict(max_depth=INST_CMP_DEPTH, jitter=True)
     f_r, f_film = scene_renderer("fused", scene, INST_EYE, INST_DIR, CMP_W,
                                  CMP_H, **cmp_kw)
     t = f_r._tables.inst
@@ -1560,7 +1593,7 @@ def instanced_phases(ply: str, png_dir) -> dict:
     agree = dict(rmse=float(diff.pow(2).mean().sqrt()),
                  max_abs=float(diff.abs().max()),
                  schedule=w_r.segment_lengths())
-    phase("engines-agree", f"instances {CMP_W}x{CMP_H} depth {INST_DEPTH} "
+    phase("engines-agree", f"instances {CMP_W}x{CMP_H} depth {INST_CMP_DEPTH} "
           f"x{AGREE_FRAMES} frames: wavefront_fused {tuple(agree['schedule'])}"
           f" vs fused HDR RMSE {agree['rmse']:.3e}, max abs diff "
           f"{agree['max_abs']!r}")
@@ -1747,10 +1780,10 @@ def extension_phases(bunny, png_dir) -> dict:
     eye = np.asarray(PRESET_EYE, np.float64)
     look = np.asarray(PRESET_LOOK, np.float64)
 
-    def renderer(wl, engine, width, height, **cfg_kw):
+    def renderer(wl, engine, width, height, depth=INST_DEPTH, **cfg_kw):
         if wl == "T3":
             return scene_renderer(engine, t3, INST_EYE, INST_DIR, width,
-                                  height, max_depth=INST_DEPTH, jitter=True,
+                                  height, max_depth=depth, jitter=True,
                                   **cfg_kw)
         scene = Scene(ScenePreset({"T1": "texture_demo",
                                    "T2": "sky_demo"}[wl]))
@@ -1767,13 +1800,14 @@ def extension_phases(bunny, png_dir) -> dict:
     for wl, opt in (("T1", ""), ("T1", "nee"), ("T1", "qmc+lens"),
                     ("T2", ""), ("T3", "")):
         tag = f"{wl}{' ' + opt if opt else ''}"
-        r, _ = renderer(wl, "fused", CMP_W, CMP_H, **opts[opt])
+        r, _ = renderer(wl, "fused", CMP_W, CMP_H, INST_CMP_DEPTH, **opts[opt])
         t = r._tables
         if not (t.checker or t.itex or len(t.sky) == 13) \
                 or (wl == "T3" and t.inst.itri.shape[0] != 31):
             raise AssertionError(f"{tag}: the scene extensions are not on")
         trace_rec = kernel_vs_plain(r, tag, "ext-vs-plain")
-        w_r, _ = renderer(wl, "wavefront_fused", CMP_W, CMP_H, **opts[opt])
+        w_r, _ = renderer(wl, "wavefront_fused", CMP_W, CMP_H, INST_CMP_DEPTH,
+                          **opts[opt])
         seg_rec = segment_both(w_r)
         phase("ext-segment-vs-plain", f"{tag} {CMP_W}x{CMP_H}, one 2-bounce "
               f"segment: {segment_line(seg_rec)}")
@@ -2364,6 +2398,281 @@ def stream_kernel_record(kernel: str, st: dict) -> dict:
                   if ("wavefront" in k) == (kernel == "segment")}}
 
 
+#: phase 29: bench.py's converged-spp gates (bench.py:455-602): 64x48,
+#: depth 10, 32 samples a frame, HDR RMSE of the mean < 1e-3 against the
+#: port's megakernel; the instanced row at twice the samples, as bench
+#: takes it (its variance is ~4x the others')
+GATE_W, GATE_H, GATE_DEPTH, GATE_SPF, GATE_SPP, GATE_RMSE = 64, 48, 10, 32, \
+    4096, 1e-3
+#: the level of the icosphere standing in for bench's bunny (1,280
+#: triangles: the megakernel's brute force tests every ray against every
+#: triangle, so its time grows with the mesh: 31 s on the card here)
+GATE_ICO_LEVEL = 3
+#: phase 31: the adaptive engine's warm-up and adaptive frames
+ADAPT_WARMUP, ADAPT_FRAMES = 4, 4
+#: phase 32: the denoiser's levels, and its MSE check (CORNELL at 128x96,
+#: depth 5: DENOISE_FRAMES frames against a truth of DENOISE_TRUTH)
+DENOISE_LEVELS, DENOISE_W, DENOISE_H = 4, 128, 96
+DENOISE_FRAMES, DENOISE_TRUTH = 8, 256
+
+
+def gate_render(engine: str, scene, eye, direction, spp: int):
+    """The HDR mean of `spp` samples a pixel of `engine` at the gates'
+    size, depth and samples a frame, and the engine's frames' seconds."""
+    import torch
+    r, film = scene_renderer(engine, scene, eye, direction, GATE_W, GATE_H,
+                             max_depth=GATE_DEPTH, seed=0,
+                             samples_per_frame=GATE_SPF)
+    t0 = time.perf_counter()
+    for _ in range(max(1, spp // GATE_SPF)):
+        r.progressive_render()
+    torch.cuda.synchronize()
+    return film.hdr_average(), time.perf_counter() - t0
+
+
+def gate_phase() -> list:
+    """Phase 29: bench.py's fidelity rows on the card, each engine's image
+    against the megakernel's at converged spp; the trace and segment
+    launch counts of the kernels' renders.  Raises on a miss."""
+    import torch
+    from parallelraytracing_tpu_torch import Scene, ScenePreset
+    from parallelraytracing_tpu_torch.core.mesh import icosphere
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+
+    def bunny_scene():  # bench's bunny_scene, the icosphere for the bunny
+        s = Scene(preset=None)
+        s.add_mesh(icosphere(GATE_ICO_LEVEL), s.add_lambertian((0.7, 0.6, 0.45)),
+                   ((6, 6, 6), (0, 0, 0), (0, 0, 0)))
+        s.add_quad(120, 120, s.add_lambertian((0.5, 0.5, 0.52)), None)
+        return s
+
+    def tex_scene():  # bench's tex_scene
+        yy, xx = np.mgrid[0:16, 0:16]
+        img16 = np.stack([(xx % 8) / 7.0, (yy % 8) / 7.0,
+                          ((xx + yy) % 16) / 15.0], axis=-1)
+        s = Scene(preset=None)
+        tm = s.add_textured_lambertian(s.add_texture(img16))
+        s.add_quad(6, 6, tm, ((1, 1, 1), (60, 0, 0), (0, 4, -4)))
+        s.add_quad(40, 40, s.add_lambertian((0.5, 0.5, 0.52)), None)
+        return s
+
+    mat = ((5.0, 5.0, 8.0), (-5.0, -5.0, -8.0))
+    rows = [("fused", "material_test", lambda b: Scene(ScenePreset.MATERIAL_TEST),
+             mat, GATE_SPP),
+            ("wavefront_fused", "material_test",
+             lambda b: Scene(ScenePreset.MATERIAL_TEST), mat, GATE_SPP),
+            ("wavefront_fused", f"bunny_sah (icosphere level {GATE_ICO_LEVEL})",
+             lambda b: bunny_scene(), ((0.0, 14.0, 28.0), (0.0, -7.0, -28.0)),
+             GATE_SPP),
+            ("wavefront_fused", "tlas_blas",
+             lambda baked: tlas_blas_scene(icosahedron(), baked),
+             ((0.0, 6.0, 16.0), (0.0, -4.0, -16.0)), 2 * GATE_SPP),
+            ("fused", "textured_image", lambda b: tex_scene(),
+             ((0.0, 5.0, 10.0), (0.0, -2.0, -10.0)), GATE_SPP)]
+    oracles, out = {}, []
+    for engine, tag, scene, (eye, dirn), spp in rows:
+        key = (tag, spp)
+        if key not in oracles:
+            oracles[key] = gate_render("megakernel", scene(True), eye, dirn, spp)
+        ref, ref_s = oracles[key]
+        trace.launches = segment.launches = 0
+        img, img_s = gate_render(engine, scene(False), eye, dirn, spp)
+        launches = dict(trace=trace.launches, segment=segment.launches)
+        rmse = float((img - ref).pow(2).mean().sqrt())
+        ok = bool(rmse < GATE_RMSE) and bool(torch.isfinite(img).all())
+        out.append(dict(row=tag, engine=engine, spp=spp, rmse=rmse,
+                        passed=ok, launches=launches, engine_s=img_s,
+                        megakernel_s=ref_s))
+        phase("gates", f"{tag}: {engine} vs megakernel at {spp} spp "
+              f"({GATE_W}x{GATE_H}, depth {GATE_DEPTH}, {GATE_SPF} spp a "
+              f"frame): HDR RMSE {rmse:.6e} (gate {GATE_RMSE}); {engine} "
+              f"{img_s:.2f} s, launches {launches}; megakernel {ref_s:.2f} s")
+        kernel = "segment" if engine == "wavefront_fused" else "trace"
+        if not ok or launches[kernel] == 0:
+            raise AssertionError(f"gate {tag}: {engine} RMSE {rmse} "
+                                 f"(launches {launches})")
+    phase("gates", "bench's bvh equal-streams row waits for the port's bvh "
+          "engine (ROADMAP Queue 1 item 14); stream_vs_dense is phase 20's "
+          "bit-equal films")
+    return out
+
+
+def megakernel_phase() -> dict:
+    """Phase 30: one megakernel frame of the headline at 1920x1080, depth
+    20, timed with CUDA events beside the fused engine's frames; the
+    film checked as phase 4 checks it."""
+    import torch
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    mk, mk_film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                                "megakernel", max_depth=MAIN_DEPTH, jitter=True)
+    trace.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    mk_ms = cuda_ms(mk.progressive_render, 1)
+    mk_launches = trace.launches
+    peak = torch.cuda.max_memory_allocated()
+    f, _ = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                         max_depth=MAIN_DEPTH, jitter=True)
+    f.progressive_render()
+    f_ms = cuda_ms(f.progressive_render, TIMED)
+    phase("megakernel", f"random_balls_large {MAIN_W}x{MAIN_H} depth "
+          f"{MAIN_DEPTH}: megakernel {mk_ms:.1f} ms for one frame (plain "
+          f"PyTorch, brute force over 809 primitives, peak "
+          f"{peak / 2**30:.2f} GiB), fused {f_ms:.3f} ms/frame; trace "
+          f"launches in the megakernel frame {mk_launches}; "
+          + check_film(mk_film, mk._scene_data.sky.tolist(),
+                       "megakernel_random_balls_large", None))
+    if mk_launches:
+        raise AssertionError("the megakernel launched the trace kernel")
+    return dict(ms=mk_ms, fused_ms_per_frame=f_ms, peak_bytes=peak)
+
+
+def adaptive_phase(png_dir) -> dict:
+    """Phase 31: the adaptive engine on the headline at 1920x1080, depth
+    20: ADAPT_WARMUP warm-up frames bit-equal to the fused engine's; on
+    the first adaptive frame the trace kernel on the selected ids against
+    trace_reference (within RAY_ATOL on >= RAY_SHARE of the rays), the
+    selection, the kernel and the slot add timed; then ADAPT_FRAMES
+    adaptive frames with every launch count set to 0: one trace launch a
+    frame.  Raises on a miss; returns the record."""
+    import torch
+    from parallelraytracing_tpu_torch import Film
+    from parallelraytracing_tpu_torch.engines.adaptive import select_slots
+    from parallelraytracing_tpu_torch.engines.tables import trace_tables
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    ad, ad_film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                                "adaptive", attrs=dict(warmup=ADAPT_WARMUP),
+                                max_depth=MAIN_DEPTH, jitter=True)
+    f, f_film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                              max_depth=MAIN_DEPTH, jitter=True)
+    for _ in range(ADAPT_WARMUP):
+        ad.progressive_render()
+        f.progressive_render()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(ad_film.accum, f_film.accum)
+                 and torch.equal(ad_film.weights, f_film.weights))
+    del f, f_film
+    budget = ad._budget_slots
+
+    def select():
+        return select_slots(ad._m1, ad._m2, ad._n, budget)
+    sel = select()  # a first call loads the sort's kernels
+    sel_ms = cuda_ms(select, 5)
+    ids = ad._ids[sel]
+    o, d, seed = ad._sample_rays(ids, ad._frame_index, 0)
+    k, k_ms = timed_ms(lambda: trace_tables(ad._tables, o, d, ids, seed,
+                                            ad.config))
+    kernel_ms = cuda_ms(lambda: trace_tables(ad._tables, o, d, ids, seed,
+                                             ad.config), 5)
+    p, plain_ms = timed_ms(lambda: traced_on(ad, trace_reference)(o, d, ids,
+                                                                  seed))
+    err = (k - p).abs().amax(1)
+    share, max_err = float((err <= RAY_ATOL).float().mean()), float(err.max())
+    scratch = Film(MAIN_W, MAIN_H, "cuda")  # the slot add, on a film alike
+    scratch.set_layout(ad.film_layout())
+    scratch.add_sample_slots(sel, k, 1.0)
+    add_ms = cuda_ms(lambda: scratch.add_sample_slots(sel, k, 1.0), 5)
+    del scratch
+    phase("adaptive", f"random_balls_large {MAIN_W}x{MAIN_H} depth "
+          f"{MAIN_DEPTH}: {ADAPT_WARMUP} warm-up films bit-equal to fused: "
+          f"{equal}; budget {budget} of {MAIN_W * MAIN_H} ids; first "
+          f"adaptive frame: trace kernel on the selected ids {kernel_ms:.3f} "
+          f"ms (first launch {k_ms:.3f} ms), plain {plain_ms:.1f} ms, "
+          f"{share:.6f} of rays within {RAY_ATOL} (max abs err "
+          f"{max_err:.3e}); selection {sel_ms:.3f} ms, slot add "
+          f"{add_ms:.3f} ms (means of 5 after a first call)")
+    if not equal or share < RAY_SHARE:
+        raise AssertionError(f"adaptive: warm-up equal {equal}, share {share}")
+    del k, p, err, o, d
+    trace.launches = segment.launches = 0
+    frame_ms = cuda_ms(ad.progressive_render, ADAPT_FRAMES)
+    launches = trace.launches
+    phase("adaptive", f"{ADAPT_FRAMES} adaptive frames: {frame_ms:.3f} "
+          f"ms/frame; trace launches {launches}, segment launches "
+          f"{segment.launches}; "
+          + check_film(ad_film, ad._tables.sky, "adaptive_random_balls_large",
+                       png_dir))
+    if launches != ADAPT_FRAMES or segment.launches:
+        raise AssertionError(f"adaptive: {launches} trace launches in "
+                             f"{ADAPT_FRAMES} frames")
+    return dict(launches=launches, budget_ids=budget, ms=kernel_ms,
+                plain_ms=plain_ms, max_abs_err=max_err, share=share,
+                selection_ms=sel_ms, slot_add_ms=add_ms,
+                ms_per_frame=frame_ms, warmup_films_equal=equal)
+
+
+def denoise_phase(png_dir) -> dict:
+    """Phase 32: the à-trous denoiser.  At 1920x1080 on the headline's
+    film (phase 31's scene, 4 fused frames) the guide pass and
+    DENOISE_LEVELS levels, each timed; at DENOISE_W x DENOISE_H on
+    CORNELL (depth 5) the denoised DENOISE_FRAMES-frame image is nearer
+    (MSE) a DENOISE_TRUTH-frame fused truth than the raw image; then the
+    CLI with --engine adaptive --denoise and --engine megakernel writes
+    its PNGs.  Raises on a miss."""
+    import torch
+    from parallelraytracing_tpu_torch import cli
+    from parallelraytracing_tpu_torch.postfx.denoise import (atrous_denoise,
+                                                             aux_buffers,
+                                                             save_denoised_png)
+    r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                            max_depth=MAIN_DEPTH, jitter=True)
+    for _ in range(4):
+        r.progressive_render()
+    scene = r._scene.build("cuda")
+    guides, guide_ms = timed_ms(lambda: aux_buffers(scene, r._cam_params,
+                                                    r.config))
+    rad = film.hdr_average()
+    den, filt_ms = timed_ms(lambda: atrous_denoise(rad, *guides,
+                                                   DENOISE_LEVELS))
+    if not torch.isfinite(den).all():
+        raise AssertionError("denoise: non-finite output at 1080p")
+    del r, film, guides, rad, den
+
+    def cornell(frames, seed):
+        c, cfilm = make_renderer("cornell", DENOISE_W, DENOISE_H, max_depth=5,
+                                 seed=seed, jitter=True)
+        for _ in range(frames):
+            c.progressive_render()
+        return c, cfilm
+
+    _, truth_film = cornell(DENOISE_TRUTH, 0)
+    truth = truth_film.hdr_average()
+    c, noisy_film = cornell(DENOISE_FRAMES, 123)
+    noisy = noisy_film.hdr_average()
+    cscene = c._scene.build("cuda")
+    den = atrous_denoise(noisy, *aux_buffers(cscene, c._cam_params, c.config),
+                         DENOISE_LEVELS)
+    mse_raw = float((noisy - truth).pow(2).mean())
+    mse_den = float((den - truth).pow(2).mean())
+    out_dir = Path(png_dir) if png_dir is not None else Path(tempfile.mkdtemp())
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_denoised_png(str(out_dir / "denoised_cornell.png"), noisy_film,
+                      cscene, c._cam_params, c.config, DENOISE_LEVELS)
+    with contextlib.redirect_stdout(sys.stderr):
+        for engine, extra in (("adaptive", ["--denoise", str(DENOISE_LEVELS),
+                                            "--frames", "8"]),
+                              ("megakernel", ["--frames", "2"])):
+            cli.main(["--device", "cuda", "--engine", engine, "--scene",
+                      "cornell", "--width",
+                      str(DENOISE_W), "--height", str(DENOISE_H), "--depth",
+                      "5", "--out", str(out_dir / f"cli_{engine}.png")] + extra)
+    pngs = sorted(x.name for x in out_dir.glob("*.png")
+                  if x.name.startswith(("cli_", "denoised_")))
+    if png_dir is None:
+        shutil.rmtree(out_dir)
+    phase("denoise", f"{MAIN_W}x{MAIN_H}: guide pass {guide_ms:.1f} ms, "
+          f"{DENOISE_LEVELS} a-trous levels {filt_ms:.1f} ms (plain "
+          f"PyTorch); cornell {DENOISE_W}x{DENOISE_H} depth 5, "
+          f"{DENOISE_FRAMES} frames against {DENOISE_TRUTH}: MSE raw "
+          f"{mse_raw:.4e}, denoised {mse_den:.4e}; the CLI wrote {pngs}")
+    if not mse_den < mse_raw or len(pngs) != 3:
+        raise AssertionError(f"denoise: MSE {mse_den} not below {mse_raw}, "
+                             f"PNGs {pngs}")
+    return dict(guide_ms=guide_ms, filter_ms=filt_ms, levels=DENOISE_LEVELS,
+                mse_raw=mse_raw, mse_denoised=mse_den)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png-dir", default=None,
@@ -2709,6 +3018,14 @@ def main(argv=None) -> int:
     # the measured peaks
     mic = micro_phase(smi)
 
+    # 29-32. the reference engine and what stands on it: bench's
+    # converged-spp gates, the megakernel frame, the adaptive engine (K1
+    # on the selected ids) and the denoiser
+    gates = gate_phase()
+    mk_rec = megakernel_phase()
+    adapt = adaptive_phase(args.png_dir)
+    den_rec = denoise_phase(args.png_dir)
+
     print(smi)
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
@@ -2766,6 +3083,13 @@ def main(argv=None) -> int:
                   "size": f"{n_tri}-triangle mesh {MAIN_W}x{MAIN_H} depth "
                           f"{MAIN_DEPTH}, one frame"},
          "nee": nee_recs, "rr": rr_rec, "nee_unbiased": unbiased,
+         "adaptive": {**adapt, "size": f"the adaptive engine on "
+                      f"random_balls_large {MAIN_W}x{MAIN_H} depth "
+                      f"{MAIN_DEPTH}: launches over its {ADAPT_FRAMES} "
+                      f"adaptive frames (one a frame, on budget_ids ids), "
+                      f"ms / plain_ms the kernel and the plain version on "
+                      f"the first adaptive frame's ids"},
+         "gates": gates, "megakernel_frame": mk_rec, "denoise": den_rec,
          "paths": {k: paths[k] for k in "AB"},
          "instances": {**inst, "paths": {k: v for k, v in inst_paths.items()
                                          if "_fused" in k and "wavefront" not in k}},

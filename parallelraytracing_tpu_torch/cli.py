@@ -5,7 +5,11 @@ JAX package's showcase scene, and writes a PNG (plus optional linear PFM
 and film checkpoint).  ``--engine auto`` picks wavefront_fused for a scene
 of more than 512 triangles and fused otherwise, as the JAX CLI does on a
 TPU.  A mesh of more than 24,576 triangles renders through the stream
-route (ops/pack.py); the header line then names its chunk.
+route (ops/pack.py); the header line then names its chunk.  ``megakernel``
+is the reference engine (plain PyTorch, brute force: slow, for small
+frames and as the oracle), ``adaptive`` the fused engine with
+variance-guided pixel budgets, and ``--denoise N`` applies N levels of the
+à-trous filter (postfx/denoise.py) before the PNG is written.
 
 Usage:
     python -m parallelraytracing_tpu_torch.cli --scene random_balls_large \
@@ -17,6 +21,10 @@ Usage:
         --lens-radius 0.1 --focus-distance 10 --qmc --frames 16
     python -m parallelraytracing_tpu_torch.cli --device cpu --scene cornell \
         --width 64 --height 64 --frames 4
+    python -m parallelraytracing_tpu_torch.cli --engine adaptive --denoise 4 \
+        --frames 16 --out adaptive.png
+    python -m parallelraytracing_tpu_torch.cli --device cpu --engine megakernel \
+        --scene material_test --width 64 --height 48 --depth 8 --frames 4
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import sys
 import time
 
 #: engines of this port; "auto" picks by the scene's triangle count
-ENGINE_CHOICES = ("auto", "fused", "wavefront_fused", "tlas")
+ENGINE_CHOICES = ("auto", "fused", "wavefront_fused", "tlas", "megakernel",
+                  "adaptive")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -46,7 +55,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="auto (wavefront_fused above 512 triangles, else "
                         "fused, as the JAX CLI picks) | fused | "
                         "wavefront_fused | tlas (the fused engine, named "
-                        "for instanced scenes).  On an H100 wavefront_fused is "
+                        "for instanced scenes) | megakernel (the reference "
+                        "engine: plain PyTorch, brute force) | adaptive "
+                        "(fused + variance-guided per-pixel sample "
+                        "budgets).  On an H100 wavefront_fused is "
                         "the slower engine on meshes: its default schedule "
                         "is the TPU's, not yet re-tuned for the GPU")
     p.add_argument("--device", default="cuda",
@@ -91,6 +103,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    metavar=("X", "Y", "Z"))
     p.add_argument("--look-at", type=float, nargs=3, default=None,
                    metavar=("X", "Y", "Z"))
+    p.add_argument("--denoise", type=int, default=0, metavar="N",
+                   help="apply N levels of the edge-aware a-trous denoiser "
+                        "before the PNG encode (guides from one pass of "
+                        "pixel-center rays; postfx/denoise.py)")
     p.add_argument("--exposure", type=float, default=1.0)
     p.add_argument("--gamma", type=float, default=2.2)
     p.add_argument("--out", default="render.png")
@@ -166,10 +182,15 @@ def main(argv=None) -> int:
     renderer.init(film, scene, cam, cfg)
     renderer._frame_index = start_frame
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    stream = renderer._tables.stream
+    # the kernels' engines hold packed tables; the megakernel its lights
+    tables = getattr(renderer, "_tables", None)
+    if tables is not None:
+        nee, stream = tables.nee, tables.stream
+    else:
+        nee, stream = renderer._lights is not None, None
     print(f"scene={args.ply or args.scene} engine={engine} "
           f"{args.width}x{args.height} depth={cfg.max_depth} "
-          f"nee={renderer._tables.nee} rr_depth={cfg.russian_roulette_depth} "
+          f"nee={nee} rr_depth={cfg.russian_roulette_depth} "
           f"prims={scene.num_primitives} "
           + (f"stream_chunk={stream.chunk} " if stream is not None else "")
           + f"device={device} ({name})")
@@ -187,8 +208,15 @@ def main(argv=None) -> int:
           f"({args.frames / total:.2f} fps, "
           f"{film.sample_count} samples accumulated)")
 
-    film.save_png(args.out, args.exposure, args.gamma)
-    print(f"wrote {args.out}")
+    if args.denoise > 0:
+        from parallelraytracing_tpu_torch.postfx.denoise import save_denoised_png
+        save_denoised_png(args.out, film, scene.build(device),
+                          renderer._cam_params, cfg, iterations=args.denoise,
+                          exposure=args.exposure, gamma=args.gamma)
+    else:
+        film.save_png(args.out, args.exposure, args.gamma)
+    print(f"wrote {args.out}"
+          + (f" (denoised x{args.denoise})" if args.denoise else ""))
     if args.hdr_out:
         film.save_pfm(args.hdr_out)
         print(f"wrote linear HDR {args.hdr_out}")

@@ -60,6 +60,10 @@ class RenderConfig:
     qmc: bool = False
 
     @property
+    def pixel_count(self) -> int:
+        return self.width * self.height
+
+    @property
     def lens(self) -> Optional[Tuple[float, float]]:
         """(radius, focus_distance), or None for a pinhole camera."""
         if self.lens_radius > 0.0:

@@ -23,6 +23,21 @@ import numpy as np
 import torch
 
 
+def display_rgba(hdr: torch.Tensor, exposure: float = 1.0,
+                 gamma: float = 2.2) -> torch.Tensor:
+    """The display transform of an (H, W, 3) HDR image: exposure,
+    Reinhard x / (1 + x), gamma 1 / `gamma`, then u8 with +0.5 rounding;
+    (H, W, 4) uint8 with an opaque alpha."""
+    x = hdr * torch.tensor(exposure, dtype=torch.float32)
+    x = x / (1.0 + x)                          # Reinhard (film.h:63-69)
+    x = torch.pow(torch.clamp_min(x, 0.0),
+                  torch.tensor(1.0 / gamma, dtype=torch.float32))
+    rgb = (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    alpha = torch.full(rgb.shape[:-1] + (1,), 255, dtype=torch.uint8,
+                       device=rgb.device)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
 class Film:
     def __init__(self, width: int, height: int, device):
         self.width = int(width)
@@ -90,6 +105,38 @@ class Film:
         self.weights += w
         self.sample_count += 1
 
+    def add_sample(self, x: int, y: int, rgb, weight: float = 1.0) -> None:
+        """Film::AddSample (film.cu:37-55): accumulate one sample into one
+        pixel; a pixel outside the film is ignored, as in the reference."""
+        if not (0 <= x < self.width and 0 <= y < self.height):
+            return
+        rgb = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
+        if self._layout_inv is not None:
+            slot = self._layout_inv[y * self.width + x]
+            self.accum[slot] += rgb * weight
+            self.weights[slot] += weight
+            return
+        self.accum[y, x] += rgb * weight
+        self.weights[y, x] += weight
+
+    def add_sample_slots(self, slots: torch.Tensor, rgb: torch.Tensor,
+                         weight: float = 1.0) -> None:
+        """Accumulate a subset of storage slots (the adaptive engine's
+        selected pixels): slots (B,) index the installed storage layout
+        (or the flat H*W order), rgb (B, 3).  Each pixel's weight counts
+        its own samples, so its mean stays exact; a slot given twice
+        accumulates twice."""
+        w = torch.tensor(weight, dtype=torch.float32, device=self.device)
+        slots = slots.to(device=self.device, dtype=torch.int64)
+        rgb = rgb.to(torch.float32) * w
+        if self._layout_inv is None:
+            self.accum.view(-1, 3).index_add_(0, slots, rgb)
+            self.weights.view(-1).index_add_(0, slots, w.expand(slots.shape))
+        else:
+            self.accum.index_add_(0, slots, rgb)
+            self.weights.index_add_(0, slots, w.expand(slots.shape))
+        self.sample_count += 1
+
     def _canonical_buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self._layout_inv is None:
             return self.accum, self.weights
@@ -104,14 +151,7 @@ class Film:
 
     def to_display(self, exposure: float = 1.0, gamma: float = 2.2) -> torch.Tensor:
         """UpdateDisplay -> (H,W,4) uint8 on the film's device."""
-        x = self.hdr_average() * torch.tensor(exposure, dtype=torch.float32)
-        x = x / (1.0 + x)                          # Reinhard (film.h:63-69)
-        x = torch.pow(torch.clamp_min(x, 0.0),
-                      torch.tensor(1.0 / gamma, dtype=torch.float32))
-        rgb = (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
-        alpha = torch.full(rgb.shape[:-1] + (1,), 255, dtype=torch.uint8,
-                           device=rgb.device)
-        return torch.cat([rgb, alpha], dim=-1)
+        return display_rgba(self.hdr_average(), exposure, gamma)
 
     def display_numpy(self, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
         return self.to_display(exposure, gamma).cpu().numpy()

@@ -41,6 +41,13 @@ MAT_METAL = 1
 MAT_DIELECTRIC = 2
 MAT_EMISSIVE = 3
 
+# Primitive kinds of a hit (-1 on a miss); the global ordinal of a
+# primitive is its index plus the counts of the kinds before it.
+KIND_SPHERE = 0
+KIND_QUAD = 1
+KIND_TRIANGLE = 2
+
+
 class ScenePreset(enum.Enum):
     """The reference's preset enum (src/core/scene.h:6-20) plus the JAX
     package's two extension demos: ``texture_demo`` (checker floor, image

@@ -5,5 +5,7 @@ from parallelraytracing_tpu_torch.engines.base import (Renderer, available_engin
 from parallelraytracing_tpu_torch.engines import fused as _fused  # noqa: F401
 from parallelraytracing_tpu_torch.engines import wavefront_fused as _wavefront_fused  # noqa: F401
 from parallelraytracing_tpu_torch.engines import tlas as _tlas  # noqa: F401
+from parallelraytracing_tpu_torch.engines import megakernel as _megakernel  # noqa: F401
+from parallelraytracing_tpu_torch.engines import adaptive as _adaptive  # noqa: F401
 
 __all__ = ["Renderer", "available_engines", "create_renderer", "register_engine"]

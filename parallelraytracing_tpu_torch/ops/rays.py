@@ -115,6 +115,41 @@ def apply_thin_lens(o, d, cam_params, lens, u1, u2):
     return o2, _normalize(p - o2)
 
 
+def _camera_rays(cam_params, width: int, height: int, idx, jxy, lens, lens_u):
+    """Rays (o, d) through pixels `idx` at sub-pixel offsets `jxy` =
+    (jx, jy), or the pixel centers for None; with a lens of radius > 0,
+    its aperture sample at the uniforms `lens_u` = (u1, u2), or the lens
+    center for None."""
+    pos = cam_params[0:3]
+    right = cam_params[3:6]
+    up = cam_params[6:9]
+    front = cam_params[9:12]
+
+    x = (idx % width).to(torch.float32)
+    y = torch.div(idx, width, rounding_mode="floor").to(torch.float32)
+    if jxy is not None:
+        px, py = x + jxy[0], y + jxy[1]
+    else:
+        px, py = x + 0.5, y + 0.5
+
+    ndc_x = (px / width) * 2.0 - 1.0
+    ndc_y = 1.0 - (py / height) * 2.0
+    dx = ndc_x * (width / height * TAN_FOVY)
+    dy = ndc_y * TAN_FOVY
+    dz = -torch.ones_like(dx)
+    inv_len = ieee.rsqrt(dx * dx + dy * dy + dz * dz)
+    dx, dy, dz = dx * inv_len, dy * inv_len, dz * inv_len
+
+    d = _normalize(dx[:, None] * right + dy[:, None] * up
+                   + dz[:, None] * (-front))
+    o = pos.expand(d.shape).contiguous()
+    if lens is not None and lens[0] > 0.0:
+        if lens_u is None:  # the lens center (a pinhole)
+            lens_u = (torch.zeros_like(x), torch.zeros_like(x))
+        o, d = apply_thin_lens(o, d, cam_params, lens, *lens_u)
+    return o, d
+
+
 def generate_camera_rays_ids(cam_params: torch.Tensor, width: int,
                              height: int, idx: torch.Tensor,
                              jitter: bool = True, pix_seed=None,
@@ -137,39 +172,50 @@ def generate_camera_rays_ids(cam_params: torch.Tensor, width: int,
         raise ValueError("QMC raygen (qpt) needs pix_seed")
     qpt = None if qpt is None else [float(x) for x in np.asarray(qpt,
                                                                  np.float32)]
-    pos = cam_params[0:3]
-    right = cam_params[3:6]
-    up = cam_params[6:9]
-    front = cam_params[9:12]
-
-    x = (idx % width).to(torch.float32)
-    y = torch.div(idx, width, rounding_mode="floor").to(torch.float32)
+    jxy = lens_u = None
     if jitter:
-        jx, jy = pixel_keyed_jitter(idx, pix_seed)
+        jxy = pixel_keyed_jitter(idx, pix_seed)
         if qpt is not None:
-            jx, jy = _rot(jx, qpt[0]), _rot(jy, qpt[1])
-        px, py = x + jx, y + jy
-    else:
-        px, py = x + 0.5, y + 0.5
+            jxy = _rot(jxy[0], qpt[0]), _rot(jxy[1], qpt[1])
+    if lens is not None and lens[0] > 0.0 and pix_seed is not None:
+        lens_u = _pixel_u01(idx, pix_seed, 103), _pixel_u01(idx, pix_seed, 104)
+        if qpt is not None:
+            lens_u = _rot(lens_u[0], qpt[2]), _rot(lens_u[1], qpt[3])
+    return _camera_rays(cam_params, width, height, idx, jxy, lens, lens_u)
 
-    ndc_x = (px / width) * 2.0 - 1.0
-    ndc_y = 1.0 - (py / height) * 2.0
-    dx = ndc_x * (width / height * TAN_FOVY)
-    dy = ndc_y * TAN_FOVY
-    dz = -torch.ones_like(dx)
-    inv_len = ieee.rsqrt(dx * dx + dy * dy + dz * dz)
-    dx, dy, dz = dx * inv_len, dy * inv_len, dz * inv_len
 
-    d = _normalize(dx[:, None] * right + dy[:, None] * up
-                   + dz[:, None] * (-front))
-    o = pos.expand(d.shape).contiguous()
-    if lens is not None and lens[0] > 0.0:
-        if pix_seed is not None:
-            u1 = _pixel_u01(idx, pix_seed, 103)
-            u2 = _pixel_u01(idx, pix_seed, 104)
-            if qpt is not None:
-                u1, u2 = _rot(u1, qpt[2]), _rot(u2, qpt[3])
-        else:  # no seed: the lens center (a pinhole)
-            u1 = u2 = torch.zeros_like(x)
-        o, d = apply_thin_lens(o, d, cam_params, lens, u1, u2)
-    return o, d
+def generate_camera_rays(cam_params: torch.Tensor, width: int, height: int,
+                         key=None, jitter: bool = True, lens=None,
+                         pix_seed=None, qpt=None):
+    """Rays (o, d), each (H*W, 3), of the whole frame in scanline order
+    (pixel y * W + x), the megakernel engine's raygen.  With `pix_seed`
+    the draws are pixel-keyed as in ``generate_camera_rays_ids``;
+    otherwise a jittered frame draws its offsets from the threefry `key`
+    (``uniform(key, (2, H, W))``: x offsets, then y) and a thin lens its
+    aperture from ``uniform(fold_in(key, 1), (H*W, 2))``, as the JAX
+    package's ``generate_camera_rays`` does.  Without a key and a seed,
+    rays go through pixel centers and the lens center.  `key` may also be
+    an (S, 2) tensor of S keys: then the S frames' rays, key-major
+    ((S*H*W, 3)), each equal to its key's frame."""
+    n = width * height
+    dev = cam_params.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    if pix_seed is not None:
+        return generate_camera_rays_ids(cam_params, width, height, idx,
+                                        jitter, pix_seed, lens, qpt)
+    keys = None if key is None else rng.as_key(key).reshape(-1, 2)
+    counter = torch.arange(2 * n, dtype=torch.int64, device=dev)
+
+    def draws(k):  # (S, 2n) uniforms of each key's draw of 2n elements
+        return rng.uniform_from_bits(rng.bits_at(k.to(dev)[:, None], counter))
+
+    jxy = lens_u = None
+    if jitter and keys is not None:
+        u = draws(keys)
+        jxy = u[:, :n].reshape(-1), u[:, n:].reshape(-1)
+    if lens is not None and lens[0] > 0.0 and keys is not None:
+        u = draws(rng.fold_in_t(keys.cpu(), 1))
+        lens_u = u[:, 0::2].reshape(-1), u[:, 1::2].reshape(-1)
+    if keys is not None:
+        idx = idx.repeat(keys.shape[0])
+    return _camera_rays(cam_params, width, height, idx, jxy, lens, lens_u)

@@ -759,3 +759,25 @@ def test_fp32_peak_matches_plain(cuda):
     assert sec > 0 and ops == 132 * 2048 * 256 * 16
     for mix in micro.MIXES:
         assert 1.8 <= micro.loop_ratio(mix) <= 2.2, mix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4101])
+def test_trace_kernel_on_a_ragged_subset_of_ids(cuda, n):
+    """The adaptive engine's launch: K1 on a subset of a frame's pixel ids
+    out of their Morton order (the persistent kernel writes each ray's
+    radiance at its place in the input), against trace_reference, at depth
+    1 without jitter and at depth 20 with it (headline scene)."""
+    from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
+    g = torch.Generator().manual_seed(n)
+    for depth, jitter in ((1, False), (20, True)):
+        r, _ = preset_renderer("random_balls_large", 160, 90, max_depth=depth,
+                               jitter=jitter)
+        o, d, pix, seed = frame_inputs(r, 3)
+        sel = torch.randperm(pix.numel(), generator=g)[:n].to(cuda)
+        args = (o[sel].contiguous(), d[sel].contiguous(), pix[sel].contiguous(),
+                seed)
+        k, p = traced(r, trace)(*args), traced(r, trace_reference)(*args)
+        assert k.shape == (n, 3) and torch.isfinite(k).all()
+        off = int(((k - p).abs().amax(1) > RAY_ATOL).sum())
+        assert off <= max(1, int(n * (1 - RAY_SHARE))), (depth, off)

@@ -121,7 +121,16 @@ def test_import_leaves_jax_out():
             "parallelraytracing_tpu_torch.ops.walk_stats, "
             "parallelraytracing_tpu_torch.benchmarks.micro, "
             "parallelraytracing_tpu_torch.benchmarks.trace_stats, "
-            "parallelraytracing_tpu_torch.benchmarks.roofline; "
+            "parallelraytracing_tpu_torch.benchmarks.roofline, "
+            "parallelraytracing_tpu_torch.engines.megakernel, "
+            "parallelraytracing_tpu_torch.engines.tracer, "
+            "parallelraytracing_tpu_torch.engines.adaptive, "
+            "parallelraytracing_tpu_torch.ops.intersect, "
+            "parallelraytracing_tpu_torch.ops.materials, "
+            "parallelraytracing_tpu_torch.ops.sky, "
+            "parallelraytracing_tpu_torch.ops.textures, "
+            "parallelraytracing_tpu_torch.ops.nee, "
+            "parallelraytracing_tpu_torch.postfx.denoise; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'parallelraytracing_tpu'"
             " or m.startswith('parallelraytracing_tpu.')]; "

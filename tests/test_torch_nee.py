@@ -186,9 +186,9 @@ def test_nee_depth4_jittered_matches_pallas(preset):
 @pytest.mark.parametrize("nee", [False, True])
 @pytest.mark.parametrize("preset", ["cornell", "random_balls_large"])
 def test_russian_roulette_matches_pallas(preset, nee):
-    """rr_depth 2 at depth 6: roulette ends paths from bounce 2 on (and
+    """rr_depth 2 at depth 4: roulette ends paths at bounces 2 and 3 (and
     so changes the image)."""
-    ref, got, port = _both(preset, 6, True, nee=nee, rr_depth=2)
+    ref, got, port = _both(preset, 4, True, nee=nee, rr_depth=2)
     _assert_jittered_close(got, ref)
     assert not np.array_equal(port(0), got)
 

@@ -66,7 +66,7 @@ from parallelraytracing_tpu_torch.engines.wavefront_fused import \
 from parallelraytracing_tpu_torch.ops import pack  # noqa: E402
 from torch_meshes import make_mesh, stream_scene, tlas_scene  # noqa: E402
 
-W = H = 32  # 1024 rays: one 8x128 Pallas tile
+W, H = 32, 16  # 512 rays: one 4x128 Pallas tile
 SEED = 424242
 DEPTH = 4
 #: rays given a replicated tile each, and the rank window they come from
@@ -134,7 +134,7 @@ def _run(name: str) -> dict:
     """One case through both packages at W x H, depth DEPTH, jitter on:
     the port's trace with both probes on the frame's rays (and without
     them), and one ``pallas_trace`` call with depth_out and collect_stats
-    over the frame's rays (rows 8, for a case of FRAME) and a tile of
+    over the frame's rays (one tile of W * H // 128 rows, for a case of FRAME) and a tile of
     copies of each of the REPS chosen rays (rows 1 without the frame, for
     a case of REPLICATED)."""
     kind, cfg_kw, via_convert = CASES[name]
@@ -168,7 +168,7 @@ def _run(name: str) -> dict:
                    stats=stats, plain=trace_tables(t, *rays, tcfg))
         order = np.argsort(-stats[:, 0].numpy(), kind="stable")
         sel = order[np.linspace(0, RANK_WINDOW, REPS).astype(int)]
-        rows = 8 if frame else 1
+        rows = W * H // 128 if frame else 1
         parts = [([o], [d], [ids])] if frame else []
         if replicated:
             parts.append(([np.repeat(o[sel], rows * 128, 0)],

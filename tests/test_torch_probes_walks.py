@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import parallelraytracing_tpu as J  # noqa: E402
 from parallelraytracing_tpu.core.camera import default_camera as jax_camera  # noqa: E402
 from parallelraytracing_tpu.engines.fused import \
@@ -21,6 +22,14 @@ from parallelraytracing_tpu.engines.fused import \
 import parallelraytracing_tpu_torch as T  # noqa: E402
 from test_torch_probes import (DEPTH, _run, check_radiance,  # noqa: E402
                                check_stats_exact, check_stats_nee)
+
+# Run the JAX package's computations inline in the dispatching thread.
+# With asynchronous dispatch a JAX engine dispatches its next operation
+# while a Pallas interpret-mode kernel still runs its host callbacks, and
+# under load the two threads deadlock (the test then waits until the
+# suite's time limit).  The flag is read when the CPU client is made, so
+# it is set here, at collection, before any test computes.
+jax.config.update("jax_cpu_enable_async_dispatch", False)
 
 
 def test_collect_stats_matches_pallas():

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import parallelraytracing_tpu as J  # noqa: E402
 from parallelraytracing_tpu.core.camera import default_camera as jax_camera  # noqa: E402
 
@@ -23,6 +24,15 @@ import parallelraytracing_tpu_torch as T  # noqa: E402
 from parallelraytracing_tpu_torch import cli  # noqa: E402
 from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm  # noqa: E402
 from parallelraytracing_tpu_torch.utils.png import read_png  # noqa: E402
+
+# Run the JAX package's computations inline in the dispatching thread.
+# With asynchronous dispatch a JAX engine dispatches its next operation
+# while a Pallas interpret-mode kernel still runs its host callbacks, and
+# under load the two threads deadlock (the test then waits until the
+# suite's time limit).  The flag is read when the CPU client is made, so
+# it is set here, at collection, before any test computes.
+jax.config.update("jax_cpu_enable_async_dispatch", False)
+
 
 W, H, DEPTH, FRAMES = 32, 24, 4, 2
 
@@ -101,6 +111,6 @@ def test_cli_writes_png(tmp_path, capsys):
 
 def test_cli_refuses_other_engines():
     with pytest.raises(ValueError, match="fused"):
-        cli.main(["--device", "cpu", "--engine", "megakernel"])
+        cli.main(["--device", "cpu", "--engine", "wavefront"])
     with pytest.raises(ValueError, match="unknown engine"):
         T.create_renderer("wavefront", "cpu")

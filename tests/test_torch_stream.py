@@ -286,11 +286,11 @@ def test_segment_matches_pallas_segment_stream(monkeypatch):
 # ------------------------------------------------------ the port's films
 
 def _film(engine, nee):
-    cfg = T.RenderConfig(width=64, height=48, max_depth=6, seed=0, nee=nee)
-    film = T.Film(64, 48, "cpu")
+    cfg = T.RenderConfig(width=32, height=24, max_depth=6, seed=0, nee=nee)
+    film = T.Film(32, 24, "cpu")
     r = T.create_renderer(engine, "cpu")
     r.init(film, stream_scene(T.Scene, make_mesh("ico2")),
-           T.Camera(EYE, DIR, 64.0, 48.0, 100.0), cfg)
+           T.Camera(EYE, DIR, 32.0, 24.0, 100.0), cfg)
     for _ in range(2):
         r.progressive_render()
     return r, film.hdr_average()
@@ -300,7 +300,7 @@ def _film(engine, nee):
 @pytest.mark.parametrize("engine", ["fused", "wavefront_fused"])
 def test_stream_film_equals_dense(monkeypatch, engine, nee):
     """Tolerance 0, the reference's contract (tests/test_stream.py): the
-    streamed film of 2 frames at 64x48, depth 6, equals the dense one bit
+    streamed film of 2 frames at 32x24, depth 6, equals the dense one bit
     for bit (the fold's (t, ordinal) minimum does not depend on the
     layout; pad slots are never hit)."""
     r_d, img_d = _film(engine, nee)

@@ -12,9 +12,19 @@ textured scenes give a mesh equirectangular texture coordinates
 ``texture_demo`` recipes (``plaid_image``, ``globe_image``)."""
 
 import numpy as np
+import torch
 
 from parallelraytracing_tpu_torch.core import mesh as tmesh
 from parallelraytracing_tpu_torch.core.mesh import ICO_F, ICO_V  # noqa: F401
+
+# One PyTorch thread a test process.  The suite runs in several worker
+# processes (pytest-xdist), each of which would start an OpenMP thread a
+# core; on a machine of a few cores the workers' threads then spin in
+# each other's way, and a plain-version test that takes 0.2 s alone took
+# 87 s among six workers.  Every worker imports this module when it
+# collects the port's tests.
+torch.set_num_threads(1)
+
 OCTA_V = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
 OCTA_F = ((0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4),
           (2, 0, 5), (1, 2, 5), (3, 1, 5), (0, 3, 5))
