@@ -212,21 +212,40 @@ non-zero):
     on these 1,280), wavefront_fused on the instanced
     tlas_blas scene at 8192 spp (the oracle on the same transforms
     baked), fused on bench's textured-image scene; one line a row with
-    its RMSE, spp and the kernels' launches (bench's bvh equal-streams
-    row waits for the bvh engine);
+    its RMSE, spp and the kernels' launches; then the plain PyTorch
+    engines' rows at 32 spp: bench's equal-streams row (bvh against
+    megakernel, a sample a frame, ~0), wavefront against megakernel (0:
+    the frame is one ray tile), wavefront_bvh against bvh, and tlas_ref on
+    the instanced tlas_blas scene against megakernel on it baked, each
+    with its RMSE, max abs difference and seconds;
 30. one megakernel frame of the headline at 1920x1080, depth 20, timed
     with CUDA events beside the fused engine's ms/frame;
 31. the adaptive engine on the headline at 1920x1080, depth 20: 4
     warm-up films bit-equal to fused's; on the first adaptive frame the
     trace kernel on the selected ids against the plain version (within
     1e-5 on >= 99.9% of rays), the budget in ids, the kernel on the
-    subset, the selection and the slot add timed; 4 adaptive frames with
+    subset, the selection and the slot add timed, the kernel's
+    counted-visit bound on the subset (the probe kernel's counters of the
+    same launch, at phase 25's measured peaks); 4 adaptive frames with
     one trace launch each, ms/frame;
 32. the à-trous denoiser: the guide pass and 4 levels at 1920x1080
     timed; at 128x96 on CORNELL the denoised 8-frame image nearer (MSE)
     a 256-frame fused truth than the raw one; the CLI's ``--engine
     adaptive --denoise 4`` and ``--engine megakernel`` write their PNGs
-    (kept with --png-dir).
+    (kept with --png-dir);
+33. lbvh-engines, the plain PyTorch LBVH engines at full size: the
+    headline (RANDOM_BALLS_LARGE at 1920x1080, depth 20, 1 spp, jitter,
+    seed 0) through bvh, wavefront_bvh and wavefront, one warm-up frame
+    then one timed by CUDA events: ms/frame, Msamples/s, Mrays/s over
+    the ray segments the engine's bounce loop counts, build_bvh's seconds
+    and nodes, the walk's box-test steps and rounds a bounce, the peak
+    device memory, a finite film that is neither black nor sky; BASELINE
+    config 5: bvh with an animate hook orbiting one sphere, 4 frames at
+    1920x1080, depth 20, each refit timed alone, and on the card every
+    internal box holding its children's, every leaf box its moved
+    primitive's leaf_aabbs box, frame 0's boxes the build's bit for bit;
+    tlas_ref on bench's multimesh scene (phase 12's) at 1920x1080, depth
+    8, one frame timed.  No kernel launches in any of them.
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
@@ -246,7 +265,9 @@ each segment entry), the trace and segment entries list all 48
 the segment entry phase 27's sort modes ("sort_modes") and phase 28's
 cases ("queue_edges"), the trace entry phases 29-32 ("gates",
 "megakernel_frame", "adaptive": the kernel's launches and times on the
-adaptive path, "denoise"); the last line is
+adaptive path and its bound there, "denoise").  The line before the
+kernels line is phase 33's record ({"lbvh_engines": ...}); the last
+line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -2408,6 +2429,11 @@ GATE_W, GATE_H, GATE_DEPTH, GATE_SPF, GATE_SPP, GATE_RMSE = 64, 48, 10, 32, \
 #: triangles: the megakernel's brute force tests every ray against every
 #: triangle, so its time grows with the mesh: 31 s on the card here)
 GATE_ICO_LEVEL = 3
+#: phase 29's rows of the plain PyTorch engines: 32 spp (bench's
+#: equal-streams row)
+LBVH_GATE_SPP = 32
+#: phase 33: BASELINE config 5's frames (bvh with a per-frame refit)
+LBVH_ANIM_FRAMES = 4
 #: phase 31: the adaptive engine's warm-up and adaptive frames
 ADAPT_WARMUP, ADAPT_FRAMES = 4, 4
 #: phase 32: the denoiser's levels, and its MSE check (CORNELL at 128x96,
@@ -2492,10 +2518,238 @@ def gate_phase() -> list:
         if not ok or launches[kernel] == 0:
             raise AssertionError(f"gate {tag}: {engine} RMSE {rmse} "
                                  f"(launches {launches})")
-    phase("gates", "bench's bvh equal-streams row waits for the port's bvh "
-          "engine (ROADMAP Queue 1 item 14); stream_vs_dense is phase 20's "
-          "bit-equal films")
+    out += lbvh_gate_rows(mat)
     return out
+
+
+def lbvh_gate_rows(mat) -> list:
+    """Phase 29's rows of the plain PyTorch engines, at 32 spp: bench's
+    equal-streams row (bvh against megakernel, both a sample a frame: the
+    same threefry streams, so ~0), wavefront against megakernel (0 where
+    the frame is one ray tile), wavefront_bvh against bvh, and tlas_ref on
+    the instanced tlas_blas scene against megakernel on it baked.  Each
+    prints its RMSE, max abs difference and seconds, and raises on a miss
+    (RMSE >= GATE_RMSE, a non-finite film, or a kernel launched)."""
+    import torch
+    from parallelraytracing_tpu_torch import Scene, ScenePreset
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+
+    def render(engine, scene, view, spf):
+        eye, dirn = view
+        r, film = scene_renderer(engine, scene, eye, dirn, GATE_W, GATE_H,
+                                 max_depth=GATE_DEPTH, seed=0,
+                                 samples_per_frame=spf)
+        t0 = time.perf_counter()
+        for _ in range(LBVH_GATE_SPP // spf):
+            r.progressive_render()
+        torch.cuda.synchronize()
+        return film.hdr_average(), time.perf_counter() - t0
+
+    def material():
+        return Scene(ScenePreset.MATERIAL_TEST)
+    inst = ((0.0, 6.0, 16.0), (0.0, -4.0, -16.0))
+    rows = [("bvh equal streams", "bvh", "megakernel", material, material,
+             mat, 1),
+            ("wavefront one tile", "wavefront", "megakernel", material,
+             material, mat, GATE_SPF),
+            ("wavefront_bvh", "wavefront_bvh", "bvh", material, material, mat,
+             GATE_SPF),
+            ("tlas_ref vs baked", "tlas_ref", "megakernel",
+             lambda: tlas_blas_scene(icosahedron(), False),
+             lambda: tlas_blas_scene(icosahedron(), True), inst, GATE_SPF)]
+    out = []
+    for tag, engine, ref_engine, scene, ref_scene, view, spf in rows:
+        ref, ref_s = render(ref_engine, ref_scene(), view, spf)
+        trace.launches = segment.launches = 0
+        img, img_s = render(engine, scene(), view, spf)
+        launches = dict(trace=trace.launches, segment=segment.launches)
+        diff = img - ref
+        rmse = float(diff.pow(2).mean().sqrt())
+        max_abs = float(diff.abs().max())
+        ok = (rmse < GATE_RMSE and bool(torch.isfinite(img).all())
+              and not any(launches.values()))
+        out.append(dict(row=tag, engine=engine, reference=ref_engine,
+                        spp=LBVH_GATE_SPP, samples_per_frame=spf, rmse=rmse,
+                        max_abs_diff=max_abs, passed=ok, launches=launches,
+                        engine_s=img_s, reference_s=ref_s))
+        phase("gates", f"{tag}: {engine} vs {ref_engine} at {LBVH_GATE_SPP} "
+              f"spp ({GATE_W}x{GATE_H}, depth {GATE_DEPTH}, {spf} spp a "
+              f"frame): HDR RMSE {rmse:.6e} (gate {GATE_RMSE}), max abs "
+              f"diff {max_abs!r}; {engine} {img_s:.2f} s, {ref_engine} "
+              f"{ref_s:.2f} s; kernel launches {launches}")
+        if not ok:
+            raise AssertionError(f"gate {tag}: {engine} RMSE {rmse} "
+                                 f"(launches {launches})")
+    return out
+
+
+def lbvh_phase(png_dir) -> dict:
+    """Phase 33 (lbvh-engines), at full size: the headline (RANDOM_BALLS_LARGE
+    at 1920x1080, depth 20, 1 spp, jitter, seed 0) through bvh,
+    wavefront_bvh and wavefront, one warm-up and one timed frame each;
+    BASELINE config 5 (bvh with a per-frame refit of a moving sphere,
+    LBVH_ANIM_FRAMES frames at 1920x1080, depth 20), its boxes checked on
+    the card; tlas_ref on the multimesh scene at 1920x1080, depth
+    INST_DEPTH.  Raises on a miss; returns the record."""
+    import torch
+    from parallelraytracing_tpu_torch import Scene, ScenePreset
+    from parallelraytracing_tpu_torch.accel import lbvh, traverse
+    from parallelraytracing_tpu_torch.core.mesh import load_ply
+    from parallelraytracing_tpu_torch.engines import tracer, wavefront
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    t_phase = time.perf_counter()
+    rec = {}
+    scene = Scene(ScenePreset.RANDOM_BALLS_LARGE).build("cuda")
+    lbvh.build_bvh(scene, "cuda")  # a first call loads numpy's and torch's paths
+    t0 = time.perf_counter()
+    bvh = lbvh.build_bvh(scene, "cuda")
+    torch.cuda.synchronize()
+    rec["build_bvh"] = dict(seconds=time.perf_counter() - t0,
+                            nodes=bvh.num_nodes)
+    samples = MAIN_W * MAIN_H
+
+    def counted_frame(r):
+        """One frame of r timed with every count set to 0 first."""
+        tracer.ray_segments[0] = wavefront.ray_segments[0] = 0
+        traverse.walk_counts.update(walks=0, rounds=0, steps=0)
+        trace.launches = segment.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(r.progressive_render, 1)
+        return dict(ms=ms, segments=tracer.ray_segments[0]
+                    + wavefront.ray_segments[0],
+                    walk=dict(traverse.walk_counts),
+                    kernel_launches=trace.launches + segment.launches,
+                    peak_bytes=torch.cuda.max_memory_allocated())
+
+    for engine in ("bvh", "wavefront_bvh", "wavefront"):
+        t0 = time.perf_counter()
+        r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H, engine,
+                                max_depth=MAIN_DEPTH, jitter=True, seed=0)
+        r.progressive_render()  # warm-up
+        torch.cuda.synchronize()
+        fr = counted_frame(r)
+        walk = fr["walk"]
+        per_walk = (walk["steps"] / walk["walks"], walk["rounds"] / walk["walks"]) \
+            if walk["walks"] else (0.0, 0.0)
+        fr.update(msamples_per_s=samples / fr["ms"] / 1e3,
+                  mrays_per_s=fr["segments"] / fr["ms"] / 1e3,
+                  steps_per_bounce=per_walk[0], rounds_per_bounce=per_walk[1],
+                  seconds=time.perf_counter() - t0)
+        film_msg = check_film(film, r._scene_data.sky.tolist(),
+                              f"lbvh_{engine}_random_balls_large", png_dir)
+        phase("lbvh-engines", f"{engine} random_balls_large {MAIN_W}x{MAIN_H} "
+              f"depth {MAIN_DEPTH}: {fr['ms']:.1f} ms/frame (one frame after "
+              f"a warm-up), {fr['msamples_per_s']:.4f} Msamples/s, "
+              f"{fr['mrays_per_s']:.4f} Mrays/s ({fr['segments']} ray "
+              f"segments counted by the bounce loop); walks {walk['walks']}, "
+              f"{per_walk[0]:.1f} box-test steps and {per_walk[1]:.1f} rounds "
+              f"a bounce; peak {fr['peak_bytes'] / 2**30:.2f} GiB; kernel "
+              f"launches {fr['kernel_launches']}; {film_msg}")
+        if fr["kernel_launches"]:
+            raise AssertionError(f"{engine} launched a kernel")
+        rec[engine] = fr
+        del r, film
+    rec["anim"] = anim_phase(png_dir)
+
+    # tlas_ref on bench's multimesh scene (phase 12's: the level-5
+    # icosphere for the bunny)
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = str(Path(tmp) / "bunny.ply")
+        write_ply(ply)
+        bunny = load_ply(ply)
+    t0 = time.perf_counter()
+    r, film = scene_renderer("tlas_ref", multimesh_scene(bunny, icosahedron()),
+                             INST_EYE, INST_DIR, MAIN_W, MAIN_H,
+                             max_depth=INST_DEPTH, seed=0)
+    init_s = time.perf_counter() - t0
+    fr = counted_frame(r)
+    fr.update(init_s=init_s, instances=r._tlas.num_instances,
+              unique_triangles=r._tlas.num_unique_triangles,
+              msamples_per_s=samples / fr["ms"] / 1e3,
+              mrays_per_s=fr["segments"] / fr["ms"] / 1e3)
+    film_msg = check_film(film, r._scene_data.sky.tolist(),
+                          "lbvh_tlas_ref_multimesh", png_dir)
+    phase("lbvh-engines", f"tlas_ref multimesh ({fr['instances']} instances, "
+          f"{fr['unique_triangles']} unique triangles) {MAIN_W}x{MAIN_H} "
+          f"depth {INST_DEPTH}: init {init_s:.2f} s, {fr['ms']:.1f} ms for "
+          f"its first frame, {fr['mrays_per_s']:.4f} Mrays/s, rounds "
+          f"{fr['walk']['rounds']}; kernel launches {fr['kernel_launches']}; "
+          f"{film_msg}")
+    if fr["kernel_launches"]:
+        raise AssertionError("tlas_ref launched a kernel")
+    rec["tlas_ref_multimesh"] = fr
+    rec["seconds"] = time.perf_counter() - t_phase
+    phase("lbvh-engines", f"phase seconds {rec['seconds']:.1f}")
+    return rec
+
+
+def anim_phase(png_dir) -> dict:
+    """BASELINE config 5: bvh with an animate hook that moves one sphere of
+    the headline each frame (``orbit_first_sphere``), LBVH_ANIM_FRAMES
+    frames at 1920x1080,
+    depth 20; each frame's refit timed alone, and on the card after each
+    refit: every internal box holds its two children's, every leaf box is
+    its moved primitive's ``leaf_aabbs`` box, and at frame 0 the refit
+    boxes are the build's bit for bit."""
+    import torch
+    from parallelraytracing_tpu_torch.accel.refit import leaf_aabbs, refit_bvh
+    r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H, "bvh",
+                            attrs=dict(animate=orbit_first_sphere),
+                            max_depth=MAIN_DEPTH, jitter=True, seed=0)
+    bvh, plan = r._bvh, r._plan
+    internal = (bvh.node_kind < 0).nonzero()[:, 0]
+    left = internal + 1
+    right = bvh.node_miss[left].long()
+    frames = []
+    for f in range(LBVH_ANIM_FRAMES):
+        moved = orbit_first_sphere(r._scene_data, f)
+        refit, refit_ms = timed_ms(lambda: refit_bvh(bvh, moved, plan))
+        mn, mx = leaf_aabbs(moved, bvh.node_kind, bvh.node_idx, plan.quad_pad)
+        leaf = bvh.node_kind >= 0
+        ok_leaf = bool(torch.equal(refit.node_min[leaf], mn[leaf])
+                       and torch.equal(refit.node_max[leaf], mx[leaf]))
+        ok_union = bool(
+            (refit.node_min[internal] <= torch.minimum(
+                refit.node_min[left], refit.node_min[right])).all()
+            and (refit.node_max[internal] >= torch.maximum(
+                refit.node_max[left], refit.node_max[right])).all())
+        ok_build = f > 0 or bool(torch.equal(refit.node_min, bvh.node_min)
+                                 and torch.equal(refit.node_max, bvh.node_max))
+        frame_ms = cuda_ms(r.progressive_render, 1)
+        frames.append(dict(refit_ms=refit_ms, frame_ms=frame_ms,
+                           leaves_ok=ok_leaf, unions_ok=ok_union,
+                           frame0_equals_build=ok_build))
+        if not (ok_leaf and ok_union and ok_build):
+            raise AssertionError(f"config 5 frame {f}: refit boxes wrong "
+                                 f"{frames[-1]}")
+    film_msg = check_film(film, r._scene_data.sky.tolist(),
+                          "lbvh_config5_refit", png_dir)
+    centre = orbit_first_sphere(r._scene_data, LBVH_ANIM_FRAMES - 1)
+    phase("lbvh-engines", f"config 5: bvh with a per-frame refit, one sphere "
+          f"orbiting, {LBVH_ANIM_FRAMES} frames {MAIN_W}x{MAIN_H} depth "
+          f"{MAIN_DEPTH}: refit " + ", ".join(f"{x['refit_ms']:.3f}"
+                                              for x in frames)
+          + " ms, frame " + ", ".join(f"{x['frame_ms']:.1f}" for x in frames)
+          + f" ms; boxes hold their children and equal leaf_aabbs on every "
+          f"frame, frame 0 equal to the build; last centre "
+          f"{[round(float(v), 3) for v in centre.sph_center[0]]}; "
+          f"{film_msg}")
+    return dict(frames=frames, nodes=bvh.num_nodes, levels=len(plan.levels))
+
+
+def orbit_first_sphere(scene, frame: int):
+    """examples/animated_refit.py's orbit on the headline: sphere 0 moved
+    along a circle of radius 6 in the ground's plane that starts at its
+    place, a twelfth of a turn a frame (frame 0 leaves the scene as built;
+    a new SceneData, the other spheres unmoved)."""
+    import math
+    ang = frame * (2.0 * math.pi / 12.0)
+    c = scene.sph_center.clone()
+    c[0, 0] += 6.0 * math.cos(ang) - 6.0
+    c[0, 2] += 6.0 * math.sin(ang)
+    return dataclasses.replace(scene, sph_center=c)
 
 
 def megakernel_phase() -> dict:
@@ -2527,7 +2781,7 @@ def megakernel_phase() -> dict:
     return dict(ms=mk_ms, fused_ms_per_frame=f_ms, peak_bytes=peak)
 
 
-def adaptive_phase(png_dir) -> dict:
+def adaptive_phase(png_dir, peaks) -> dict:
     """Phase 31: the adaptive engine on the headline at 1920x1080, depth
     20: ADAPT_WARMUP warm-up frames bit-equal to the fused engine's; on
     the first adaptive frame the trace kernel on the selected ids against
@@ -2567,6 +2821,9 @@ def adaptive_phase(png_dir) -> dict:
                                              ad.config), 5)
     p, plain_ms = timed_ms(lambda: traced_on(ad, trace_reference)(o, d, ids,
                                                                   seed))
+    # the probe kernel's counted visits of the same launch: its bound
+    counted = counted_bound(ad._tables, probe_counts(ad, (o, d, ids, seed)),
+                            int(ids.numel()), TRACE_RAY_BYTES, 0.0, peaks)
     err = (k - p).abs().amax(1)
     share, max_err = float((err <= RAY_ATOL).float().mean()), float(err.max())
     scratch = Film(MAIN_W, MAIN_H, "cuda")  # the slot add, on a film alike
@@ -2581,7 +2838,11 @@ def adaptive_phase(png_dir) -> dict:
           f"ms (first launch {k_ms:.3f} ms), plain {plain_ms:.1f} ms, "
           f"{share:.6f} of rays within {RAY_ATOL} (max abs err "
           f"{max_err:.3e}); selection {sel_ms:.3f} ms, slot add "
-          f"{add_ms:.3f} ms (means of 5 after a first call)")
+          f"{add_ms:.3f} ms (means of 5 after a first call); the kernel's "
+          f"counted-visit bound on them {counted['bound_ms']:.4f} ms "
+          f"({counted['bound_by']}; data sheet "
+          f"{counted['datasheet_bound_ms']:.4f} ms), "
+          f"{counted['bound_ms'] / kernel_ms:.1%} of the kernel's time")
     if not equal or share < RAY_SHARE:
         raise AssertionError(f"adaptive: warm-up equal {equal}, share {share}")
     del k, p, err, o, d
@@ -2598,6 +2859,8 @@ def adaptive_phase(png_dir) -> dict:
                              f"{ADAPT_FRAMES} frames")
     return dict(launches=launches, budget_ids=budget, ms=kernel_ms,
                 plain_ms=plain_ms, max_abs_err=max_err, share=share,
+                bound_ms=counted["bound_ms"], bound_by=counted["bound_by"],
+                bound=counted,
                 selection_ms=sel_ms, slot_add_ms=add_ms,
                 ms_per_frame=frame_ms, warmup_films_equal=equal)
 
@@ -3023,10 +3286,15 @@ def main(argv=None) -> int:
     # on the selected ids) and the denoiser
     gates = gate_phase()
     mk_rec = megakernel_phase()
-    adapt = adaptive_phase(args.png_dir)
+    adapt = adaptive_phase(args.png_dir, mic["peaks"])
     den_rec = denoise_phase(args.png_dir)
 
+    # 33. the plain PyTorch LBVH engines at full size, config 5's refit
+    # and tlas_ref
+    lbvh_rec = lbvh_phase(args.png_dir)
+
     print(smi)
+    print(json.dumps({"lbvh_engines": lbvh_rec}))
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
     inst_cmp = inst["vs_plain"].values()

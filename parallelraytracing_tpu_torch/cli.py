@@ -7,9 +7,12 @@ of more than 512 triangles and fused otherwise, as the JAX CLI does on a
 TPU.  A mesh of more than 24,576 triangles renders through the stream
 route (ops/pack.py); the header line then names its chunk.  ``megakernel``
 is the reference engine (plain PyTorch, brute force: slow, for small
-frames and as the oracle), ``adaptive`` the fused engine with
-variance-guided pixel budgets, and ``--denoise N`` applies N levels of the
-à-trous filter (postfx/denoise.py) before the PNG is written.
+frames and as the oracle); ``bvh``, ``wavefront``, ``wavefront_bvh`` and
+``tlas_ref`` are its plain PyTorch siblings over the LBVH walk, a
+compacted bounce queue, both, and the two-level instance walk;
+``adaptive`` is the fused engine with variance-guided pixel budgets, and
+``--denoise N`` applies N levels of the à-trous filter
+(postfx/denoise.py) before the PNG is written.
 
 Usage:
     python -m parallelraytracing_tpu_torch.cli --scene random_balls_large \
@@ -25,6 +28,7 @@ Usage:
         --frames 16 --out adaptive.png
     python -m parallelraytracing_tpu_torch.cli --device cpu --engine megakernel \
         --scene material_test --width 64 --height 48 --depth 8 --frames 4
+    python -m parallelraytracing_tpu_torch.cli --engine bvh --frames 4
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import time
 
 #: engines of this port; "auto" picks by the scene's triangle count
 ENGINE_CHOICES = ("auto", "fused", "wavefront_fused", "tlas", "megakernel",
-                  "adaptive")
+                  "adaptive", "bvh", "wavefront", "wavefront_bvh", "tlas_ref")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -58,7 +62,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "for instanced scenes) | megakernel (the reference "
                         "engine: plain PyTorch, brute force) | adaptive "
                         "(fused + variance-guided per-pixel sample "
-                        "budgets).  On an H100 wavefront_fused is "
+                        "budgets) | bvh (the megakernel's loop over the "
+                        "LBVH walk) | wavefront (staged bounces over a "
+                        "compacted queue, brute force) | wavefront_bvh "
+                        "(the same over the LBVH walk) | tlas_ref (the "
+                        "LBVH walk and the two-level instance walk); the "
+                        "last four are plain PyTorch.  On an H100 "
+                        "wavefront_fused is "
                         "the slower engine on meshes: its default schedule "
                         "is the TPU's, not yet re-tuned for the GPU")
     p.add_argument("--device", default="cuda",

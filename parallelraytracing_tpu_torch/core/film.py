@@ -93,6 +93,13 @@ class Film:
         img = flat[self._layout_inv]
         return img.reshape((self.height, self.width) + tuple(flat.shape[1:]))
 
+    def clear(self) -> None:
+        """Film::Clear (film.cu:25-35): drop the accumulation, keeping the
+        storage layout (the progressive reset after a camera move)."""
+        self.accum = torch.zeros_like(self.accum)
+        self.weights = torch.zeros_like(self.weights)
+        self.sample_count = 0
+
     def add_sample_buffer(self, rgb: torch.Tensor, weight: float = 1.0) -> None:
         """Accumulate one frame of per-pixel radiance: (H,W,3) or (H*W,3),
         or (slots,3) in the installed storage layout."""

@@ -359,6 +359,17 @@ class Scene:
                         for mi, _, _ in self._instances)
         return len(self._sph) + len(self._quad) + len(self._tri) + inst_tris
 
+    def build_two_level(self, device):
+        """Compile for the two-level walk: (the base SceneData without the
+        instanced meshes, their TwoLevelBVH or None when the scene has no
+        instances), both on `device`."""
+        base = self.build(device, bake_instances=False)
+        if not self._instances:
+            return base, None
+        from parallelraytracing_tpu_torch.accel.tlas import build_two_level
+        return base, build_two_level(self._inst_meshes, self._instances,
+                                     device)
+
     def _baked_instance_tris(self) -> List[Tuple]:
         """The instances world-baked into triangle records, as add_mesh
         bakes a mesh."""

@@ -76,9 +76,19 @@ class AdaptiveRenderer(FusedRenderer):
         super()._post_init()
         slots = int(self._ids.shape[0])
         self._budget_slots = budget_slots(slots, self.budget)
+        self._reset_stats()
+
+    def _reset_stats(self) -> None:
+        slots = int(self._ids.shape[0])
         self._m1 = torch.zeros(slots, device=self.device)
         self._m2 = torch.zeros(slots, device=self.device)
         self._n = torch.zeros(slots, device=self.device)
+
+    def reset_progressive(self) -> None:
+        """Frame 0 again, from empty statistics: after a camera move the
+        old pixels' variance says nothing of the new ones."""
+        super().reset_progressive()
+        self._reset_stats()
 
     def _accumulate_stats(self, sel, rad: torch.Tensor) -> None:
         lum = luma(rad)

@@ -78,6 +78,11 @@ class Renderer(abc.ABC):
         self._camera = camera
         self._cam_params = torch.from_numpy(camera.ray_params()).to(self.device)
 
+    def reset_progressive(self) -> None:
+        """Restart the progressive sequence (called when the film is
+        cleared after a camera move): the next frame is frame 0."""
+        self._frame_index = 0
+
     # ------------------------------------------------------------- render
     def progressive_render(self) -> None:
         """Render one progressive pass and accumulate it into the film."""
@@ -96,6 +101,10 @@ class Renderer(abc.ABC):
         for this frame, (H*W, 3) or in the film's storage layout."""
 
     # -------------------------------------------------------------- info
+    @property
+    def frame_index(self) -> int:
+        return self._frame_index
+
     @property
     def config(self) -> RenderConfig:
         assert self._config is not None

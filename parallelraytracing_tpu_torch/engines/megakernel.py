@@ -44,6 +44,9 @@ def trace(scene, o, d, key, cfg, lights=None) -> torch.Tensor:
 @register_engine
 class MegakernelRenderer(Renderer):
     name = "megakernel"
+    #: rays traced in one call (None: ``cfg.ray_tile``, which bounds the
+    #: brute force's (rays x chunk) transients)
+    rays_per_call = None
 
     def _post_init(self) -> None:
         from parallelraytracing_tpu_torch.ops.nee import extract_lights
@@ -66,11 +69,17 @@ class MegakernelRenderer(Renderer):
                 for s, k in zip(samples, k_jits)]
         return (torch.cat([o for o, _ in rays]), torch.cat([d for _, d in rays]))
 
+    def _frame_tracer(self, frame_index: int):
+        """(scene, intersector, lights) of this frame's trace."""
+        return self._scene_data, self._intersect, self._lights
+
     def render_sample_buffer(self, frame_index: int) -> torch.Tensor:
         cfg = self.config
         r = cfg.pixel_count
         base = rng.fold_in(rng.prng_key(cfg.seed), frame_index)
-        per_call = max(1, cfg.ray_tile // r)
+        scene, intersect, lights = self._frame_tracer(frame_index)
+        batch = self.rays_per_call or cfg.ray_tile
+        per_call = max(1, batch // r)
         acc = None
         for s0 in range(0, cfg.samples_per_frame, per_call):
             samples = range(s0, min(s0 + per_call, cfg.samples_per_frame))
@@ -83,9 +92,8 @@ class MegakernelRenderer(Renderer):
                 keys.append(k)
                 indices.append(i)
             o, d = self._raygen(frame_index, samples, k_jits)
-            rad = trace_rays(self._scene_data, o, d, torch.cat(keys),
-                             torch.cat(groups), torch.cat(indices), cfg,
-                             self._intersect, self._lights)
+            rad = trace_rays(scene, o, d, torch.cat(keys), torch.cat(groups),
+                             torch.cat(indices), cfg, intersect, lights, batch)
             for j in range(len(samples)):
                 part = rad[j * r:(j + 1) * r]
                 acc = part if acc is None else acc + part

@@ -25,6 +25,7 @@ acceptable for the reference engine.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Callable, Optional
@@ -62,6 +63,21 @@ def make_brute_force_intersector(cfg) -> IntersectFn:
     return f
 
 
+def batched_intersector(intersect: IntersectFn, batch: int) -> IntersectFn:
+    """`intersect` run on batches of `batch` rays at a time, the hit
+    records concatenated (a ray's hit does not depend on its batch)."""
+    def f(scene, o, d):
+        if o.shape[0] <= batch:
+            return intersect(scene, o, d)
+        parts = [intersect(scene, o[s:s + batch], d[s:s + batch])
+                 for s in range(0, o.shape[0], batch)]
+        return HitRecord(**{
+            fld.name: (None if getattr(parts[0], fld.name) is None else
+                       torch.cat([getattr(p, fld.name) for p in parts]))
+            for fld in dataclasses.fields(HitRecord)})
+    return f
+
+
 def _bounce_keys(keys: torch.Tensor, max_depth: int) -> torch.Tensor:
     """(max_depth, G * 4, 2) keys of every bounce of the (G, 2) ray keys,
     four a key: the unit vector's, the dielectric uniform's, the light
@@ -94,22 +110,27 @@ def _draw_layout(nee: bool, rr: bool, device):
                  for i in range(3))
 
 
+#: ray segments traced (one per alive path per bounce, shadow rays not
+#: counted), summed over every call since it was last set to 0
+ray_segments = [0]
+
+
 def trace_rays(scene, o: torch.Tensor, d: torch.Tensor, keys: torch.Tensor,
                group: torch.Tensor, index: torch.Tensor, cfg,
-               intersect: Optional[IntersectFn] = None, lights=None
-               ) -> torch.Tensor:
+               intersect: Optional[IntersectFn] = None, lights=None,
+               batch: Optional[int] = None) -> torch.Tensor:
     """Path-trace R rays to completion; returns (R, 3) radiance.
 
     Ray i draws under key `keys[group[i]]` ((G, 2) int64 uint32 words) at
     element index `index[i]` of each draw (int64), so rays of many keys
-    (samples, tiles) trace together.  Batches of ``cfg.ray_tile`` rays
-    keep the (rays x chunk) intersection transients bounded; a ray's
-    result does not depend on its batch."""
+    (samples, tiles) trace together.  Batches of `batch` rays (default
+    ``cfg.ray_tile``) keep the (rays x chunk) intersection transients
+    bounded; a ray's result does not depend on its batch."""
     if intersect is None:
         intersect = make_brute_force_intersector(cfg)
     bkeys = _bounce_keys(keys, cfg.max_depth).to(o.device)
     out = torch.empty_like(o)
-    tile = max(1, int(cfg.ray_tile))
+    tile = max(1, int(batch or cfg.ray_tile))
     for s in range(0, o.shape[0], tile):
         e = min(s + tile, o.shape[0])
         out[s:e] = _trace_batch(scene, o[s:e], d[s:e], bkeys, group[s:e],
@@ -130,6 +151,7 @@ def _trace_batch(scene, o, d, bkeys, group, index, cfg, intersect, lights):
     for depth in range(cfg.max_depth):
         if slot.numel() == 0:
             break
+        ray_segments[0] += slot.numel()
         hit = intersect(scene, o, d)
         rad = radiance[slot]
         miss = ~hit.hit
@@ -212,10 +234,11 @@ def tile_streams(key, r: int, ray_tile: int):
 
 
 def trace_paths_tiled(scene, o: torch.Tensor, d: torch.Tensor, key, cfg,
-                      intersect: Optional[IntersectFn] = None, lights=None
-                      ) -> torch.Tensor:
+                      intersect: Optional[IntersectFn] = None, lights=None,
+                      batch: Optional[int] = None) -> torch.Tensor:
     """``trace_paths`` with the JAX package's tiling of the streams:
     tiles of ``cfg.ray_tile`` rays, each under ``fold_in(key, tile)``
-    (``tile_streams``)."""
+    (``tile_streams``); `batch` as in ``trace_rays``."""
     keys, group, index = tile_streams(key, o.shape[0], cfg.ray_tile)
-    return trace_rays(scene, o, d, keys, group, index, cfg, intersect, lights)
+    return trace_rays(scene, o, d, keys, group, index, cfg, intersect, lights,
+                      batch)

@@ -944,7 +944,8 @@ def pack_kernel_textures(scene: dict):
             raise NotImplementedError(
                 f"image texture {tid} is {th}x{tw}: the kernels take at most "
                 f"{KTEX_MAX}x{KTEX_MAX} (the JAX package's KTEX_MAX); larger "
-                f"images: ROADMAP Queue 1 item 14 (the jnp engines' atlas)")
+                f"images render through the plain PyTorch engines' atlas: "
+                f"megakernel, wavefront, wavefront_bvh, bvh and tlas_ref")
         if tid not in tex_off:
             img = np.clip(np.round(atlas[tid, :th, :tw] * 255.0), 0.0, 255.0)
             packed = (img[..., 0] * 65536.0 + img[..., 1] * 256.0

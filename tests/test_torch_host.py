@@ -130,6 +130,14 @@ def test_import_leaves_jax_out():
             "parallelraytracing_tpu_torch.ops.sky, "
             "parallelraytracing_tpu_torch.ops.textures, "
             "parallelraytracing_tpu_torch.ops.nee, "
+            "parallelraytracing_tpu_torch.accel.lbvh, "
+            "parallelraytracing_tpu_torch.accel.traverse, "
+            "parallelraytracing_tpu_torch.accel.refit, "
+            "parallelraytracing_tpu_torch.accel.tlas, "
+            "parallelraytracing_tpu_torch.engines.bvh, "
+            "parallelraytracing_tpu_torch.engines.wavefront, "
+            "parallelraytracing_tpu_torch.engines.tlas, "
+            "parallelraytracing_tpu_torch.benchmarks.walk_rounds, "
             "parallelraytracing_tpu_torch.postfx.denoise; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'parallelraytracing_tpu'"

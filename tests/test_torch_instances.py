@@ -299,7 +299,8 @@ def test_tlas_engine_is_fused():
     r = T.create_renderer("tlas", "cpu")
     assert isinstance(r, FusedRenderer) and r.name == "tlas"
     assert "tlas" in T.available_engines()
-    assert "tlas_ref" not in T.available_engines()
+    ref = T.create_renderer("tlas_ref", "cpu")  # the plain two-level walk
+    assert not isinstance(ref, FusedRenderer) and ref.name == "tlas_ref"
 
 
 def test_tri_heavy_counts_instanced_triangles():

@@ -111,6 +111,6 @@ def test_cli_writes_png(tmp_path, capsys):
 
 def test_cli_refuses_other_engines():
     with pytest.raises(ValueError, match="fused"):
-        cli.main(["--device", "cpu", "--engine", "wavefront"])
+        cli.main(["--device", "cpu", "--engine", "sharded"])
     with pytest.raises(ValueError, match="unknown engine"):
-        T.create_renderer("wavefront", "cpu")
+        T.create_renderer("sharded", "cpu")

@@ -384,7 +384,7 @@ def test_texture_above_the_kernel_cap_raises():
     s.add_quad(4, 4, s.add_textured_lambertian(s.add_texture(big)), None)
     with pytest.raises(NotImplementedError, match="128x128"):
         pack_kernel_textures(s.build("cpu").numpy())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="bvh and tlas_ref"):
         build_scene_tables(s, "cpu")
 
 
