@@ -245,7 +245,38 @@ non-zero):
     internal box holding its children's, every leaf box its moved
     primitive's leaf_aabbs box, frame 0's boxes the build's bit for bit;
     tlas_ref on bench's multimesh scene (phase 12's) at 1920x1080, depth
-    8, one frame timed.  No kernel launches in any of them.
+    8, one frame timed.  No kernel launches in any of them;
+34. app, the interactive viewer (viewer/app.py) on the main path:
+    ViewerState on RANDOM_BALLS_LARGE at 1920x1080, depth 20, engine
+    fused, preview scale 3, display every 250 ms, served by make_handler
+    on 127.0.0.1 (port 0) in a thread: (a) 32 frames at rest, the film
+    bit-equal to a separate fused renderer's after the same 32 frames,
+    trace launches exactly 32; (b) 20 rotate messages posted to
+    /control, one a frame: the preview twin (640x360, /stats "preview")
+    renders them, and when the motion stops the film is cleared and the
+    refinement restarts at frame 0; (c) an engine switch to
+    wavefront_fused posted, 8 frames: the film bit-equal to a separate
+    fused renderer's under the new camera, one segment launch a
+    segment; (d) the denoiser toggled and one display taken; (e)
+    /frame.png read back through utils/png at 1920x1080, neither black
+    nor all sky; sustained fps at rest and orbiting, the rings' means;
+35. host-stages, where the headline frame's host time goes: 8 fused
+    frames after 2 warm-up frames, the engine's own calls replayed in
+    order under utils/timing.FrameTimer (host and device ms of the
+    seeds, the pixel seed, raygen_ids, trace_tables and the film's
+    add), the film bit-equal to progressive_render's; then the same 8
+    frames under utils/profiling.trace: the device's busy and idle
+    share of the window, CUDA launches a frame, the three longest idle
+    gaps and the stage each falls in;
+36. doctor: ``python -m parallelraytracing_tpu_torch.cli --doctor`` in a
+    subprocess, every row ok and the exit code 0;
+37. native: the native helpers (native.py) built with g++ on the card's
+    host (a failed build prints the log's error and fails), each held
+    to its Python twin: the LBVH arrays of the headline scene and the
+    level-5 icosphere exactly, load_ply of the level-5 and level-7
+    icosphere PLYs exactly (both readers' seconds), the PNG encoder's
+    round trip of a 1080p display (ms a call, beside the Python
+    encoder's).
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
@@ -266,8 +297,9 @@ the segment entry phase 27's sort modes ("sort_modes") and phase 28's
 cases ("queue_edges"), the trace entry phases 29-32 ("gates",
 "megakernel_frame", "adaptive": the kernel's launches and times on the
 adaptive path and its bound there, "denoise").  The line before the
-kernels line is phase 33's record ({"lbvh_engines": ...}); the last
-line is
+kernels line is phases 34-37's record ({"app": ...}), and before it
+phase 33's ({"lbvh_engines": ...}); the trace and segment entries
+carry the viewer's launches ("app"); the last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -447,21 +479,8 @@ def write_ply(path: str, level: int = MESH_LEVEL) -> int:
     """Write the icosahedron (vertices on the unit sphere) subdivided
     `level` times as a binary PLY of positions and faces; the reader
     computes the smooth vertex normals.  Returns the triangle count."""
-    from parallelraytracing_tpu_torch.core.mesh import icosphere
-    mesh = icosphere(level)
-    faces = np.zeros(mesh.num_triangles, [("n", "u1"), ("i", "<i4", (3,))])
-    faces["n"] = 3
-    faces["i"] = mesh.indices.reshape(-1, 3)
-    header = ("ply\nformat binary_little_endian 1.0\n"
-              f"element vertex {mesh.num_vertices}\n"
-              "property float x\nproperty float y\nproperty float z\n"
-              f"element face {mesh.num_triangles}\n"
-              "property list uchar int vertex_indices\nend_header\n")
-    with open(path, "wb") as f:
-        f.write(header.encode("ascii"))
-        f.write(mesh.vertices.astype("<f4").tobytes())
-        f.write(faces.tobytes())
-    return mesh.num_triangles
+    from parallelraytracing_tpu_torch.core import mesh
+    return mesh.write_ply(path, mesh.icosphere(level))
 
 
 def mesh_renderer(engine: str, ply: str, width: int, height: int, **cfg_kw):
@@ -2936,6 +2955,427 @@ def denoise_phase(png_dir) -> dict:
                 mse_raw=mse_raw, mse_denoised=mse_den)
 
 
+#: the viewer phase (34): frames at rest, rotate messages, frames after
+#: the engine switch, the preview scale and the display cadence
+APP_REST, APP_ORBIT, APP_SWITCH = 32, 20, 8
+APP_PREVIEW, APP_DISPLAY_MS = 3, 250.0
+#: the host-stage phase (35): the stages of a fused frame, in call order
+HOST_STAGES = ("sample_key+frame_stream_seeds", "_pixel_seed", "raygen_ids",
+               "trace_tables", "add_sample_buffer")
+
+
+def _http(url: str, body: bytes = None) -> bytes:
+    """GET (or POST `body` to) a route of the viewer on 127.0.0.1."""
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return r.read()
+
+
+def _same_film(a, b) -> bool:
+    """Two films' canonical accumulation and weights, bit for bit."""
+    import torch
+    (acc_a, w_a), (acc_b, w_b) = a._canonical_buffers(), b._canonical_buffers()
+    return bool(torch.equal(acc_a, acc_b) and torch.equal(w_a, w_b)
+                and a.sample_count == b.sample_count)
+
+
+def _fused_reference(scene, camera, cfg, frames: int):
+    """A separate fused renderer's film after `frames` frames."""
+    from parallelraytracing_tpu_torch import Film, create_renderer
+    film = Film(cfg.width, cfg.height, "cuda")
+    r = create_renderer("fused", "cuda")
+    r.init(film, scene, camera, cfg)
+    for _ in range(frames):
+        r.progressive_render()
+    return film
+
+
+def app_phase(png_dir) -> dict:
+    """Phase 34: the viewer on the main path at full width."""
+    import copy
+    import threading
+    from http.server import ThreadingHTTPServer
+    import torch
+    from parallelraytracing_tpu_torch import (Film, RenderConfig, Scene,
+                                              ScenePreset, default_camera)
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    from parallelraytracing_tpu_torch.utils.png import read_png
+    from parallelraytracing_tpu_torch.viewer.app import ViewerState, make_handler
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, max_depth=MAIN_DEPTH,
+                       jitter=True, seed=0)
+    scene = Scene(ScenePreset.RANDOM_BALLS_LARGE)
+    t0 = time.perf_counter()
+    state = ViewerState(scene, default_camera(MAIN_W, MAIN_H), cfg, "fused",
+                        "cuda", preview_scale=APP_PREVIEW,
+                        display_interval_ms=APP_DISPLAY_MS)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rec = {"init_s": time.perf_counter() - t0}
+    try:
+        if f'width="{MAIN_W}"' not in _http(base + "/").decode():
+            raise AssertionError("app: the page does not carry the width")
+        # (a) at rest: one trace launch a frame, the film a fused film's
+        torch.cuda.synchronize()
+        trace.launches = 0
+        segment.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(APP_REST):
+            state._step(1.0 / 60.0)
+        torch.cuda.synchronize()
+        rest_s = time.perf_counter() - t0
+        rest_launches = trace.launches
+        ref = _fused_reference(scene, default_camera(MAIN_W, MAIN_H), cfg,
+                               APP_REST)
+        rest_equal = _same_film(state.film, ref)
+        del ref
+        rings = _ring_means(state, APP_REST)
+        rec["rest"] = dict(frames=APP_REST, fps=APP_REST / rest_s,
+                           trace_launches=rest_launches,
+                           segment_launches=segment.launches,
+                           film_bit_equal=rest_equal, rings_mean_ms=rings)
+        phase("app", f"(a) {APP_REST} frames at rest, fused {MAIN_W}x{MAIN_H} "
+              f"depth {MAIN_DEPTH}: {APP_REST / rest_s:.2f} fps sustained "
+              f"(display every {APP_DISPLAY_MS:g} ms); trace launches "
+              f"{rest_launches}, segment launches {segment.launches}; film "
+              f"bit-equal to a separate fused renderer's: {rest_equal}; ring "
+              f"means (ms) " + ", ".join(f"{k} {v:.3f}" for k, v in rings.items()))
+        if rest_launches != APP_REST or segment.launches or not rest_equal:
+            raise AssertionError(f"app (a): {rec['rest']}")
+
+        # (b) orbit through /control: the preview twin renders the motion
+        trace.launches = 0
+        previews = []
+        t0 = time.perf_counter()
+        for i in range(APP_ORBIT):
+            _http(base + "/control", json.dumps(
+                {"kind": "rotate", "dx": 4.0, "dy": 0.0}).encode())
+            state._step(1.0 / 60.0)
+            if i in (0, APP_ORBIT - 1):
+                previews.append(json.loads(_http(base + "/stats"))["preview"])
+        torch.cuda.synchronize()
+        orbit_s = time.perf_counter() - t0
+        orbit_launches = trace.launches
+        rings = _ring_means(state, APP_ORBIT)
+        pw, ph = state.preview_film.width, state.preview_film.height
+        state._step(1.0 / 60.0)  # the motion stopped: back to full size
+        torch.cuda.synchronize()
+        restarted = (not state.previewing and state.film.sample_count == 1
+                     and state.renderer.frame_index == 1)
+        rec["orbit"] = dict(frames=APP_ORBIT, fps=APP_ORBIT / orbit_s,
+                            preview=previews, preview_size=[pw, ph],
+                            trace_launches=orbit_launches,
+                            restarted_at_frame_0=restarted,
+                            rings_mean_ms=rings)
+        phase("app", f"(b) {APP_ORBIT} rotate messages through /control, one "
+              f"a frame: {APP_ORBIT / orbit_s:.2f} fps sustained (the HTTP "
+              f"round trip included), preview twin {pw}x{ph} (/stats preview "
+              f"{previews}), trace launches {orbit_launches}; motion stopped: "
+              f"film cleared and refinement restarted at frame 0: {restarted}; "
+              f"ring means (ms) " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in rings.items()))
+        if (not all(previews) or (pw, ph) != (MAIN_W // APP_PREVIEW,
+                                              MAIN_H // APP_PREVIEW)
+                or orbit_launches != APP_ORBIT or not restarted):
+            raise AssertionError(f"app (b): {rec['orbit']}")
+
+        # (c) the engine switch to wavefront_fused (the segment kernel)
+        cam_after = copy.deepcopy(state.camera)
+        _http(base + "/control", json.dumps(
+            {"kind": "engine", "name": "wavefront_fused"}).encode())
+        trace.launches = 0
+        segment.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(APP_SWITCH):
+            state._step(1.0 / 60.0)
+        torch.cuda.synchronize()
+        switch_s = time.perf_counter() - t0
+        seg_launches, sw_trace = segment.launches, trace.launches
+        per_frame = len(state.renderer.segment_lengths())
+        ref = _fused_reference(scene, cam_after, cfg, APP_SWITCH)
+        switch_equal = (state.engine_name == "wavefront_fused"
+                        and _same_film(state.film, ref))
+        del ref
+        rec["switch"] = dict(frames=APP_SWITCH, seconds=switch_s,
+                             segment_launches=seg_launches,
+                             trace_launches=sw_trace,
+                             segments_per_frame=per_frame,
+                             film_bit_equal_fused=switch_equal)
+        phase("app", f"(c) switch to wavefront_fused, {APP_SWITCH} frames in "
+              f"{switch_s:.2f} s (its init included): segment launches "
+              f"{seg_launches} ({per_frame} a frame), trace launches "
+              f"{sw_trace}; film bit-equal to a separate fused renderer's "
+              f"under the new camera: {switch_equal}")
+        if (seg_launches != per_frame * APP_SWITCH or sw_trace
+                or not switch_equal):
+            raise AssertionError(f"app (c): {rec['switch']}")
+
+        # (d) the denoiser toggled, one display; (e) /frame.png read back
+        _http(base + "/control", json.dumps(
+            {"kind": "denoise", "on": True}).encode())
+        before = state.png_cache
+        state._last_display_t = 0.0  # take this frame's display
+        t0 = time.perf_counter()
+        state._step(1.0 / 60.0)
+        denoise_ms = (time.perf_counter() - t0) * 1e3
+        deadline = time.time() + 60
+        while state.png_cache is before and time.time() < deadline:
+            time.sleep(0.01)
+        body = _http(base + "/frame.png?f=1")
+        png_path = Path(png_dir or tempfile.mkdtemp()) / "app_frame.png"
+        png_path.parent.mkdir(parents=True, exist_ok=True)
+        png_path.write_bytes(body)
+        img = read_png(str(png_path))
+        if png_dir is None:
+            shutil.rmtree(png_path.parent)
+        sky_film = Film(1, 1, "cuda")
+        sky_film.add_sample_buffer(torch.tensor([state.renderer._tables.sky],
+                                                device="cuda"))
+        sky_rgb = sky_film.display_numpy()[0, 0, :3]
+        sky_share = float((img[..., :3] == sky_rgb).all(-1).mean())
+        png_ok = (img.shape == (MAIN_H, MAIN_W, 4) and int(img.max()) > 0
+                  and sky_share < 0.5 and state.denoise)
+        stats = json.loads(_http(base + "/stats"))
+        rec["display"] = dict(denoise_step_ms=denoise_ms, png_bytes=len(body),
+                              png_shape=list(img.shape), sky_share=sky_share,
+                              ok=png_ok, encode_ms=state.encode_ms,
+                              stats_frame=stats["frame"])
+        phase("app", f"(d) denoise toggled: the step with its display "
+              f"{denoise_ms:.1f} ms, its encode {state.encode_ms:.1f} ms; (e) "
+              f"/frame.png {len(body)} bytes decodes through utils/png to "
+              f"{img.shape}, sky-only pixels {sky_share:.4f}, max "
+              f"{int(img.max())}: {png_ok}; /stats frame {stats['frame']}")
+        if not png_ok:
+            raise AssertionError(f"app (d, e): {rec['display']}")
+    finally:
+        state.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    return rec
+
+
+def _ring_means(state, n: int) -> dict:
+    """Means (ms) of the viewer's render, tonemap, encode and total rings
+    over their last n entries."""
+    return {k: float(np.mean(list(state.history[k])[-n:]))
+            for k in ("render", "tonemap", "encode", "total")}
+
+
+def _replay_frame(r, f: int, timer, annotate=None):
+    """Frame f of fused renderer r, replaying progressive_render's calls in
+    order, each a FrameTimer stage (and, with `annotate`, a profiler span):
+    FusedRenderer._sample_rays, _trace_ids and progressive_render."""
+    from parallelraytracing_tpu_torch.engines.fused import raygen_ids
+    from parallelraytracing_tpu_torch.engines.tables import trace_tables
+    from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
+                                                       sample_key)
+    cfg = r.config
+    span = annotate or (lambda name: contextlib.nullcontext())
+    if cfg.samples_per_frame != 1 or cfg.firefly_clamp > 0.0:
+        raise ValueError("the replay covers 1 spp without the clamp")
+    with timer.stage(HOST_STAGES[0]), span(HOST_STAGES[0]):
+        jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, f, 0))
+    with timer.stage(HOST_STAGES[1]), span(HOST_STAGES[1]):
+        pix_seed = r._pixel_seed(jseed)
+    with timer.stage(HOST_STAGES[2]), span(HOST_STAGES[2]):
+        o, d = raygen_ids(r._cam_params, r._ids, pix_seed, cfg.width,
+                          cfg.height, cfg.jitter, cfg.lens, r._qpt(f, 0))
+    with timer.stage(HOST_STAGES[3]), span(HOST_STAGES[3]):
+        rad = trace_tables(r._tables, o, d, r._ids, s0, cfg)
+    with timer.stage(HOST_STAGES[4]), span(HOST_STAGES[4]):
+        r._film.add_sample_buffer(rad / cfg.samples_per_frame,
+                                  float(cfg.samples_per_frame))
+    r._frame_index = f + 1
+
+
+def host_stages_phase(png_dir) -> dict:
+    """Phase 35: the headline fused frame's host stages, host and device
+    ms each, and the device's idle share under the profiler."""
+    import torch
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    from parallelraytracing_tpu_torch.utils.profiling import (annotate,
+                                                              device_busy)
+    from parallelraytracing_tpu_torch.utils.profiling import trace as ptrace
+    from parallelraytracing_tpu_torch.utils.timing import FrameTimer
+    r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                            max_depth=MAIN_DEPTH, jitter=True, seed=0)
+    ref_r, ref_film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                                    max_depth=MAIN_DEPTH, jitter=True, seed=0)
+    for _ in range(WARMUP):
+        r.progressive_render()
+    for _ in range(WARMUP + TIMED):
+        ref_r.progressive_render()
+    torch.cuda.synchronize()
+    timer = FrameTimer("cuda")
+    trace.launches = 0
+    t0 = time.perf_counter()
+    for f in range(WARMUP, WARMUP + TIMED):
+        _replay_frame(r, f, timer)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+    launches = trace.launches
+    equal = _same_film(film, ref_film)
+    rows = {name: dict(host_ms=timer.mean(name) * 1e3,
+                       device_ms=timer.device_mean(name) * 1e3)
+            for name in HOST_STAGES}
+    host_sum = sum(x["host_ms"] for x in rows.values())
+    phase("host-stages", f"headline fused {MAIN_W}x{MAIN_H} depth "
+          f"{MAIN_DEPTH}, {TIMED} frames after {WARMUP} warm-up, the engine's "
+          f"calls replayed under FrameTimer: {wall_ms:.3f} ms a frame on the "
+          f"host clock (synchronised at the end), stages' host ms summed "
+          f"{host_sum:.3f}; trace launches {launches}; film bit-equal to "
+          f"progressive_render's: {equal}")
+    for name, x in rows.items():
+        phase("host-stages", f"  {name:<30} host {x['host_ms']:8.3f} ms   "
+              f"device {x['device_ms']:8.3f} ms")
+    if launches != TIMED or not equal:
+        raise AssertionError(f"host-stages: {launches} trace launches, film "
+                             f"equal {equal}")
+    del ref_r, ref_film
+
+    log_dir = Path(png_dir or tempfile.mkdtemp()) / "host_stages_trace"
+    with ptrace(str(log_dir)) as path:
+        for f in range(WARMUP + TIMED, WARMUP + 2 * TIMED):
+            with annotate(f"frame {f}"):
+                _replay_frame(r, f, FrameTimer("cuda"), annotate)
+        torch.cuda.synchronize()
+    busy = device_busy(path, list(HOST_STAGES))
+    if png_dir is None:
+        shutil.rmtree(log_dir.parent)
+    gaps = busy["gaps"][:3]
+    rec = dict(stages=rows, wall_ms_per_frame=wall_ms, trace_launches=launches,
+               film_bit_equal=equal, window_ms=busy["window"] / 1e3,
+               busy_ms=busy["busy"] / 1e3, busy_share=busy["busy_share"],
+               idle_share=busy["idle_share"], device_kernels=busy["kernels"],
+               cuda_launches_per_frame=busy["launches"] / TIMED,
+               longest_gaps=[dict(ms=g["length"] / 1e3,
+                                  at_ms=g["start"] / 1e3, stage=g["stage"])
+                             for g in gaps])
+    if busy["kernels"] == 0:
+        phase("host-stages", "profiler: no device kernel in the trace; the "
+              "idle share is not measured")
+        rec["idle_share"] = None
+        return rec
+    phase("host-stages", f"profiler over the same {TIMED} frames "
+          f"(utils/profiling.trace): window {busy['window'] / 1e3:.3f} ms, "
+          f"device busy {busy['busy'] / 1e3:.3f} ms = "
+          f"{busy['busy_share']:.4f}, idle share {busy['idle_share']:.4f}; "
+          f"{busy['kernels']} device kernels, "
+          f"{busy['launches'] / TIMED:.1f} CUDA launches a frame; longest "
+          f"idle gaps: " + "; ".join(
+              f"{g['length'] / 1e3:.3f} ms in {g['stage']}" for g in gaps))
+    return rec
+
+
+def doctor_phase() -> dict:
+    """Phase 36: the CLI's --doctor in a subprocess: every row ok, exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "parallelraytracing_tpu_torch.cli",
+                           "--doctor"], capture_output=True, text=True,
+                          timeout=600)
+    rows = [x for x in proc.stdout.splitlines() if x.startswith("[")]
+    secs = time.perf_counter() - t0
+    for row in rows:
+        phase("doctor", row)
+    bad = [x for x in rows if not x.startswith("[OK ]")]
+    phase("doctor", f"exit code {proc.returncode}, {len(rows)} rows, "
+          f"{len(bad)} not ok, {secs:.1f} s")
+    if proc.returncode != 0 or bad or not rows:
+        raise AssertionError(f"doctor: rc {proc.returncode}, not ok: {bad}; "
+                             f"stderr: {proc.stderr[-2000:]}")
+    return dict(rc=proc.returncode, rows=rows, seconds=secs)
+
+
+def native_phase() -> dict:
+    """Phase 37: the native helpers built on the card's host, each held
+    to its Python twin."""
+    import torch
+    from parallelraytracing_tpu_torch import Scene, ScenePreset, native
+    from parallelraytracing_tpu_torch.accel.lbvh import build_bvh
+    from parallelraytracing_tpu_torch.core.mesh import icosphere, load_ply
+    from parallelraytracing_tpu_torch.utils.png import decode_png, encode_png
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    if not ok:
+        log = native.build_log()
+        err = next((x for x in log.splitlines() if "error" in x.lower()),
+                   log.splitlines()[-1] if log else "(no log)")
+        phase("native", f"build failed: {err}")
+        raise AssertionError("native: the build failed:\n" + log[-3000:])
+    cmd = native.build_log().splitlines()[0]
+    phase("native", f"built {native.library_path().name} in {build_s:.2f} s "
+          f"(g++ {' '.join(native.CXXFLAGS + native.LDFLAGS)})")
+    fields = ("node_min", "node_max", "node_kind", "node_idx", "node_miss",
+              "node_ord")
+    rec = {"build_s": build_s, "command": cmd}
+    scenes = {"headline": Scene(ScenePreset.RANDOM_BALLS_LARGE)}
+    s = Scene(preset=None)
+    s.add_mesh(icosphere(MESH_LEVEL), s.add_lambertian((0.5, 0.5, 0.5)), None)
+    scenes[f"icosphere{MESH_LEVEL}"] = s
+    for tag, scene in scenes.items():
+        sd = scene.build("cpu")
+        py, py_s = _seconds(lambda: build_bvh(sd, prefer_native=False))
+        nat, nat_s = _seconds(lambda: build_bvh(sd))
+        same = all(torch.equal(getattr(py, f), getattr(nat, f)) for f in fields)
+        rec[f"lbvh_{tag}"] = dict(nodes=int(py.node_kind.shape[0]),
+                                  python_s=py_s, native_s=nat_s, equal=same)
+        phase("native", f"LBVH of {tag}: {py.node_kind.shape[0]} nodes, native "
+              f"{nat_s:.4f} s vs Python {py_s:.4f} s, arrays equal: {same}")
+        if not same:
+            raise AssertionError(f"native LBVH of {tag} differs from Python")
+    with tempfile.TemporaryDirectory() as tmp:
+        for level in (MESH_LEVEL, 7):
+            ply = str(Path(tmp) / f"icosphere{level}.ply")
+            n_tri = write_ply(ply, level)
+            py, py_s = _seconds(lambda: load_ply(ply, prefer_native=False))
+            nat, nat_s = _seconds(lambda: load_ply(ply))
+            same = all(np.array_equal(getattr(py, f), getattr(nat, f))
+                       for f in ("vertices", "indices", "normals"))
+            same = same and py.texcoords is None and nat.texcoords is None
+            rec[f"ply_level{level}"] = dict(triangles=n_tri, python_s=py_s,
+                                            native_s=nat_s, equal=same)
+            phase("native", f"load_ply level {level} ({n_tri} triangles): "
+                  f"native {nat_s:.4f} s vs Python {py_s:.4f} s, arrays "
+                  f"equal: {same}")
+            if not same:
+                raise AssertionError(f"native load_ply level {level} differs")
+    r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                            max_depth=MAIN_DEPTH, jitter=True, seed=0)
+    r.progressive_render()
+    img = film.display_numpy()
+    reps = 5
+    data, nat_s = _seconds(lambda: [native.encode_png(img, level=1)
+                                    for _ in range(reps)])
+    py_data, py_s = _seconds(lambda: encode_png(img, level=1))
+    same = bool(np.array_equal(decode_png(data[0]), img)
+                and np.array_equal(decode_png(py_data), img))
+    rec["png_1080p"] = dict(native_ms=nat_s * 1e3 / reps, python_ms=py_s * 1e3,
+                            native_bytes=len(data[0]),
+                            python_bytes=len(py_data), round_trip=same)
+    phase("native", f"encode_png of a {MAIN_W}x{MAIN_H} display (level 1): "
+          f"native {nat_s * 1e3 / reps:.2f} ms a call ({len(data[0])} bytes), "
+          f"Python {py_s * 1e3:.2f} ms ({len(py_data)} bytes); both decode "
+          f"to the display: {same}")
+    if not same:
+        raise AssertionError("native encode_png does not round-trip")
+    return rec
+
+
+def _seconds(fn):
+    """(fn(), its host seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--png-dir", default=None,
@@ -3293,8 +3733,18 @@ def main(argv=None) -> int:
     # and tlas_ref
     lbvh_rec = lbvh_phase(args.png_dir)
 
+    # 34-37. the app layer: the viewer on the main path, the headline
+    # frame's host stages, the doctor and the native helpers
+    t_app = time.perf_counter()
+    app_rec = {"viewer": app_phase(args.png_dir),
+               "host_stages": host_stages_phase(args.png_dir),
+               "doctor": doctor_phase(), "native": native_phase()}
+    app_rec["seconds"] = time.perf_counter() - t_app
+    phase("app", f"phases 34-37 in {app_rec['seconds']:.1f} s")
+
     print(smi)
     print(json.dumps({"lbvh_engines": lbvh_rec}))
+    print(json.dumps({"app": app_rec}))
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
     inst_cmp = inst["vs_plain"].values()
@@ -3358,6 +3808,10 @@ def main(argv=None) -> int:
                       f"ms / plain_ms the kernel and the plain version on "
                       f"the first adaptive frame's ids"},
          "gates": gates, "megakernel_frame": mk_rec, "denoise": den_rec,
+         "app": {"rest_launches": app_rec["viewer"]["rest"]["trace_launches"],
+                 "orbit_launches": app_rec["viewer"]["orbit"]["trace_launches"],
+                 "host_stages_launches":
+                     app_rec["host_stages"]["trace_launches"]},
          "paths": {k: paths[k] for k in "AB"},
          "instances": {**inst, "paths": {k: v for k, v in inst_paths.items()
                                          if "_fused" in k and "wavefront" not in k}},
@@ -3384,6 +3838,8 @@ def main(argv=None) -> int:
          "segments": segs, "nee_rr_segments": segs_c,
          "mesh_nee_segment": mesh_nee_seg, "sort_modes": SORTS,
          "queue_edges": edges,
+         "app": {"switch_launches":
+                 app_rec["viewer"]["switch"]["segment_launches"]},
          "paths": {k: paths[k] for k in "CD"},
          "instances": {"paths": {k: v for k, v in inst_paths.items()
                                  if "wavefront" in k}}},

@@ -27,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from parallelraytracing_tpu_torch import native
 from parallelraytracing_tpu_torch.core import geometry as geo
 from parallelraytracing_tpu_torch.core.scene import (KIND_QUAD, KIND_SPHERE,
                                                      KIND_TRIANGLE)
@@ -274,16 +275,25 @@ def _union_boxes(node_min, node_max, is_leaf) -> None:
     assert len(stack) == 1
 
 
-def build_threaded(mn: np.ndarray, mx: np.ndarray):
+def build_threaded(mn: np.ndarray, mx: np.ndarray,
+                   prefer_native: bool = True):
     """Threaded LBVH over N boxes (host numpy): (node_min (M, 3), node_max,
     is_leaf (M,), payload (M,), miss (M,)), M = 2N - 1; a leaf's payload is
     its ORIGINAL box index.  The core shared by the scene BVH and the
-    two-level builder."""
+    two-level builder.  Built by the native C++ builder when it builds
+    (native.py; the same arrays), else by the Python builder below, the
+    reference."""
     n = len(mn)
     assert n >= 1
     if n == 1:
         return (mn.copy(), mx.copy(), np.array([True]),
                 np.array([0], np.int64), np.array([-1], np.int64))
+    if prefer_native and native.available():
+        node_min, node_max, is_leaf, payload, miss, order = native.build_lbvh(
+            mn.astype(np.float64), mx.astype(np.float64))
+        payload = payload.astype(np.int64)
+        payload[is_leaf] = order[payload[is_leaf]]
+        return node_min, node_max, is_leaf, payload, miss.astype(np.int64)
     order, is_leaf, payload, miss = _sorted_tree(mn, mx)
     m = 2 * n - 1
     node_min = np.zeros((m, 3))
@@ -321,34 +331,28 @@ def _bvh_tensors(node_min, node_max, kind, idx, miss, ords) -> BVHData:
                    node_miss=i32(miss), node_ord=i32(ords))
 
 
-def build_bvh(scene, device=None) -> BVHData:
+def build_bvh(scene, device=None, prefer_native: bool = True) -> BVHData:
     """The threaded LBVH of a compiled scene (a SceneData), on `device`
-    (the host when None).  Built with the Python builder; the JAX
-    package's native builder gives the same arrays."""
+    (the host when None), through ``build_threaded``: the native C++
+    builder when it builds (the same arrays, faster on big meshes), else
+    the Python builder, the reference semantics."""
     s = scene.numpy()
-    bvh = _build_bvh_python(s, *scene_primitive_aabbs(s))
+    mn, mx, kind, idx = scene_primitive_aabbs(s)
+    if len(kind) == 0:
+        bvh = _bvh_tensors(np.zeros((1, 3)), np.full((1, 3), -1.0),
+                           [-1], [0], [-1], [0])
+    else:
+        node_min, node_max, is_leaf, payload, miss = build_threaded(
+            mn, mx, prefer_native)
+        m = len(miss)
+        node_kind = np.full(m, -1, np.int64)
+        node_idx = np.zeros(m, np.int64)
+        node_ord = np.zeros(m, np.int64)
+        leaf_slots = np.nonzero(is_leaf)[0]
+        src = payload[leaf_slots]
+        node_kind[leaf_slots] = kind[src]
+        node_idx[leaf_slots] = idx[src]
+        node_ord[leaf_slots] = _global_ordinals(s, kind[src], idx[src])
+        bvh = _bvh_tensors(node_min, node_max, node_kind, node_idx, miss,
+                           node_ord)
     return bvh if device is None else bvh.to(device)
-
-
-def _build_bvh_python(scene, mn, mx, kind, idx) -> BVHData:
-    n = len(kind)
-    if n == 0:
-        return _bvh_tensors(np.zeros((1, 3)), np.full((1, 3), -1.0),
-                            [-1], [0], [-1], [0])
-    order, is_leaf, payload, miss = _sorted_tree(mn, mx)
-    m = 2 * n - 1
-    node_min = np.zeros((m, 3))
-    node_max = np.zeros((m, 3))
-    node_kind = np.full(m, -1, np.int64)
-    node_idx = np.zeros(m, np.int64)
-    node_ord = np.zeros(m, np.int64)
-    leaf_slots = np.nonzero(is_leaf)[0]
-    src = order[payload[leaf_slots]]  # a leaf's payload is its sorted index
-    node_min[leaf_slots] = mn[src]
-    node_max[leaf_slots] = mx[src]
-    node_kind[leaf_slots] = kind[src]
-    node_idx[leaf_slots] = idx[src]
-    node_ord[leaf_slots] = _global_ordinals(scene, kind[src], idx[src])
-    _union_boxes(node_min, node_max, is_leaf)
-    return _bvh_tensors(node_min, node_max, node_kind, node_idx, miss,
-                        node_ord)

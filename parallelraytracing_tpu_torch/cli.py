@@ -29,6 +29,8 @@ Usage:
     python -m parallelraytracing_tpu_torch.cli --device cpu --engine megakernel \
         --scene material_test --width 64 --height 48 --depth 8 --frames 4
     python -m parallelraytracing_tpu_torch.cli --engine bvh --frames 4
+    python -m parallelraytracing_tpu_torch.cli --doctor
+    python -m parallelraytracing_tpu_torch.cli --device cpu --doctor
 """
 
 from __future__ import annotations
@@ -127,7 +129,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None,
                    help="load film state and continue accumulating")
     p.add_argument("--stats", action="store_true",
-                   help="print the time of each frame")
+                   help="print each frame's host and device time and, at "
+                        "the end, the stage summary (utils/timing.py)")
+    p.add_argument("--doctor", action="store_true",
+                   help="probe torch, the card, nvcc, triton, the kernel "
+                        "builds, the native helpers and every engine on "
+                        "--device, and exit (0 only when every row is ok)")
     return p
 
 
@@ -144,8 +151,13 @@ def main(argv=None) -> int:
                                               ScenePreset, create_renderer)
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
         TRI_HEAVY, scene_triangles)
+    from parallelraytracing_tpu_torch.utils.timing import FrameTimer
 
     device = torch.device(args.device)
+    if args.doctor:
+        from parallelraytracing_tpu_torch.utils.diagnostics import run_diagnostics
+        results = run_diagnostics(device)
+        return 0 if all(v["ok"] for v in results.values()) else 1
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available "
                            "(use --device cpu for the plain PyTorch path)")
@@ -205,26 +217,31 @@ def main(argv=None) -> int:
           + (f"stream_chunk={stream.chunk} " if stream is not None else "")
           + f"device={device} ({name})")
 
+    timer = FrameTimer(device)
     t_all = time.perf_counter()
     for i in range(args.frames):
-        t0 = time.perf_counter()
-        renderer.progressive_render()
-        sync()
+        with timer.stage("render"):
+            renderer.progressive_render()
+            sync()
         if args.stats:
-            dt = time.perf_counter() - t0
-            print(f"frame {start_frame + i:4d}  render {dt * 1e3:8.1f} ms")
+            dev_ms = timer.device_last("render")
+            print(f"frame {start_frame + i:4d}  render "
+                  f"{timer.last('render') * 1e3:8.1f} ms"
+                  + ("" if dev_ms is None else f"  device {dev_ms * 1e3:8.3f} ms"))
     total = time.perf_counter() - t_all
     print(f"{args.frames} frames in {total:.2f}s "
           f"({args.frames / total:.2f} fps, "
           f"{film.sample_count} samples accumulated)")
 
-    if args.denoise > 0:
-        from parallelraytracing_tpu_torch.postfx.denoise import save_denoised_png
-        save_denoised_png(args.out, film, scene.build(device),
-                          renderer._cam_params, cfg, iterations=args.denoise,
-                          exposure=args.exposure, gamma=args.gamma)
-    else:
-        film.save_png(args.out, args.exposure, args.gamma)
+    with timer.stage("tonemap"):
+        if args.denoise > 0:
+            from parallelraytracing_tpu_torch.postfx.denoise import save_denoised_png
+            save_denoised_png(args.out, film, scene.build(device),
+                              renderer._cam_params, cfg,
+                              iterations=args.denoise,
+                              exposure=args.exposure, gamma=args.gamma)
+        else:
+            film.save_png(args.out, args.exposure, args.gamma)
     print(f"wrote {args.out}"
           + (f" (denoised x{args.denoise})" if args.denoise else ""))
     if args.hdr_out:
@@ -234,6 +251,8 @@ def main(argv=None) -> int:
         film.save_checkpoint(args.checkpoint,
                              frame_index=start_frame + args.frames)
         print(f"checkpointed film to {args.checkpoint}")
+    if args.stats:
+        print(timer.summary())
     return 0
 
 

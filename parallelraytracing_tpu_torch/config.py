@@ -70,6 +70,11 @@ class RenderConfig:
             return (self.lens_radius, self.focus_distance)
         return None
 
+    def replace(self, **kw) -> "RenderConfig":
+        """A copy with the fields of `kw` changed (the viewer's preview
+        configuration)."""
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class DisplayConfig:

@@ -44,11 +44,7 @@ class Film:
         self.height = int(height)
         self.device = torch.device(device)
         #: pixel id -> storage slot, or None for the canonical (H, W) layout
-        self._layout_inv: Optional[torch.Tensor] = None
-        self._slots = 0
-        self.accum = self._zeros(self.height, self.width, 3)
-        self.weights = self._zeros(self.height, self.width)
-        self.sample_count = 0
+        self.resize(width, height)
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -92,6 +88,18 @@ class Film:
         """Gather a (slots, ...) storage buffer back to (H, W, ...)."""
         img = flat[self._layout_inv]
         return img.reshape((self.height, self.width) + tuple(flat.shape[1:]))
+
+    def resize(self, width: int, height: int) -> None:
+        """Film::Resize (film.cu:11-23): new empty buffers of the new size
+        on the film's device, in the canonical layout (a layout belongs to
+        one resolution)."""
+        self.width = int(width)
+        self.height = int(height)
+        self._layout_inv = None
+        self._slots = 0
+        self.accum = self._zeros(self.height, self.width, 3)
+        self.weights = self._zeros(self.height, self.width)
+        self.sample_count = 0
 
     def clear(self) -> None:
         """Film::Clear (film.cu:25-35): drop the accumulation, keeping the

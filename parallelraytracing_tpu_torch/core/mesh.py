@@ -14,6 +14,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from parallelraytracing_tpu_torch import native
+
 _PLY_TYPES = {
     "char": ("i1", 1), "int8": ("i1", 1),
     "uchar": ("u1", 1), "uint8": ("u1", 1),
@@ -108,6 +110,25 @@ def icosphere(level: int) -> Mesh:
                           np.asarray(ICO_F, np.uint32).reshape(-1)), level)
     mesh.compute_vertex_normals()
     return mesh
+
+
+def write_ply(path: str, mesh: Mesh) -> int:
+    """Write `mesh`'s positions and faces as a binary little-endian PLY
+    (``load_ply`` computes the smooth vertex normals again).  Returns the
+    triangle count."""
+    faces = np.zeros(mesh.num_triangles, [("n", "u1"), ("i", "<i4", (3,))])
+    faces["n"] = 3
+    faces["i"] = mesh.indices.reshape(-1, 3)
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {mesh.num_vertices}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              f"element face {mesh.num_triangles}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(mesh.vertices.astype("<f4").tobytes())
+        f.write(faces.tobytes())
+    return mesh.num_triangles
 
 
 def _parse_header(data: bytes, path: str):
@@ -213,10 +234,22 @@ def _parse_binary(body: bytes, elements) -> Dict[str, Dict[str, np.ndarray]]:
     return parsed
 
 
-def load_ply(path: str) -> Mesh:
+def load_ply(path: str, prefer_native: bool = True) -> Mesh:
     """Load a PLY mesh (ascii or binary_little_endian): positions, optional
     per-vertex normals (computed when absent) and texcoords, and triangle
-    indices (polygons fan-triangulated)."""
+    indices (polygons fan-triangulated).  Read by the native C++ reader
+    when it builds (native.py), else by the Python reader below, the
+    reference semantics."""
+    if prefer_native and native.available():
+        v, n, uv, idx = native.load_ply(path)
+        mesh = Mesh(vertices=v, indices=idx, normals=n, texcoords=uv)
+        if mesh.normals is None and mesh.num_triangles:
+            mesh.compute_vertex_normals()
+        return mesh
+    return _load_ply_python(path)
+
+
+def _load_ply_python(path: str) -> Mesh:
     with open(path, "rb") as f:
         data = f.read()
     fmt, elements, body = _parse_header(data, path)

@@ -18,30 +18,37 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
 
 def write_png(path: str, image: np.ndarray) -> None:
     """image: (H,W,3) or (H,W,4) uint8."""
-    img = np.asarray(image)
-    if img.dtype != np.uint8:
-        raise ValueError("write_png expects uint8")
-    if img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"bad image shape {img.shape}")
-    h, w, c = img.shape
-    color_type = 2 if c == 3 else 6
-
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", header)
-           + _chunk(b"IDAT", zlib.compress(raw, 6))
-           + _chunk(b"IEND", b""))
+    data = encode_png(image)
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(data)
 
 
 def read_png(path: str) -> np.ndarray:
     """Minimal reader for files produced by write_png (8-bit, no filters
     other than what zlib reproduces; handles filter types 0-4)."""
     with open(path, "rb") as f:
-        data = f.read()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+        return decode_png(f.read())
+
+
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+    """PNG bytes of an (H, W, 3 or 4) uint8 image, rows unfiltered."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError("encode_png expects uint8")
+    if img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"bad image shape {img.shape}")
+    h, w, c = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    header = struct.pack(">IIBBBBB", w, h, 8, 6 if c == 4 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw, level))
+            + _chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The image of PNG bytes (8-bit; filter types 0-4), (H, W, C) uint8."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
     pos = 8
     idat = b""
     w = h = c = None

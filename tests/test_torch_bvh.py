@@ -17,8 +17,22 @@ Tolerances:
   force expands |o - c|^2 as |o|^2 - 2 o.c + |c|^2, which cancels when o
   is the centre of a sphere far from the origin (measured 1.2e-3 on the
   random balls, whose radius-0.2 spheres lie ~10 units out).
-- A `bvh` frame against the JAX `bvh` frame: >= 99.9% of rays within
-  1e-5 (measured: all, max 1.2e-6 with NEE).  Against the port's
+- A `bvh` frame against the JAX `bvh` frame: every pixel within 1e-5
+  but at most one of the 768 (measured: max 1.2e-6 with NEE).  The one
+  is RANDOM_BALLS_LARGE's pixel 79 where the JAX package runs on an
+  AVX-512 Xeon with jax 0.9.0 (measured there): the JAX raygen
+  normalises through XLA's CPU ``rsqrt`` and ``jnp.linalg.norm``, which
+  round otherwise than IEEE ``1 / sqrt`` and a sum of squares (the rsqrt
+  alone on 388 of the 768 rays), so 683 of the 768 camera directions
+  differ from the port's in the last bit; the port's equal float32 IEEE
+  arithmetic bit for bit, as the CUDA kernels compute.
+  Pixel 79's ray grazes sphere 607 at t = 50.43, where b^2 - c cancels
+  (2600.70 - 2600.38), so 1 ulp of direction moves t by 3.4e-4 and the
+  diffuse path leaves the JAX one at bounce 3 (3.5e-3 in the pixel).
+  Its direction is the nearer of the two to the float64 value (1.9e-8
+  against 5.0e-8); over the frame neither side is nearer (250 rays
+  against 261).  Fed the JAX raygen's bits, the port's frame is
+  bit-equal at all 768 pixels.  Against the port's
   megakernel frame, tests/test_bvh.py's bound: < 1% of pixels off by more
   than 1e-3, the means within 1e-3 relative (measured: equal).
 - The animated engine at 32x24, depth 3 (tests/test_refit_live.py's
@@ -158,7 +172,8 @@ def test_bvh_frame_matches_jax(preset, extra):
     ref = _render(J, "bvh", preset, cfg)
     got = _render(T, "bvh", preset, cfg)
     err = np.abs(got - ref).max(axis=1)
-    assert (err <= 1e-5).mean() >= 0.999, err.max()
+    # at most one pixel of 768 off (the grazing ray of the docstring)
+    assert (err > 1e-5).sum() <= 1, np.nonzero(err > 1e-5)[0]
 
 
 def test_bvh_trace_matches_jax():

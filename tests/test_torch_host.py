@@ -138,7 +138,15 @@ def test_import_leaves_jax_out():
             "parallelraytracing_tpu_torch.engines.wavefront, "
             "parallelraytracing_tpu_torch.engines.tlas, "
             "parallelraytracing_tpu_torch.benchmarks.walk_rounds, "
-            "parallelraytracing_tpu_torch.postfx.denoise; "
+            "parallelraytracing_tpu_torch.postfx.denoise, "
+            "parallelraytracing_tpu_torch.native, "
+            "parallelraytracing_tpu_torch.viewer.app, "
+            "parallelraytracing_tpu_torch.utils.timing, "
+            "parallelraytracing_tpu_torch.utils.profiling, "
+            "parallelraytracing_tpu_torch.utils.diagnostics, "
+            "parallelraytracing_tpu_torch.examples.animated_refit, "
+            "parallelraytracing_tpu_torch.examples.render_showcase, "
+            "parallelraytracing_tpu_torch.examples.interactive_session; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'parallelraytracing_tpu'"
             " or m.startswith('parallelraytracing_tpu.')]; "

@@ -14,8 +14,16 @@ scene's slot-for-slot test (SCENES), taken relative to values above 1
 (the scenes here reach 35 units); the survivor count is equal; each sort
 key equals the JAX package's ``_sort_key`` of the survivor's planes
 exactly, and the key the JAX engine sorts by on the same share of the
-survivors as the planes (a key quantises the origin, so an origin within
-the tolerance can fall in the next cell); an ended path's radiance,
+survivors as the planes, rounded up to a whole survivor (a key quantises
+the origin, so an origin within the tolerance can fall in the next
+cell: every key that differs must have its origin in a cell next to
+the JAX one's, on each axis).  CORNELL has 44 survivors, so its share
+0.98 admits one: pixel 672's origin lies on the back wall, z = 0, which
+is the scene box's midplane and so the edge of a cell of every Morton
+level; the port's z is -4.8e-7 and the interpret kernel's 3.2e-8
+(measured on an AVX-512 Xeon with jax 0.9.0; the exact hit lies on
+z = 0, so there the interpret kernel's is the nearer), both within the
+plane tolerance, on either side of the edge.  An ended path's radiance,
 written to ``rad[pix]``, is within the same tolerance, and no other pixel
 of ``rad`` is written.  RANDOM_BALLS_LARGE has no slot-for-slot test of
 its own: its origins and directions differ from the interpret kernel's by
@@ -184,6 +192,22 @@ def _assert_close(got, ref, atol, share):
     assert close >= share, close
 
 
+def _assert_keys_close(g_state, w_state, g_key, w_key, bb, share):
+    """The port's keys equal the JAX engine's but on (1 - share) of the
+    survivors, rounded up, and where they differ each origin coordinate's
+    cell is the JAX one's or next to it."""
+    diff = g_key != w_key
+    assert diff.sum() <= np.ceil((1.0 - share) * len(g_key) - 1e-9), \
+        (diff.sum(), len(g_key))
+    lo, ie = (np.asarray(x, np.float32) for x in bb)
+
+    def cells(o):
+        q = (o.T - lo) * ie * np.float32(1024.0)
+        return np.clip(q, 0.0, 1023.0).astype(np.int32)
+    gap = np.abs(cells(g_state[0:3, diff]) - cells(w_state[0:3, diff]))
+    assert (gap <= 1).all(), gap
+
+
 @pytest.mark.parametrize("name", list(SCENES))
 def test_queue_matches_pallas_segment_and_jax_compaction(tmp_path, name):
     """One 2-bounce segment over a queue of COUNT live slots: the port's
@@ -211,7 +235,7 @@ def test_queue_matches_pallas_segment_and_jax_compaction(tmp_path, name):
             own = np.asarray(jax_sort_key([jnp.asarray(x) for x in g_state],
                                           *jt.bb, mode))
             np.testing.assert_array_equal(g_key, own)
-            assert (g_key == w_key).mean() >= share
+            _assert_keys_close(g_state, w_state, g_key, w_key, t.bb, share)
             assert (k[c:] == DEAD_KEY).all() and (k[:c] < 2 ** 30).all()
         else:
             assert k is None

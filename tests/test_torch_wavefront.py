@@ -4,8 +4,16 @@ package's on the CPU, and `wavefront` against the port's megakernel.
 Tolerances:
 - a frame of each engine against the JAX engine's, without and with NEE
   and Russian roulette, and with ray tiles smaller than the frame (one
-  whole, one padded): >= 99.9% of rays within 1e-5 (measured: all,
-  max 2.9e-6);
+  whole, one padded): every pixel within 1e-5 but at most one of the
+  768 (measured: max 2.9e-6).  The one is RANDOM_BALLS_LARGE's pixel 79
+  under `wavefront_bvh` where the JAX package runs on an AVX-512 Xeon
+  with jax 0.9.0: the JAX raygen's direction differs from the port's in
+  the last bit there (XLA's CPU rsqrt and norm round otherwise than
+  IEEE float32), and
+  the ray grazes sphere 607 at t = 50.43, so its diffuse path leaves
+  the JAX one at bounce 3 (tests/test_torch_bvh.py's docstring has the
+  measurement).  Fed the JAX raygen's bits, the frames are bit-equal;
+  `wavefront`'s brute force rounds that hit so that it stays;
 - `wavefront` against the port's `megakernel` when the frame is one ray
   tile: bit for bit (the JAX docstring's claim: both draw each path's
   numbers at its pixel under the same keys, and each ray's arithmetic is
@@ -51,7 +59,8 @@ def test_frame_matches_jax(engine, preset, extra):
     ref = _render(J, engine, preset, cfg)
     got = _render(T, engine, preset, cfg)
     err = np.abs(got - ref).max(axis=1)
-    assert (err <= 1e-5).mean() >= 0.999, err.max()
+    # at most one pixel of 768 off (the grazing ray of the docstring)
+    assert (err > 1e-5).sum() <= 1, np.nonzero(err > 1e-5)[0]
 
 
 @pytest.mark.parametrize("preset,extra", [
