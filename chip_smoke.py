@@ -276,7 +276,22 @@ non-zero):
     level-5 icosphere exactly, load_ply of the level-5 and level-7
     icosphere PLYs exactly (both readers' seconds), the PNG encoder's
     round trip of a 1080p display (ms a call, beside the Python
-    encoder's).
+    encoder's);
+38. sharded, the multi-device engine (engines/sharded.py) on
+    RANDOM_BALLS_LARGE and the level-5 mesh at 1920x1080, depth 20,
+    jitter on: (a) at 1x1 without a process group, 4 frames whose film
+    is bit-equal to the fused engine's with one trace launch a frame,
+    then 8 frames of each timed in turns; (b) the mesh through the
+    segmented route, 2 frames bit-equal to wavefront_fused's (the same
+    schedule and sort mode), its segment launches, 8 frames timed in
+    turns; (c) two ranks spawned on cuda:0 and joined over gloo (NCCL
+    refuses two ranks on one device: its message is printed): the 2x1
+    headline film after the gather bit-equal to (a)'s fused film, the 2x1
+    mesh film to (b)'s wavefront_fused film, the 1x2 frame bit-equal to
+    the mean of sample streams 0 and 1 traced one by one on the 1x1
+    path; each rank's ms a frame, the film gather's and the spp
+    all-reduce's ms.  Two ranks on one card measure gloo's staging
+    through the host, not scaling.
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
@@ -297,9 +312,10 @@ the segment entry phase 27's sort modes ("sort_modes") and phase 28's
 cases ("queue_edges"), the trace entry phases 29-32 ("gates",
 "megakernel_frame", "adaptive": the kernel's launches and times on the
 adaptive path and its bound there, "denoise").  The line before the
-kernels line is phases 34-37's record ({"app": ...}), and before it
-phase 33's ({"lbvh_engines": ...}); the trace and segment entries
-carry the viewer's launches ("app"); the last line is
+kernels line is phase 38's record ({"sharded": ...}), before it phases
+34-37's ({"app": ...}) and phase 33's ({"lbvh_engines": ...}); the
+trace and segment entries carry the viewer's launches ("app") and the
+sharded engine's ("sharded"); the last line is
 {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -483,14 +499,16 @@ def write_ply(path: str, level: int = MESH_LEVEL) -> int:
     return mesh.write_ply(path, mesh.icosphere(level))
 
 
-def mesh_renderer(engine: str, ply: str, width: int, height: int, **cfg_kw):
+def mesh_renderer(engine: str, ply: str, width: int, height: int,
+                  attrs=None, **cfg_kw):
     """A renderer of `engine` on the showcase scene of the PLY mesh, with
-    the showcase camera, as the CLI's --ply builds it."""
+    the showcase camera, as the CLI's --ply builds it (the engine's
+    attributes `attrs` set before init)."""
     from parallelraytracing_tpu_torch.core.scene import ply_showcase_scene
     scene, eye, look = ply_showcase_scene(ply)
     eye, look = np.asarray(eye, np.float64), np.asarray(look, np.float64)
     return scene_renderer(engine, scene, eye, look - eye, width, height,
-                          **cfg_kw)
+                          attrs=attrs, **cfg_kw)
 
 
 def ray_share(k, p) -> float:
@@ -1516,12 +1534,14 @@ def tlas_blas_scene(ico, baked: bool):
 
 
 def scene_renderer(engine: str, scene, eye, direction, width: int,
-                   height: int, **cfg_kw):
+                   height: int, attrs=None, **cfg_kw):
     from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig,
                                               create_renderer)
     cfg = RenderConfig(width=width, height=height, **cfg_kw)
     film = Film(width, height, "cuda")
     r = create_renderer(engine, "cuda")
+    for k, v in (attrs or {}).items():
+        setattr(r, k, v)
     r.init(film, scene, Camera(np.asarray(eye, np.float64),
                                np.asarray(direction, np.float64),
                                float(width), float(height), 100.0), cfg)
@@ -3369,6 +3389,313 @@ def native_phase() -> dict:
     return rec
 
 
+#: phase 38: frames of the headline's and the mesh's film checks, and
+#: the seconds a world of ranks on the card may take before it is killed
+SHARD_FRAMES, SHARD_MESH_FRAMES, SHARD_WORLD_S = 4, 2, 240
+
+
+def turns_ms(fns: dict, reps: int) -> dict:
+    """Mean ms a call of each of `fns`, called in turns (one call of each a
+    turn, `reps` turns), each call between its own CUDA events."""
+    import torch
+    events = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events[k].append((start, end))
+    torch.cuda.synchronize()
+    return {k: sum(a.elapsed_time(b) for a, b in v) / reps
+            for k, v in events.items()}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean ms of fn() then a device synchronize, on the host's clock (a
+    collective over gloo waits on the host)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _hdr(film) -> np.ndarray:
+    return film.hdr_average().cpu().numpy()
+
+
+def _sharded_rank(rank: int, store: str, out: str, ply: str) -> None:
+    """Phase 38 (c), one of two ranks on cuda:0 joined over gloo (NCCL
+    refuses two ranks on one device): the headline at 2x1 (SHARD_FRAMES
+    frames, the film gathered; rank 0 saves it) and at 1x2 (frame 0's
+    sample buffer: the mean of spp streams 0 and 1; rank 0 saves it), the
+    mesh at 2x1 through the segmented route (SHARD_MESH_FRAMES frames,
+    gathered and saved); each timed over TIMED frames, with the gather's
+    and the all-reduce's ms alone.  The record goes to out/rank<r>.json."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    from parallelraytracing_tpu_torch.parallel.sharding import sum_spp
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    rec = {}
+    cfg = dict(max_depth=MAIN_DEPTH, jitter=True)
+    try:
+        r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                                "sharded", attrs={"spp_axis": 1}, **cfg)
+        trace.launches = 0
+        for _ in range(SHARD_FRAMES):
+            r.progressive_render()
+        launches = trace.launches
+        r.gather_film()
+        if rank == 0:
+            np.save(Path(out) / "head_2x1.npy", _hdr(film))
+        rec["2x1"] = dict(shape=r._mesh.shape, block=list(film.block),
+                          launches=launches,
+                          ms=cuda_ms(r.progressive_render, TIMED),
+                          gather_ms=host_ms(r.gather_film))
+        del r, film
+
+        r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                                "sharded", attrs={"spp_axis": 2}, **cfg)
+        buf = r.render_sample_buffer(0)
+        if rank == 0:
+            np.save(Path(out) / "head_1x2.npy", buf.cpu().numpy())
+        x = torch.ones_like(buf)
+        rec["1x2"] = dict(shape=r._mesh.shape,
+                          ms=cuda_ms(r.progressive_render, TIMED),
+                          allreduce_ms=host_ms(lambda: sum_spp(x, r._mesh)),
+                          allreduce_bytes=x.numel() * 4)
+        del r, film, buf, x
+
+        r, film = mesh_renderer("sharded", ply, MAIN_W, MAIN_H, **cfg)
+        trace.launches = segment.launches = 0
+        for _ in range(SHARD_MESH_FRAMES):
+            r.progressive_render()
+        launches = (trace.launches, segment.launches)
+        r.gather_film()
+        if rank == 0:
+            np.save(Path(out) / "mesh_2x1.npy", _hdr(film))
+        rec["mesh_2x1"] = dict(shape=r._mesh.shape, route=(
+            "segmented" if r._use_seg else "fused"),
+            schedule=list(r._schedule), trace_launches=launches[0],
+            segment_launches=launches[1],
+            ms=cuda_ms(r.progressive_render, TIMED),
+            gather_ms=host_ms(r.gather_film))
+        rec = {"ok": True, **rec}
+    except BaseException:
+        rec = {"ok": False, "error": traceback.format_exc()}
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _nccl_rank(rank: int, store: str, out: str) -> None:
+    """Phase 38 (c): NCCL's answer to two ranks on cuda:0, one line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(store, 2), rank=rank, world_size=2,
+            timeout=datetime.timedelta(seconds=60),
+            device_id=torch.device("cuda", 0))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        msg = "accepted: all_reduce of two ranks on cuda:0 ran"
+        dist.destroy_process_group()
+    except Exception as e:  # the refusal is the phase's record
+        msg = f"{type(e).__name__}: {e}"
+    Path(out, f"nccl{rank}.txt").write_text(msg)
+
+
+def run_ranks(target, args, tag: str, timeout: float) -> float:
+    """Spawn two ranks of target(rank, store, out, *args) and join them;
+    past `timeout` seconds kill the ranks and fail.  Returns the seconds."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=target, args=(rank,) + tuple(args))
+             for rank in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(0.0, timeout - (time.perf_counter() - t0)))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung:
+        raise AssertionError(f"sharded {tag}: ranks still running after "
+                             f"{timeout} s: killed")
+    return time.perf_counter() - t0
+
+
+def sharded_phase() -> dict:
+    """Phase 38: the sharded engine on the headline and the level-5 mesh
+    at 1920x1080, depth 20: (a) at 1x1 without a process group, the film
+    bit-equal to fused's, one trace launch a frame, then frames timed in
+    turns with fused; (b) the mesh through the segmented route, the film
+    bit-equal to wavefront_fused's (same schedule and sort mode), its
+    segment launches; (c) two ranks spawned on cuda:0 over gloo
+    (_sharded_rank): the 2x1 films bit-equal to (a)'s fused and (b)'s
+    wavefront_fused films, the 1x2 frame bit-equal to the mean of spp
+    streams 0 and 1 traced one by one on the 1x1 path; NCCL's refusal of
+    two ranks on one device (_nccl_rank)."""
+    import torch
+
+    from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
+                                                       sample_key)
+    from parallelraytracing_tpu_torch.ops.segment import segment
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    from parallelraytracing_tpu_torch.parallel.sharding import fused_block
+    t_phase = time.perf_counter()
+    cfg = dict(max_depth=MAIN_DEPTH, jitter=True)
+    rec = {}
+    # (a) the headline at 1x1
+    sh, sh_film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
+                                "sharded", **cfg)
+    fu, fu_film = make_renderer("random_balls_large", MAIN_W, MAIN_H, **cfg)
+    trace.launches = 0
+    for _ in range(SHARD_FRAMES):
+        sh.progressive_render()
+    torch.cuda.synchronize()
+    launches = trace.launches
+    for _ in range(SHARD_FRAMES):
+        fu.progressive_render()
+    head = _hdr(fu_film)
+    same = _same_film(sh_film, fu_film)
+    phase("sharded", f"(a) 1x1 random_balls_large {MAIN_W}x{MAIN_H} depth "
+          f"{MAIN_DEPTH}: mesh {sh._mesh.shape}, film after {SHARD_FRAMES} "
+          f"frames bit-equal to fused's: {same}; trace launches "
+          f"{launches} in {SHARD_FRAMES} frames")
+    if not same or launches != SHARD_FRAMES:
+        raise AssertionError("sharded 1x1: film or launches wrong")
+    ms = turns_ms({"sharded": sh.progressive_render,
+                   "fused": fu.progressive_render}, TIMED)
+    rec["1x1"] = dict(launches=launches, film_equal=same, ms=ms["sharded"],
+                      fused_ms=ms["fused"])
+    phase("sharded", f"(a) {TIMED} frames in turns: sharded "
+          f"{ms['sharded']:.3f} ms/frame, fused {ms['fused']:.3f}")
+    # the 1x2 check's inputs: streams 0 and 1 of frame 0 on the 1x1 path
+    c = sh.config
+    jseed0, seed0 = frame_stream_seeds(sample_key(c.seed, 0, 0))
+    streams = [fused_block(c, sh._tables, sh._cam_params, seed0, jseed0,
+                           sh._sperm, i) for i in (0, 1)]
+    mean2 = ((streams[0] + streams[1]) / 2 / c.samples_per_frame).cpu().numpy()
+    del sh, sh_film, fu, fu_film, streams
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = str(Path(tmp) / f"icosphere{MESH_LEVEL}.ply")
+        write_ply(ply)
+        # (b) the mesh through the segmented route at 1x1
+        sm, sm_film = mesh_renderer("sharded", ply, MAIN_W, MAIN_H, **cfg)
+        wf, wf_film = mesh_renderer("wavefront_fused", ply, MAIN_W, MAIN_H,
+                                    attrs={"sort_rays": sm.sort_rays}, **cfg)
+        trace.launches = segment.launches = 0
+        for _ in range(SHARD_MESH_FRAMES):
+            sm.progressive_render()
+        torch.cuda.synchronize()
+        seg_launches, tr_launches = segment.launches, trace.launches
+        for _ in range(SHARD_MESH_FRAMES):
+            wf.progressive_render()
+        mesh_hdr = _hdr(wf_film)
+        same = _same_film(sm_film, wf_film)
+        sched = list(sm._schedule)
+        phase("sharded", f"(b) 1x1 mesh (level {MESH_LEVEL}): route "
+              f"{'segmented' if sm._use_seg else 'fused'}, schedule "
+              f"{tuple(sched)} (wavefront_fused "
+              f"{tuple(wf.segment_lengths())}), sort {sm.sort_rays!r}; film "
+              f"after {SHARD_MESH_FRAMES} frames bit-equal: {same}; segment "
+              f"launches {seg_launches}, trace launches {tr_launches}")
+        if (not same or not sm._use_seg or tr_launches
+                or seg_launches != SHARD_MESH_FRAMES * len(wf.segment_lengths())):
+            raise AssertionError("sharded mesh 1x1: film, route or launches "
+                                 "wrong")
+        ms = turns_ms({"sharded": sm.progressive_render,
+                       "wavefront_fused": wf.progressive_render}, TIMED)
+        n_segs = len(wf.segment_lengths())
+        rec["mesh_1x1"] = dict(schedule=sched, segment_launches=seg_launches,
+                               film_equal=same, ms=ms["sharded"],
+                               wavefront_fused_ms=ms["wavefront_fused"])
+        phase("sharded", f"(b) {TIMED} frames in turns: sharded "
+              f"{ms['sharded']:.3f} ms/frame, wavefront_fused "
+              f"{ms['wavefront_fused']:.3f}")
+        del sm, sm_film, wf, wf_film
+        torch.cuda.empty_cache()
+
+        # (c) two ranks on the one card over gloo
+        secs = run_ranks(_sharded_rank, (str(Path(tmp) / "store"), tmp, ply),
+                         "gloo", SHARD_WORLD_S)
+        ranks = [json.loads(Path(tmp, f"rank{i}.json").read_text())
+                 for i in range(2)]
+        for i, rr in enumerate(ranks):
+            if not rr["ok"]:
+                raise AssertionError(f"sharded rank {i}:\n{rr['error']}")
+        checks = {
+            "head_2x1": np.array_equal(np.load(Path(tmp, "head_2x1.npy")),
+                                       head),
+            "mesh_2x1": np.array_equal(np.load(Path(tmp, "mesh_2x1.npy")),
+                                       mesh_hdr),
+            "head_1x2": np.array_equal(np.load(Path(tmp, "head_1x2.npy")),
+                                       mean2)}
+        for tag in ("2x1", "1x2", "mesh_2x1"):
+            for i, rr in enumerate(ranks):
+                x = rr[tag]
+                phase("sharded", f"(c) gloo rank {i} {tag}: mesh "
+                      f"{x['shape']}, {x['ms']:.3f} ms/frame"
+                      + (f", gather {x['gather_ms']:.3f} ms"
+                         if "gather_ms" in x else "")
+                      + (f", all-reduce of {x['allreduce_bytes']} B "
+                         f"{x['allreduce_ms']:.3f} ms"
+                         if "allreduce_ms" in x else "")
+                      + (f", block {x['block']}, trace launches "
+                         f"{x['launches']}" if "block" in x else "")
+                      + (f", route {x['route']} {tuple(x['schedule'])}, "
+                         f"segment launches {x['segment_launches']}, trace "
+                         f"launches {x['trace_launches']}"
+                         if "route" in x else ""))
+        phase("sharded", f"(c) two ranks in {secs:.1f} s: 2x1 headline film "
+              f"bit-equal to fused's: {checks['head_2x1']}; 2x1 mesh film "
+              f"bit-equal to wavefront_fused's: {checks['mesh_2x1']}; 1x2 "
+              f"frame bit-equal to the mean of streams 0 and 1: "
+              f"{checks['head_1x2']}")
+        seg_ok = all(rr["mesh_2x1"]["segment_launches"]
+                     == SHARD_MESH_FRAMES * n_segs
+                     and rr["mesh_2x1"]["trace_launches"] == 0
+                     and rr["2x1"]["launches"] == SHARD_FRAMES
+                     for rr in ranks)
+        if not all(checks.values()) or not seg_ok:
+            raise AssertionError(f"sharded 2 ranks: {checks}, launches ok "
+                                 f"{seg_ok}")
+        rec["gloo_2_ranks"] = dict(ranks=ranks, checks=checks, seconds=secs)
+
+        run_ranks(_nccl_rank, (str(Path(tmp) / "nccl_store"), tmp), "nccl",
+                  90)
+        nccl = [Path(tmp, f"nccl{i}.txt").read_text() for i in range(2)]
+    for i, msg in enumerate(nccl):
+        phase("sharded", f"(c) nccl, two ranks on cuda:0, rank {i}: "
+              + " | ".join(x.strip() for x in msg.splitlines() if x.strip()))
+    rec["nccl_two_ranks_one_card"] = nccl
+    rec["seconds"] = time.perf_counter() - t_phase
+    phase("sharded", f"phase 38 in {rec['seconds']:.1f} s")
+    return rec
+
+
 def _seconds(fn):
     """(fn(), its host seconds)."""
     t0 = time.perf_counter()
@@ -3742,9 +4069,14 @@ def main(argv=None) -> int:
     app_rec["seconds"] = time.perf_counter() - t_app
     phase("app", f"phases 34-37 in {app_rec['seconds']:.1f} s")
 
+    # 38. the sharded engine: 1x1 against fused and wavefront_fused, two
+    # ranks on the card over gloo
+    shard_rec = sharded_phase()
+
     print(smi)
     print(json.dumps({"lbvh_engines": lbvh_rec}))
     print(json.dumps({"app": app_rec}))
+    print(json.dumps({"sharded": shard_rec}))
     seg0 = segs[0]
     nee_recs["mesh"] = mesh_nee
     inst_cmp = inst["vs_plain"].values()
@@ -3808,6 +4140,14 @@ def main(argv=None) -> int:
                       f"ms / plain_ms the kernel and the plain version on "
                       f"the first adaptive frame's ids"},
          "gates": gates, "megakernel_frame": mk_rec, "denoise": den_rec,
+         "sharded": {
+             "launches_1x1": shard_rec["1x1"]["launches"],
+             "launches_2x1": [rr["2x1"]["launches"] for rr in
+                              shard_rec["gloo_2_ranks"]["ranks"]],
+             "size": f"phase 38: trace launches of the sharded engine on "
+                     f"random_balls_large {MAIN_W}x{MAIN_H} depth "
+                     f"{MAIN_DEPTH} over its {SHARD_FRAMES} checked frames, "
+                     f"at 1x1 and on each rank of 2x1"},
          "app": {"rest_launches": app_rec["viewer"]["rest"]["trace_launches"],
                  "orbit_launches": app_rec["viewer"]["orbit"]["trace_launches"],
                  "host_stages_launches":
@@ -3840,6 +4180,15 @@ def main(argv=None) -> int:
          "queue_edges": edges,
          "app": {"switch_launches":
                  app_rec["viewer"]["switch"]["segment_launches"]},
+         "sharded": {
+             "launches_1x1": shard_rec["mesh_1x1"]["segment_launches"],
+             "launches_2x1": [rr["mesh_2x1"]["segment_launches"] for rr in
+                              shard_rec["gloo_2_ranks"]["ranks"]],
+             "size": f"phase 38: segment launches of the sharded engine's "
+                     f"segmented route on the {n_tri}-triangle mesh "
+                     f"{MAIN_W}x{MAIN_H} depth {MAIN_DEPTH} over its "
+                     f"{SHARD_MESH_FRAMES} checked frames, at 1x1 and on "
+                     f"each rank of 2x1"},
          "paths": {k: paths[k] for k in "CD"},
          "instances": {"paths": {k: v for k, v in inst_paths.items()
                                  if "wavefront" in k}}},

@@ -12,7 +12,11 @@ frames and as the oracle); ``bvh``, ``wavefront``, ``wavefront_bvh`` and
 compacted bounce queue, both, and the two-level instance walk;
 ``adaptive`` is the fused engine with variance-guided pixel budgets, and
 ``--denoise N`` applies N levels of the à-trous filter
-(postfx/denoise.py) before the PNG is written.
+(postfx/denoise.py) before the PNG is written.  ``sharded`` splits the
+frame over the ranks of a ``torchrun`` launch (one card a rank, NCCL; gloo
+with ``--device cpu``): each traces its block, the film is gathered once
+and rank 0 writes the outputs; without ``torchrun`` it renders the 1x1
+mesh on the one device.
 
 Usage:
     python -m parallelraytracing_tpu_torch.cli --scene random_balls_large \
@@ -29,6 +33,8 @@ Usage:
     python -m parallelraytracing_tpu_torch.cli --device cpu --engine megakernel \
         --scene material_test --width 64 --height 48 --depth 8 --frames 4
     python -m parallelraytracing_tpu_torch.cli --engine bvh --frames 4
+    torchrun --nproc-per-node 4 -m parallelraytracing_tpu_torch.cli \
+        --engine sharded --width 1920 --height 1080 --frames 16
     python -m parallelraytracing_tpu_torch.cli --doctor
     python -m parallelraytracing_tpu_torch.cli --device cpu --doctor
 """
@@ -36,12 +42,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 #: engines of this port; "auto" picks by the scene's triangle count
 ENGINE_CHOICES = ("auto", "fused", "wavefront_fused", "tlas", "megakernel",
-                  "adaptive", "bvh", "wavefront", "wavefront_bvh", "tlas_ref")
+                  "adaptive", "bvh", "wavefront", "wavefront_bvh", "tlas_ref",
+                  "sharded")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -69,7 +77,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "compacted queue, brute force) | wavefront_bvh "
                         "(the same over the LBVH walk) | tlas_ref (the "
                         "LBVH walk and the two-level instance walk); the "
-                        "last four are plain PyTorch.  On an H100 "
+                        "last four are plain PyTorch | sharded (fused, or "
+                        "wavefront_fused above 512 triangles, over the ranks "
+                        "of a torchrun launch; 1x1 without one).  On an H100 "
                         "wavefront_fused is "
                         "the slower engine on meshes: its default schedule "
                         "is the TPU's, not yet re-tuned for the GPU")
@@ -161,6 +171,19 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available "
                            "(use --device cpu for the plain PyTorch path)")
+    # under torchrun (WORLD_SIZE set) the sharded engine's mesh spans the
+    # launch's ranks, one card a rank; rank 0 writes the outputs
+    launched = args.engine == "sharded" and "WORLD_SIZE" in os.environ
+    own_group = False
+    if launched:
+        import torch.distributed as dist
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        if not dist.is_initialized():
+            dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+            own_group = True
+    writer = not launched or dist.get_rank() == 0
 
     def sync():
         if device.type == "cuda":
@@ -233,6 +256,11 @@ def main(argv=None) -> int:
           f"({args.frames / total:.2f} fps, "
           f"{film.sample_count} samples accumulated)")
 
+    renderer.gather_film()  # every rank: a collective under torchrun
+    if not writer:
+        if own_group:
+            dist.destroy_process_group()
+        return 0
     with timer.stage("tonemap"):
         if args.denoise > 0:
             from parallelraytracing_tpu_torch.postfx.denoise import save_denoised_png
@@ -253,6 +281,8 @@ def main(argv=None) -> int:
         print(f"checkpointed film to {args.checkpoint}")
     if args.stats:
         print(timer.summary())
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 

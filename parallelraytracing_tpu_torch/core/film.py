@@ -11,6 +11,10 @@ An engine may install a storage layout (``set_layout``): accum and
 weights then live as flat (slots,) buffers in the engine's pixel order
 (the fused engine's Morton order), so a frame accumulates with no gather;
 the layout is undone only at display, read-out and checkpoint time.
+A layout may also name the block of slots this process accumulates (the
+sharded engine's px block, ``block``): a frame then brings only that
+block, and the other slots hold what the last gather over the ranks put
+there (parallel/sharding.gather_film).
 Checkpoints (accum, weights, sample count, frame index) are canonical
 pixel order, so any engine can resume any checkpoint.
 """
@@ -51,7 +55,11 @@ class Film:
 
     def set_layout(self, layout) -> None:
         """Install (inv, slots) — inv (H*W,) pixel -> slot — or None for the
-        canonical layout.  Accumulated content is converted, not dropped."""
+        canonical layout; a third entry (lo, hi) makes slots [lo, hi) the
+        block this process accumulates.  Accumulated content is converted,
+        not dropped."""
+        self.block = None if layout is None or len(layout) < 3 else (
+            int(layout[2][0]), int(layout[2][1]))
         if layout is None:
             if self._layout_inv is None:
                 return
@@ -60,7 +68,7 @@ class Film:
             self._layout_inv = None
             self._slots = 0
             return
-        inv, slots = layout
+        inv, slots = layout[:2]
         if isinstance(inv, np.ndarray):
             inv = torch.from_numpy(inv.astype(np.int64))  # a copy: writable
         inv = inv.to(device=self.device, dtype=torch.int64)
@@ -97,6 +105,8 @@ class Film:
         self.height = int(height)
         self._layout_inv = None
         self._slots = 0
+        #: the slots [lo, hi) this process accumulates, or None: every slot
+        self.block = None
         self.accum = self._zeros(self.height, self.width, 3)
         self.weights = self._zeros(self.height, self.width)
         self.sample_count = 0
@@ -110,12 +120,19 @@ class Film:
 
     def add_sample_buffer(self, rgb: torch.Tensor, weight: float = 1.0) -> None:
         """Accumulate one frame of per-pixel radiance: (H,W,3) or (H*W,3),
-        or (slots,3) in the installed storage layout."""
+        or (slots,3) in the installed storage layout, or (hi - lo, 3) of its
+        block."""
+        w = torch.tensor(weight, dtype=torch.float32, device=self.device)
+        if self.block is not None:
+            lo, hi = self.block
+            self.accum[lo:hi] += rgb.reshape(hi - lo, 3).to(torch.float32) * w
+            self.weights[lo:hi] += w
+            self.sample_count += 1
+            return
         if self._layout_inv is not None:
             rgb = rgb.reshape(self._slots, 3)
         else:
             rgb = rgb.reshape(self.height, self.width, 3)
-        w = torch.tensor(weight, dtype=torch.float32, device=self.device)
         self.accum += rgb.to(torch.float32) * w
         self.weights += w
         self.sample_count += 1

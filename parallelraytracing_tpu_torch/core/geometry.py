@@ -57,6 +57,11 @@ def transform_point(m: np.ndarray, p) -> np.ndarray:
     return m[:3, :3] @ p + m[:3, 3]
 
 
+def transform_vector(m: np.ndarray, v) -> np.ndarray:
+    v = np.asarray(v, dtype=np.float64)
+    return m[:3, :3] @ v
+
+
 def transform_normal(inv_m: np.ndarray, n) -> np.ndarray:
     """Normal transform: normalize((M^-1)^T n)
     (src/core/geometry.h:138-142)."""
@@ -82,6 +87,10 @@ def uniform_scale_of(m: np.ndarray, atol: float = 1e-6) -> float:
 # AABB helpers (host-side, for LBVH builds). Device-side AABB slab tests live
 # in accel/.
 # ----------------------------------------------------------------------------
+
+def aabb_union(a_min, a_max, b_min, b_max):
+    return np.minimum(a_min, b_min), np.maximum(a_max, b_max)
+
 
 def sphere_aabb(center: np.ndarray, radius: np.ndarray):
     """(N,3),(N,) -> (N,3),(N,3) world AABBs."""

@@ -9,5 +9,6 @@ from parallelraytracing_tpu_torch.engines import megakernel as _megakernel  # no
 from parallelraytracing_tpu_torch.engines import adaptive as _adaptive  # noqa: F401
 from parallelraytracing_tpu_torch.engines import bvh as _bvh  # noqa: F401
 from parallelraytracing_tpu_torch.engines import wavefront as _wavefront  # noqa: F401
+from parallelraytracing_tpu_torch.engines import sharded as _sharded  # noqa: F401
 
 __all__ = ["Renderer", "available_engines", "create_renderer", "register_engine"]

@@ -73,6 +73,12 @@ class Renderer(abc.ABC):
         the canonical (H, W) layout (core/film.set_layout)."""
         return None
 
+    def gather_film(self) -> None:
+        """Make the film whole on this process before the whole image is
+        read (display, PNG, PFM, checkpoint).  A no-op but for an engine
+        whose film holds only this rank's block (the sharded engine): there
+        it is a collective, and every rank calls it."""
+
     def set_camera(self, camera: Camera) -> None:
         """Renderer::SetCamera: upload the packed camera parameters."""
         self._camera = camera

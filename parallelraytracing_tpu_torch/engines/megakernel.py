@@ -41,6 +41,21 @@ def trace(scene, o, d, key, cfg, lights=None) -> torch.Tensor:
     return trace_paths_tiled(scene, o, d, key, cfg, lights=lights)
 
 
+def render_frame(scene, cam_params, key, cfg) -> torch.Tensor:
+    """One frame's (H*W, 3) mean radiance in one call, raygen and trace
+    together (the JAX package's single-program frame, for tooling):
+    sample s draws under fold_in(key, s), split into its jitter key and
+    its path key.  No NEE, no QMC: the engine's loop below has those."""
+    acc = None
+    for s in range(cfg.samples_per_frame):
+        k_jit, k_path = rng.split(rng.fold_in(key, s))
+        o, d = generate_camera_rays(cam_params, cfg.width, cfg.height, k_jit,
+                                    cfg.jitter, lens=cfg.lens)
+        rad = trace_paths_tiled(scene, o, d, k_path, cfg)
+        acc = rad if acc is None else acc + rad
+    return acc / cfg.samples_per_frame
+
+
 @register_engine
 class MegakernelRenderer(Renderer):
     name = "megakernel"

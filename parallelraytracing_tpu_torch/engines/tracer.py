@@ -216,6 +216,53 @@ def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, cfg,
     return trace_rays(scene, o, d, keys, group, index, cfg, intersect, lights)
 
 
+def count_bounce_rays(scene, cam_params: torch.Tensor, key, cfg) -> float:
+    """Total rays traced in one frame, the camera rays plus the rays still
+    alive entering each later bounce: the JAX package's count, the
+    numerator of its Mrays/s.  Pixel-center camera rays in tiles of
+    ``cfg.ray_tile``, the tile starting at ray s keyed ``fold_in(key, s)``;
+    the last tile is padded with dummy rays (o 0, d (1, 1, 1)), traced too,
+    and its count pro-rated to its real rays.  No NEE, no roulette."""
+    from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays
+    o, d = generate_camera_rays(cam_params, cfg.width, cfg.height, None, False)
+    n = o.shape[0]
+    tile = min(cfg.ray_tile, n)
+    intersect = make_brute_force_intersector(cfg)
+    total = 0
+    for s in range(0, n, tile):
+        e = min(s + tile, n)
+        ot = torch.zeros((tile, 3), dtype=o.dtype, device=o.device)
+        dt = torch.ones_like(ot)
+        ot[:e - s], dt[:e - s] = o[s:e], d[s:e]
+        c = _count_tile(scene, ot, dt, rng.fold_in(key, s), cfg, intersect)
+        if e - s < tile:
+            c = int(c * (e - s) / tile)  # the dummy rays pro-rated
+        total += c
+    return float(total)
+
+
+def _count_tile(scene, o, d, key, cfg, intersect) -> int:
+    """The alive rays summed over the bounces of one tile under `key`
+    (ray i draws element i), the paths compacted after each bounce."""
+    bkeys = _bounce_keys(rng.as_key(key)[None], cfg.max_depth).to(o.device)
+    index = torch.arange(o.shape[0], device=o.device)
+    group = torch.zeros_like(index)
+    count = 0
+    for depth in range(cfg.max_depth):
+        if index.numel() == 0:
+            break
+        count += index.numel()
+        hit = intersect(scene, o, d)
+        bits = _draws(bkeys[depth], group, index, False, False)
+        unit = unit_vectors(rng.normal_from_bits(bits[:, 0:3]))
+        uni = rng.uniform_from_bits(bits[:, 3])
+        new_d, _, scat_alive = scatter(scene, d, hit, unit, uni)
+        keep = torch.nonzero(hit.hit & scat_alive)[:, 0]
+        index, group = index[keep], group[keep]
+        o, d = hit.pos[keep], new_d[keep]
+    return count
+
+
 def tile_streams(key, r: int, ray_tile: int):
     """The JAX ``trace_paths_tiled`` streams of r rays under `key`: tiles
     of min(ray_tile, r) rays, tile t keyed ``fold_in(key, t)`` (the key

@@ -184,6 +184,35 @@ def generate_camera_rays_ids(cam_params: torch.Tensor, width: int,
     return _camera_rays(cam_params, width, height, idx, jxy, lens, lens_u)
 
 
+def generate_camera_rays_flat(cam_params: torch.Tensor, width: int,
+                              height: int, start: int, count: int, key=None,
+                              jitter: bool = True, lens=None, pix_seed=None,
+                              qpt=None):
+    """Rays (o, d), each (count, 3), for the flat pixel range [start,
+    start + count): the raygen of a block of the frame (ids past H*W give
+    harmless dummy rays).  With `pix_seed` the draws are pixel-keyed as in
+    ``generate_camera_rays_ids``; otherwise a threefry `key` draws the
+    block's jitter (``uniform(key, (count, 2))``: x then y per ray) and a
+    thin lens its aperture (``uniform(fold_in(key, 1), (count, 2))``), as
+    the JAX package's ``generate_camera_rays_ids`` does with a key.
+    Without a key and a seed, rays go through pixel centers and the lens
+    center."""
+    idx = torch.arange(count, dtype=torch.int32,
+                       device=cam_params.device) + int(start)
+    if pix_seed is not None:
+        return generate_camera_rays_ids(cam_params, width, height, idx,
+                                        jitter, pix_seed, lens, qpt)
+    jxy = lens_u = None
+    if key is not None:
+        if jitter:
+            u = rng.uniform(key, (count, 2), cam_params.device)
+            jxy = u[:, 0], u[:, 1]
+        if lens is not None and lens[0] > 0.0:
+            u = rng.uniform(rng.fold_in(key, 1), (count, 2), cam_params.device)
+            lens_u = u[:, 0], u[:, 1]
+    return _camera_rays(cam_params, width, height, idx, jxy, lens, lens_u)
+
+
 def generate_camera_rays(cam_params: torch.Tensor, width: int, height: int,
                          key=None, jitter: bool = True, lens=None,
                          pix_seed=None, qpt=None):

@@ -386,6 +386,7 @@ class ViewerState:
         else:
             t1 = time.perf_counter()
         if do_display:
+            renderer.gather_film()  # the whole image on this process
             if self.denoise and not self.previewing:
                 display = self._denoised_display()
             else:

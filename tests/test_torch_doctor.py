@@ -39,7 +39,7 @@ def test_run_diagnostics_cpu_rows():
 
 def test_working_engines_cpu_lists_every_engine():
     assert diagnostics.working_engines("cpu") == T.available_engines()
-    assert len(T.available_engines()) == 9
+    assert len(T.available_engines()) == 10
 
 
 def test_cli_doctor_cpu(capsys):

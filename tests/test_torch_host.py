@@ -146,7 +146,11 @@ def test_import_leaves_jax_out():
             "parallelraytracing_tpu_torch.utils.diagnostics, "
             "parallelraytracing_tpu_torch.examples.animated_refit, "
             "parallelraytracing_tpu_torch.examples.render_showcase, "
-            "parallelraytracing_tpu_torch.examples.interactive_session; "
+            "parallelraytracing_tpu_torch.examples.interactive_session, "
+            "parallelraytracing_tpu_torch.parallel, "
+            "parallelraytracing_tpu_torch.parallel.sharding, "
+            "parallelraytracing_tpu_torch.engines.sharded, "
+            "parallelraytracing_tpu_torch.benchmarks.sharded_cards; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'parallelraytracing_tpu'"
             " or m.startswith('parallelraytracing_tpu.')]; "

@@ -23,7 +23,10 @@ is the scene box's midplane and so the edge of a cell of every Morton
 level; the port's z is -4.8e-7 and the interpret kernel's 3.2e-8
 (measured on an AVX-512 Xeon with jax 0.9.0; the exact hit lies on
 z = 0, so there the interpret kernel's is the nearer), both within the
-plane tolerance, on either side of the edge.  An ended path's radiance,
+plane tolerance, on either side of the edge.  They part at the first
+bounce's hit point on the floor: t and d are bit-equal, and the
+interpret kernel's point is fma(t, d, o), a multiply-add XLA's CPU
+backend contracts, where the port rounds t * d first (ROADMAP Queue 3).  An ended path's radiance,
 written to ``rad[pix]``, is within the same tolerance, and no other pixel
 of ``rad`` is written.  RANDOM_BALLS_LARGE has no slot-for-slot test of
 its own: its origins and directions differ from the interpret kernel's by

@@ -110,7 +110,11 @@ def test_cli_writes_png(tmp_path, capsys):
 
 
 def test_cli_refuses_other_engines():
+    """An engine neither package has is refused; ``sharded``, the last JAX
+    engine the port took, is in both the CLI's list and the registry."""
     with pytest.raises(ValueError, match="fused"):
-        cli.main(["--device", "cpu", "--engine", "sharded"])
+        cli.main(["--device", "cpu", "--engine", "nonesuch"])
     with pytest.raises(ValueError, match="unknown engine"):
-        T.create_renderer("sharded", "cpu")
+        T.create_renderer("nonesuch", "cpu")
+    assert "sharded" in cli.ENGINE_CHOICES
+    assert T.create_renderer("sharded", "cpu").name == "sharded"
