@@ -261,13 +261,14 @@ non-zero):
     /frame.png read back through utils/png at 1920x1080, neither black
     nor all sky; sustained fps at rest and orbiting, the rings' means;
 35. host-stages, where the headline frame's host time goes: 8 fused
-    frames after 2 warm-up frames, the engine's own calls replayed in
-    order under utils/timing.FrameTimer (host and device ms of the
-    seeds, the pixel seed, raygen_ids, trace_tables and the film's
-    add), the film bit-equal to progressive_render's; then the same 8
-    frames under utils/profiling.trace: the device's busy and idle
-    share of the window, CUDA launches a frame, the three longest idle
-    gaps and the stage each falls in;
+    frames after 2 warm-up frames through progressive_render, a
+    utils/timing.FrameTimer attached to the program's spans (host and
+    device ms a frame of prt.frame, prt.seeds, prt.raygen, prt.trace and
+    prt.film_add), one trace launch a frame; then 8 more frames under
+    utils/profiling.trace: the device's busy and idle share of the
+    window, CUDA launches a frame, the three longest idle gaps and the
+    span each falls in, each span's idle and launched device ms a frame;
+    the film bit-equal to one rendered with the spans off;
 36. doctor: ``python -m parallelraytracing_tpu_torch.cli --doctor`` in a
     subprocess, every row ok and the exit code 0;
 37. native: the native helpers (native.py) built with g++ on the card's
@@ -2979,9 +2980,9 @@ def denoise_phase(png_dir) -> dict:
 #: the engine switch, the preview scale and the display cadence
 APP_REST, APP_ORBIT, APP_SWITCH = 32, 20, 8
 APP_PREVIEW, APP_DISPLAY_MS = 3, 250.0
-#: the host-stage phase (35): the stages of a fused frame, in call order
-HOST_STAGES = ("sample_key+frame_stream_seeds", "_pixel_seed", "raygen_ids",
-               "trace_tables", "add_sample_buffer")
+#: the host-stage phase (35): the program's spans of a fused frame
+FRAME_SPANS = ("prt.frame", "prt.seeds", "prt.raygen", "prt.trace",
+               "prt.film_add")
 
 
 def _http(url: str, body: bytes = None) -> bytes:
@@ -3188,40 +3189,15 @@ def _ring_means(state, n: int) -> dict:
             for k in ("render", "tonemap", "encode", "total")}
 
 
-def _replay_frame(r, f: int, timer, annotate=None):
-    """Frame f of fused renderer r, replaying progressive_render's calls in
-    order, each a FrameTimer stage (and, with `annotate`, a profiler span):
-    FusedRenderer._sample_rays, _trace_ids and progressive_render."""
-    from parallelraytracing_tpu_torch.engines.fused import raygen_ids
-    from parallelraytracing_tpu_torch.engines.tables import trace_tables
-    from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
-                                                       sample_key)
-    cfg = r.config
-    span = annotate or (lambda name: contextlib.nullcontext())
-    if cfg.samples_per_frame != 1 or cfg.firefly_clamp > 0.0:
-        raise ValueError("the replay covers 1 spp without the clamp")
-    with timer.stage(HOST_STAGES[0]), span(HOST_STAGES[0]):
-        jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, f, 0))
-    with timer.stage(HOST_STAGES[1]), span(HOST_STAGES[1]):
-        pix_seed = r._pixel_seed(jseed)
-    with timer.stage(HOST_STAGES[2]), span(HOST_STAGES[2]):
-        o, d = raygen_ids(r._cam_params, r._ids, pix_seed, cfg.width,
-                          cfg.height, cfg.jitter, cfg.lens, r._qpt(f, 0))
-    with timer.stage(HOST_STAGES[3]), span(HOST_STAGES[3]):
-        rad = trace_tables(r._tables, o, d, r._ids, s0, cfg)
-    with timer.stage(HOST_STAGES[4]), span(HOST_STAGES[4]):
-        r._film.add_sample_buffer(rad / cfg.samples_per_frame,
-                                  float(cfg.samples_per_frame))
-    r._frame_index = f + 1
-
-
 def host_stages_phase(png_dir) -> dict:
-    """Phase 35: the headline fused frame's host stages, host and device
-    ms each, and the device's idle share under the profiler."""
+    """Phase 35: the headline fused frame's stages, host and device ms of
+    each of the program's spans (a FrameTimer attached to them), and
+    under the profiler the device's idle share and each span's idle and
+    launched device time."""
     import torch
     from parallelraytracing_tpu_torch.ops.trace import trace
-    from parallelraytracing_tpu_torch.utils.profiling import (annotate,
-                                                              device_busy)
+    from parallelraytracing_tpu_torch.utils.profiling import (device_busy,
+                                                              record_into)
     from parallelraytracing_tpu_torch.utils.profiling import trace as ptrace
     from parallelraytracing_tpu_torch.utils.timing import FrameTimer
     r, film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
@@ -3230,51 +3206,63 @@ def host_stages_phase(png_dir) -> dict:
                                     max_depth=MAIN_DEPTH, jitter=True, seed=0)
     for _ in range(WARMUP):
         r.progressive_render()
-    for _ in range(WARMUP + TIMED):
+    for _ in range(WARMUP + 2 * TIMED):  # the spans off
         ref_r.progressive_render()
     torch.cuda.synchronize()
     timer = FrameTimer("cuda")
     trace.launches = 0
-    t0 = time.perf_counter()
-    for f in range(WARMUP, WARMUP + TIMED):
-        _replay_frame(r, f, timer)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+    record_into(timer)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(TIMED):
+            r.progressive_render()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+    finally:
+        record_into(None)
     launches = trace.launches
-    equal = _same_film(film, ref_film)
-    rows = {name: dict(host_ms=timer.mean(name) * 1e3,
-                       device_ms=timer.device_mean(name) * 1e3)
-            for name in HOST_STAGES}
-    host_sum = sum(x["host_ms"] for x in rows.values())
+    rows = {name: dict(host_ms=sec * 1e3 / TIMED, calls=calls / TIMED,
+                       device_ms=timer.device_mean(name) * calls / TIMED * 1e3)
+            for name, (sec, calls) in timer.totals().items()}
+    child_ms = sum(x["host_ms"] for name, x in rows.items()
+                   if name != "prt.frame")
     phase("host-stages", f"headline fused {MAIN_W}x{MAIN_H} depth "
-          f"{MAIN_DEPTH}, {TIMED} frames after {WARMUP} warm-up, the engine's "
-          f"calls replayed under FrameTimer: {wall_ms:.3f} ms a frame on the "
-          f"host clock (synchronised at the end), stages' host ms summed "
-          f"{host_sum:.3f}; trace launches {launches}; film bit-equal to "
-          f"progressive_render's: {equal}")
+          f"{MAIN_DEPTH}, {TIMED} frames after {WARMUP} warm-up through "
+          f"progressive_render, its spans recorded into FrameTimer: "
+          f"{wall_ms:.3f} ms a frame on the host clock (synchronised at the "
+          f"end), prt.frame's children {child_ms:.3f} ms of its "
+          f"{rows['prt.frame']['host_ms']:.3f}; trace launches {launches}")
     for name, x in rows.items():
-        phase("host-stages", f"  {name:<30} host {x['host_ms']:8.3f} ms   "
-              f"device {x['device_ms']:8.3f} ms")
-    if launches != TIMED or not equal:
-        raise AssertionError(f"host-stages: {launches} trace launches, film "
-                             f"equal {equal}")
-    del ref_r, ref_film
+        phase("host-stages", f"  {name:<14} host {x['host_ms']:8.3f} ms   "
+              f"device {x['device_ms']:8.3f} ms   ({x['calls']:g} a frame)")
+    if launches != TIMED or set(rows) != set(FRAME_SPANS):
+        raise AssertionError(f"host-stages: {launches} trace launches, "
+                             f"spans {sorted(rows)}")
 
     log_dir = Path(png_dir or tempfile.mkdtemp()) / "host_stages_trace"
     with ptrace(str(log_dir)) as path:
-        for f in range(WARMUP + TIMED, WARMUP + 2 * TIMED):
-            with annotate(f"frame {f}"):
-                _replay_frame(r, f, FrameTimer("cuda"), annotate)
+        for _ in range(TIMED):
+            r.progressive_render()
         torch.cuda.synchronize()
-    busy = device_busy(path, list(HOST_STAGES))
+    busy = device_busy(path, list(FRAME_SPANS))
     if png_dir is None:
         shutil.rmtree(log_dir.parent)
+    equal = _same_film(film, ref_film)
+    phase("host-stages", f"film after {TIMED} recorded and {TIMED} profiled "
+          f"frames bit-equal to one rendered with the spans off: {equal}")
+    del ref_r, ref_film
+    if not equal:
+        raise AssertionError("host-stages: the spans changed the film")
     gaps = busy["gaps"][:3]
+    spans = {name: dict(idle_ms=x["idle"] / 1e3 / TIMED,
+                        device_ms=x["device"] / 1e3 / TIMED)
+             for name, x in busy["spans"].items()}
     rec = dict(stages=rows, wall_ms_per_frame=wall_ms, trace_launches=launches,
                film_bit_equal=equal, window_ms=busy["window"] / 1e3,
                busy_ms=busy["busy"] / 1e3, busy_share=busy["busy_share"],
                idle_share=busy["idle_share"], device_kernels=busy["kernels"],
                cuda_launches_per_frame=busy["launches"] / TIMED,
+               spans_per_frame=spans,
                longest_gaps=[dict(ms=g["length"] / 1e3,
                                   at_ms=g["start"] / 1e3, stage=g["stage"])
                              for g in gaps])
@@ -3283,7 +3271,7 @@ def host_stages_phase(png_dir) -> dict:
               "idle share is not measured")
         rec["idle_share"] = None
         return rec
-    phase("host-stages", f"profiler over the same {TIMED} frames "
+    phase("host-stages", f"profiler over the next {TIMED} frames "
           f"(utils/profiling.trace): window {busy['window'] / 1e3:.3f} ms, "
           f"device busy {busy['busy'] / 1e3:.3f} ms = "
           f"{busy['busy_share']:.4f}, idle share {busy['idle_share']:.4f}; "
@@ -3291,6 +3279,9 @@ def host_stages_phase(png_dir) -> dict:
           f"{busy['launches'] / TIMED:.1f} CUDA launches a frame; longest "
           f"idle gaps: " + "; ".join(
               f"{g['length'] / 1e3:.3f} ms in {g['stage']}" for g in gaps))
+    for name, x in spans.items():
+        phase("host-stages", f"  {name:<14} idle {x['idle_ms']:8.3f} ms   "
+              f"launched device {x['device_ms']:8.3f} ms a frame")
     return rec
 
 

@@ -140,7 +140,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="load film state and continue accumulating")
     p.add_argument("--stats", action="store_true",
                    help="print each frame's host and device time and, at "
-                        "the end, the stage summary (utils/timing.py)")
+                        "the end, host and device ms of every span of the "
+                        "frame (prt.seeds, prt.raygen, prt.trace, "
+                        "prt.film_add, ...; utils/timing.py)")
     p.add_argument("--doctor", action="store_true",
                    help="probe torch, the card, nvcc, triton, the kernel "
                         "builds, the native helpers and every engine on "
@@ -161,6 +163,7 @@ def main(argv=None) -> int:
                                               ScenePreset, create_renderer)
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
         TRI_HEAVY, scene_triangles)
+    from parallelraytracing_tpu_torch.utils.profiling import record_into
     from parallelraytracing_tpu_torch.utils.timing import FrameTimer
 
     device = torch.device(args.device)
@@ -241,49 +244,57 @@ def main(argv=None) -> int:
           + f"device={device} ({name})")
 
     timer = FrameTimer(device)
-    t_all = time.perf_counter()
-    for i in range(args.frames):
-        with timer.stage("render"):
-            renderer.progressive_render()
-            sync()
-        if args.stats:
-            dev_ms = timer.device_last("render")
-            print(f"frame {start_frame + i:4d}  render "
-                  f"{timer.last('render') * 1e3:8.1f} ms"
-                  + ("" if dev_ms is None else f"  device {dev_ms * 1e3:8.3f} ms"))
-    total = time.perf_counter() - t_all
-    print(f"{args.frames} frames in {total:.2f}s "
-          f"({args.frames / total:.2f} fps, "
-          f"{film.sample_count} samples accumulated)")
+    if args.stats:  # every span of the program a stage of the timer
+        record_into(timer)
+    try:
+        t_all = time.perf_counter()
+        for i in range(args.frames):
+            with timer.stage("render"):
+                renderer.progressive_render()
+                sync()
+            if args.stats:
+                dev_ms = timer.device_last("render")
+                print(f"frame {start_frame + i:4d}  render "
+                      f"{timer.last('render') * 1e3:8.1f} ms"
+                      + ("" if dev_ms is None
+                         else f"  device {dev_ms * 1e3:8.3f} ms"))
+        total = time.perf_counter() - t_all
+        print(f"{args.frames} frames in {total:.2f}s "
+              f"({args.frames / total:.2f} fps, "
+              f"{film.sample_count} samples accumulated)")
 
-    renderer.gather_film()  # every rank: a collective under torchrun
-    if not writer:
+        renderer.gather_film()  # every rank: a collective under torchrun
+        if not writer:
+            if own_group:
+                dist.destroy_process_group()
+            return 0
+        with timer.stage("tonemap"):
+            if args.denoise > 0:
+                from parallelraytracing_tpu_torch.postfx.denoise import \
+                    save_denoised_png
+                save_denoised_png(args.out, film, scene.build(device),
+                                  renderer._cam_params, cfg,
+                                  iterations=args.denoise,
+                                  exposure=args.exposure, gamma=args.gamma)
+            else:
+                film.save_png(args.out, args.exposure, args.gamma)
+        print(f"wrote {args.out}"
+              + (f" (denoised x{args.denoise})" if args.denoise else ""))
+        if args.hdr_out:
+            film.save_pfm(args.hdr_out)
+            print(f"wrote linear HDR {args.hdr_out}")
+        if args.checkpoint:
+            film.save_checkpoint(args.checkpoint,
+                                 frame_index=start_frame + args.frames)
+            print(f"checkpointed film to {args.checkpoint}")
+        if args.stats:
+            print(timer.summary())
         if own_group:
             dist.destroy_process_group()
         return 0
-    with timer.stage("tonemap"):
-        if args.denoise > 0:
-            from parallelraytracing_tpu_torch.postfx.denoise import save_denoised_png
-            save_denoised_png(args.out, film, scene.build(device),
-                              renderer._cam_params, cfg,
-                              iterations=args.denoise,
-                              exposure=args.exposure, gamma=args.gamma)
-        else:
-            film.save_png(args.out, args.exposure, args.gamma)
-    print(f"wrote {args.out}"
-          + (f" (denoised x{args.denoise})" if args.denoise else ""))
-    if args.hdr_out:
-        film.save_pfm(args.hdr_out)
-        print(f"wrote linear HDR {args.hdr_out}")
-    if args.checkpoint:
-        film.save_checkpoint(args.checkpoint,
-                             frame_index=start_frame + args.frames)
-        print(f"checkpointed film to {args.checkpoint}")
-    if args.stats:
-        print(timer.summary())
-    if own_group:
-        dist.destroy_process_group()
-    return 0
+    finally:
+        if args.stats:
+            record_into(None)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from parallelraytracing_tpu_torch.utils.profiling import annotate
+
 
 def display_rgba(hdr: torch.Tensor, exposure: float = 1.0,
                  gamma: float = 2.2) -> torch.Tensor:
@@ -114,9 +116,10 @@ class Film:
     def clear(self) -> None:
         """Film::Clear (film.cu:25-35): drop the accumulation, keeping the
         storage layout (the progressive reset after a camera move)."""
-        self.accum = torch.zeros_like(self.accum)
-        self.weights = torch.zeros_like(self.weights)
-        self.sample_count = 0
+        with annotate("prt.film_clear"):
+            self.accum = torch.zeros_like(self.accum)
+            self.weights = torch.zeros_like(self.weights)
+            self.sample_count = 0
 
     def add_sample_buffer(self, rgb: torch.Tensor, weight: float = 1.0) -> None:
         """Accumulate one frame of per-pixel radiance: (H,W,3) or (H*W,3),
@@ -186,7 +189,8 @@ class Film:
         return display_rgba(self.hdr_average(), exposure, gamma)
 
     def display_numpy(self, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
-        return self.to_display(exposure, gamma).cpu().numpy()
+        with annotate("prt.display"):
+            return self.to_display(exposure, gamma).cpu().numpy()
 
     def save_png(self, path: str, exposure: float = 1.0, gamma: float = 2.2) -> None:
         from parallelraytracing_tpu_torch.utils.png import write_png

@@ -16,6 +16,7 @@ from parallelraytracing_tpu_torch.config import RenderConfig
 from parallelraytracing_tpu_torch.core.camera import Camera
 from parallelraytracing_tpu_torch.core.film import Film
 from parallelraytracing_tpu_torch.core.scene import Scene, SceneData
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
 class Renderer(abc.ABC):
@@ -81,8 +82,10 @@ class Renderer(abc.ABC):
 
     def set_camera(self, camera: Camera) -> None:
         """Renderer::SetCamera: upload the packed camera parameters."""
-        self._camera = camera
-        self._cam_params = torch.from_numpy(camera.ray_params()).to(self.device)
+        with annotate("prt.set_camera"):
+            self._camera = camera
+            self._cam_params = torch.from_numpy(
+                camera.ray_params()).to(self.device)
 
     def reset_progressive(self) -> None:
         """Restart the progressive sequence (called when the film is
@@ -94,12 +97,14 @@ class Renderer(abc.ABC):
         """Render one progressive pass and accumulate it into the film."""
         if self._film is None:
             raise RuntimeError("init() first")
-        cfg = self._config
-        rgb = self.render_sample_buffer(self._frame_index)
-        if cfg.firefly_clamp > 0.0:
-            rgb = torch.clamp_max(rgb, cfg.firefly_clamp)
-        self._film.add_sample_buffer(rgb, float(cfg.samples_per_frame))
-        self._frame_index += 1
+        with annotate("prt.frame"):
+            cfg = self._config
+            rgb = self.render_sample_buffer(self._frame_index)
+            with annotate("prt.film_add"):
+                if cfg.firefly_clamp > 0.0:
+                    rgb = torch.clamp_max(rgb, cfg.firefly_clamp)
+                self._film.add_sample_buffer(rgb, float(cfg.samples_per_frame))
+            self._frame_index += 1
 
     @abc.abstractmethod
     def render_sample_buffer(self, frame_index: int) -> torch.Tensor:

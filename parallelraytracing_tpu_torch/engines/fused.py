@@ -31,6 +31,7 @@ from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
 from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
                                                    generate_camera_rays_ids,
                                                    sample_key)
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
 def raygen_ids(cam_params, ids, jseed: int, width: int, height: int,
@@ -138,10 +139,12 @@ class FusedRenderer(Renderer):
         Halton point under the shared rotation seed; the path seed stays
         the frame's."""
         cfg = self.config
-        jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
-        o, d = raygen_ids(self._cam_params, ids, self._pixel_seed(jseed),
-                          cfg.width, cfg.height, cfg.jitter, cfg.lens,
-                          self._qpt(frame_index, s))
+        with annotate("prt.seeds"):
+            jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
+        with annotate("prt.raygen"):
+            o, d = raygen_ids(self._cam_params, ids, self._pixel_seed(jseed),
+                              cfg.width, cfg.height, cfg.jitter, cfg.lens,
+                              self._qpt(frame_index, s))
         return o, d, s0
 
     def _trace_ids(self, ids, frame_index: int) -> torch.Tensor:

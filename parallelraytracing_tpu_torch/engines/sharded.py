@@ -41,6 +41,7 @@ from parallelraytracing_tpu_torch.engines.base import register_engine
 from parallelraytracing_tpu_torch.engines.fused import (FusedRenderer,
                                                         morton_pixel_perm)
 from parallelraytracing_tpu_torch.ops.rays import sample_key
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
 @register_engine
@@ -143,7 +144,8 @@ class ShardedRenderer(FusedRenderer):
         cfg = self.config
         acc = None
         for s in range(cfg.samples_per_frame):
-            rad = self._frame(sample_key(cfg.seed, frame_index, s),
-                              self._qpt(frame_index, s))
+            with annotate("prt.seeds"):
+                key = sample_key(cfg.seed, frame_index, s)
+            rad = self._frame(key, self._qpt(frame_index, s))
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

@@ -25,6 +25,7 @@ import torch
 from parallelraytracing_tpu_torch.config import RenderConfig
 from parallelraytracing_tpu_torch.ops import pack
 from parallelraytracing_tpu_torch.ops.pack import SceneRecords, StreamTables
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,13 +181,15 @@ def trace_tables(t: SceneTables, o, d, pix, seed: int, cfg: RenderConfig,
     """ops.trace.trace with every table and flag taken from `t`; the
     probes as ``trace`` returns them."""
     from parallelraytracing_tpu_torch.ops.trace import trace
-    return trace(o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
-                 t.tri_cl, t.mats, max_depth=cfg.max_depth, t_min=cfg.t_min,
-                 t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-                 rr_depth=cfg.russian_roulette_depth, nee=t.nee,
-                 lights=t.lights, inst=t.inst, checker=t.checker, itex=t.itex,
-                 itex_tab=t.itex_tab, stream=t.stream, depth_out=depth_out,
-                 collect_stats=collect_stats, records=t.records)
+    with annotate("prt.trace"):
+        return trace(o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl,
+                     t.quad_cl, t.tri_cl, t.mats, max_depth=cfg.max_depth,
+                     t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
+                     tri_live=t.tri_live, rr_depth=cfg.russian_roulette_depth,
+                     nee=t.nee, lights=t.lights, inst=t.inst,
+                     checker=t.checker, itex=t.itex, itex_tab=t.itex_tab,
+                     stream=t.stream, depth_out=depth_out,
+                     collect_stats=collect_stats, records=t.records)
 
 
 def trace_launch(t: SceneTables, cfg: RenderConfig,

@@ -37,6 +37,7 @@ from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
 from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm, raygen_ids
 from parallelraytracing_tpu_torch.ops.rays import frame_stream_seeds, sample_key
 from parallelraytracing_tpu_torch.ops.segment import segment
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 SORT_MODES = ("octant", "origin", "")
 #: a scene of more triangles than this is triangle-heavy: the renderer's
@@ -126,18 +127,20 @@ def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
     depth0 = 0
     for s, n_bounces in enumerate(lens):
         last = s + 1 == len(lens)  # every path ends: no key, no next queue
-        state, ids, key, count = _run_segment(
-            tables, queue, count, rad, seed, depth0, n_bounces, cfg,
-            "" if last else sort_rays, seg_fn, out=b)
+        with annotate("prt.segment"):
+            state, ids, key, count = _run_segment(
+                tables, queue, count, rad, seed, depth0, n_bounces, cfg,
+                "" if last else sort_rays, seg_fn, out=b)
         depth0 += n_bounces
         if last:
             break
         if key is None:  # the next segment reads the pushed queue as it is
             a, b = (state, ids), (*a, None)
         else:
-            order = torch.argsort(key, stable=True)
-            torch.index_select(state, 1, order, out=a[0])
-            torch.index_select(ids, 0, order, out=a[1])
+            with annotate("prt.resort"):
+                order = torch.argsort(key, stable=True)
+                torch.index_select(state, 1, order, out=a[0])
+                torch.index_select(ids, 0, order, out=a[1])
         queue = a
     return rad
 
@@ -216,10 +219,14 @@ class WavefrontFusedRenderer(Renderer):
         cfg = self.config
         acc = None
         for s in range(cfg.samples_per_frame):
-            jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
-            o, d = raygen_ids(self._cam_params, self._ids,
-                              self._pixel_seed(jseed), cfg.width, cfg.height,
-                              cfg.jitter, cfg.lens, self._qpt(frame_index, s))
+            with annotate("prt.seeds"):
+                jseed, s0 = frame_stream_seeds(
+                    sample_key(cfg.seed, frame_index, s))
+            with annotate("prt.raygen"):
+                o, d = raygen_ids(self._cam_params, self._ids,
+                                  self._pixel_seed(jseed), cfg.width,
+                                  cfg.height, cfg.jitter, cfg.lens,
+                                  self._qpt(frame_index, s))
             rad = segmented_trace(self._tables, o, d, self._ids, s0, cfg,
                                   sort_rays=self.sort_rays,
                                   schedule=tuple(self._lens))

@@ -41,6 +41,7 @@ from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
                                                    generate_camera_rays_flat,
                                                    generate_camera_rays_ids,
                                                    qmc_rotation_seed)
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 #: the odd stride between the seeds of two sample streams (int32)
 SPP_STEP = 0x632BE5AB
@@ -138,9 +139,10 @@ def gather_film(film, mesh: RenderMesh) -> None:
     if mesh.shape["px"] == 1:
         return
     lo, hi = film.block
-    for buf in (film.accum, film.weights):
-        dist.all_gather(list(buf.chunk(mesh.shape["px"])), buf[lo:hi].clone(),
-                        group=mesh.px_group)
+    with annotate("prt.gather_film"):
+        for buf in (film.accum, film.weights):
+            dist.all_gather(list(buf.chunk(mesh.shape["px"])),
+                            buf[lo:hi].clone(), group=mesh.px_group)
 
 
 def render_frame_sharded(scene, cam_params: torch.Tensor, key, cfg,
@@ -209,15 +211,16 @@ def _sharded_pallas_frame(trace_block, cfg, mesh: RenderMesh, perm, inv,
     assert perm.shape == (n_px * blk,), (tuple(perm.shape), n_px * blk)
     # the seeds of the frame, the same on every rank: spp stream i offsets
     # them by i (_spp_stream_offset), px blocks share them
-    jseed0, seed0 = frame_stream_seeds(key)
-    if cfg.qmc:
-        # QMC: the frame-independent rotation seed of every engine (so the
-        # 1x1 mesh keeps the fused engine's bits) and this sample's Halton
-        # point; the path seed stays the frame's
-        if qpt is None:
-            raise ValueError("cfg.qmc requires this sample's Halton point "
-                             "(qpt) — see ops/rays.halton_qpt")
-        jseed0 = qmc_rotation_seed(cfg.seed)
+    with annotate("prt.seeds"):
+        jseed0, seed0 = frame_stream_seeds(key)
+        if cfg.qmc:
+            # QMC: the frame-independent rotation seed of every engine (so
+            # the 1x1 mesh keeps the fused engine's bits) and this sample's
+            # Halton point; the path seed stays the frame's
+            if qpt is None:
+                raise ValueError("cfg.qmc requires this sample's Halton "
+                                 "point (qpt) — see ops/rays.halton_qpt")
+            jseed0 = qmc_rotation_seed(cfg.seed)
     if n_px == 1 and n_spp == 1:
         out = trace_block(tables, cam_params, seed0, jseed0, perm, 0, qpt)
     else:
@@ -240,9 +243,10 @@ def _spp_stream_offset(seed0: int, jseed0: int, spp_i: int):
 
 
 def _stream_rays(cfg, cam, ids, jseed: int, qpt):
-    return generate_camera_rays_ids(cam, cfg.width, cfg.height, ids,
-                                    cfg.jitter, pix_seed=jseed, lens=cfg.lens,
-                                    qpt=qpt)
+    with annotate("prt.raygen"):
+        return generate_camera_rays_ids(cam, cfg.width, cfg.height, ids,
+                                        cfg.jitter, pix_seed=jseed,
+                                        lens=cfg.lens, qpt=qpt)
 
 
 def fused_block(cfg, tables, cam, seed0: int, jseed0: int, ids, spp_i: int,

@@ -8,7 +8,11 @@ Beyond the JAX timer, a timer made for a CUDA device also records each
 stage's device time: a pair of CUDA events recorded on the current stream
 around the stage, read only when a device time is asked for, so a stage
 never waits for the card.  On the CPU a stage has its host time only, and
-``summary()`` says so.
+``summary()`` says so.  Beside the rings it keeps each stage's running
+host total and call count (``totals``, ``take``), which no ring drops.
+
+Attached to the program's spans (``utils/profiling.record_into``), every
+span is a stage: the CLI's ``--stats`` times each stage of a frame so.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ class FrameTimer:
         self._dev: Dict[str, Deque[float]] = {}
         #: (name, start, end) event pairs not read yet, in record order
         self._pending: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+        #: name -> [host seconds, calls] since made or last taken
+        self._totals: Dict[str, List[float]] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -46,6 +52,9 @@ class FrameTimer:
             dt = time.perf_counter() - t0
             self._hist.setdefault(name, collections.deque(maxlen=HISTORY)) \
                 .append(dt)
+            total = self._totals.setdefault(name, [0.0, 0])
+            total[0] += dt
+            total[1] += 1
             if start is not None:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record(torch.cuda.current_stream(self.device))
@@ -64,6 +73,17 @@ class FrameTimer:
 
     def history(self, name: str):
         return list(self._hist.get(name, ()))
+
+    def totals(self) -> Dict[str, Tuple[float, int]]:
+        """{name: (host seconds, calls)} of every stage since the timer
+        was made or last taken."""
+        return {name: (t[0], t[1]) for name, t in self._totals.items()}
+
+    def take(self) -> Dict[str, Tuple[float, int]]:
+        """``totals()``, and start them again from zero."""
+        out = self.totals()
+        self._totals = {}
+        return out
 
     # ----------------------------------------------------------- device
     def _read_events(self) -> None:

@@ -1,15 +1,15 @@
 """The port's app layer against the JAX package's on the CPU: the orbit
-camera, ``Film.resize``, ``RenderConfig.replace``, the frame timer and the
-throughput meter, the profiler's trace, and the interactive viewer
-(``ViewerState`` and its HTTP routes).
+camera, ``Film.resize``, ``RenderConfig.replace``, the frame timer, the
+profiler's trace, and the interactive viewer (``ViewerState`` and its
+HTTP routes).
 
 Tolerances:
 - the camera: bit-equal vectors, view-projection matrix and host rays
   after the same calls (both packages compute the same float64 numpy
   steps), with and without smoothing;
-- ``FrameTimer`` and ``ThroughputMeter`` under one patched clock: the
-  same histories, means and rates exactly; the port's CPU summary is the
-  JAX summary plus one line that says the device time was not recorded;
+- ``FrameTimer`` under one patched clock: the same histories and means
+  exactly; the port's CPU summary is the JAX summary plus one line that
+  says the device time was not recorded;
 - ``ViewerState`` with the megakernel engine on MATERIAL_TEST at 16x8,
   depth 2, preview scale 1, display interval 0: after the same control
   messages and steps, the same camera bit for bit and the films bit-equal
@@ -37,7 +37,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import parallelraytracing_tpu as J  # noqa: E402
 from parallelraytracing_tpu.core.camera import Camera as JCamera  # noqa: E402
-from parallelraytracing_tpu.utils import profiling as jprof  # noqa: E402
 from parallelraytracing_tpu.utils import timing as jtiming  # noqa: E402
 from parallelraytracing_tpu.viewer import app as japp  # noqa: E402
 
@@ -166,20 +165,6 @@ def test_frame_timer_matches_jax(monkeypatch):
     assert len(tt.history("render")) == ttiming.HISTORY == 100
     assert tt.device_history("render") is None and tt.device_mean("render") is None
     assert tt.summary() == jt.summary() + "\n(host time only: no CUDA device)"
-
-
-def test_throughput_meter_matches_jax(monkeypatch):
-    meters = []
-    for mod in (jprof, tprof):
-        monkeypatch.setattr(time, "perf_counter", _Clock())
-        m = mod.ThroughputMeter(window=5)
-        rates = []
-        for i in range(9):
-            m.tick(1000.0 * (i + 1))
-            rates.append((m.fps, m.mrays_per_sec))
-        meters.append(rates)
-    assert meters[0] == meters[1]
-    assert jprof.rays_per_second(3e6, 0.02) == tprof.rays_per_second(3e6, 0.02)
 
 
 def test_profiler_trace_has_annotation(tmp_path):
