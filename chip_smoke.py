@@ -34,8 +34,8 @@ each line tagged with its seconds (any failure raises and exits
 non-zero):
 
 1. probe: the card, its power limit, the torch and CUDA versions;
-2. build: the trace, segment, probe and micro kernels from csrc/ with
-   nvcc (sm_90a), one nvcc each, started together; ptxas registers,
+2. build: the trace, segment, probe, micro and raygen kernels from
+   csrc/ with nvcc (sm_90a), one nvcc each, started together; ptxas registers,
    stack frame, spill stores and shared memory of each of the 48
    instantiations of the first three (without triangles, with the dense
    triangle fold or the stream route's walk, with and without NEE,
@@ -50,8 +50,9 @@ non-zero):
    main-path frame at 1920x1080, timed both ways;
 4. main path: FusedRenderer from create_renderer("fused"), 2 warm-up
    frames, then >= 8 frames timed with CUDA events; the kernel's launch
-   count over those frames, a finite film that is neither black nor
-   sky, and a PNG;
+   count over those frames, the raygen kernel's (exactly one a frame,
+   no plain chain), a finite film that is neither black nor sky, and a
+   PNG;
 5. mesh, kernels vs plain at 320x180: the trace kernel (depth 1 without
    jitter, and depth 20 with jitter over 4 frames, with the bounds of
    phase 3); the segment kernel (one 2-bounce segment from the camera
@@ -292,7 +293,16 @@ non-zero):
     the mean of sample streams 0 and 1 traced one by one on the 1x1
     path; each rank's ms a frame, the film gather's and the spp
     all-reduce's ms.  Two ranks on one card measure gloo's staging
-    through the host, not scaling.
+    through the host, not scaling;
+39. raygen: the raygen kernel (csrc/raygen.cu, what
+    ops/rays.generate_camera_rays_ids launches on CUDA tensors) against
+    its plain chain on the card, o and d held equal with torch.equal:
+    the headline's 1080p Morton ids with jitter, 360p after a yaw, no
+    jitter, QMC, the thin lens (with QMC, and its center), and the last
+    px block of the sharded engine's slots at 7 blocks (ids past H*W);
+    then on the headline's ids the kernel's device time a launch (the
+    profiler), its wrapper's and the chain's time a call, and the
+    kernel's bound, 28 bytes a ray at the measured read rate.
 
 The second-to-last lines are the card's `nvidia-smi` name and power limit
 and a JSON record of each kernel (its launches counted over its main
@@ -304,7 +314,9 @@ the instanced ones), of each kernel's scene-extension
 instantiations ("trace[ext]", "segment[ext]": T1-T3) and of its stream
 instantiations ("trace[stream]", "segment[stream]": phases 20-22), of
 the probe kernel ("trace[probe]": phases 23-24) and of the micro
-("fp32_peak": phase 25); each trace entry names the launch of its
+("fp32_peak": phase 25) and of the raygen kernel ("raygen": phase 39's
+times and cases, its launches over phase 4's and each timed path's
+frames); each trace entry names the launch of its
 scene's instantiation ("launch": grid, block, registers, local and
 shared memory, whether tables were staged in shared memory; likewise
 each segment entry), the trace and segment entries list all 48
@@ -349,6 +361,7 @@ SEG_REPLACES = "parallelraytracing_tpu/ops/pallas_trace.py:3476"
 PROBE_SOURCE = "parallelraytracing_tpu_torch/csrc/probe.cu"
 MICRO_SOURCE = "parallelraytracing_tpu_torch/csrc/micro.cu"
 MICRO_REPLACES = "benchmarks/micro.py:30"
+RAYGEN_SOURCE = "parallelraytracing_tpu_torch/csrc/raygen.cu"
 #: depth-1 agreement: per-ray tolerance, and the share of rays within it
 RAY_ATOL, RAY_SHARE = 1e-5, 0.999
 #: depth-20 agreement: HDR RMSE bound between kernel and plain films
@@ -1058,6 +1071,7 @@ def timed_path(r, film, tag: str, png_dir) -> dict:
     import torch
     from parallelraytracing_tpu_torch.engines.wavefront_fused import \
         count_frame_rays
+    from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays_ids
     from parallelraytracing_tpu_torch.ops.segment import segment
     from parallelraytracing_tpu_torch.ops.trace import trace
     rays = count_frame_rays(r._tables, *frame_inputs(r, 0), r.config)
@@ -1066,8 +1080,10 @@ def timed_path(r, film, tag: str, png_dir) -> dict:
     torch.cuda.synchronize()
     trace.launches = 0
     segment.launches = 0
+    generate_camera_rays_ids.launches = 0
     ms = cuda_ms(r.progressive_render, TIMED)
-    launches = dict(trace=trace.launches, segment=segment.launches)
+    launches = dict(trace=trace.launches, segment=segment.launches,
+                    raygen=generate_camera_rays_ids.launches)
     cfg = r.config
     samples = cfg.width * cfg.height * cfg.samples_per_frame
     wavefront = r.name == "wavefront_fused"
@@ -3687,6 +3703,114 @@ def sharded_phase() -> dict:
     return rec
 
 
+#: phase 39: the raygen kernel's cases at the main paths' shapes, (name,
+#: width, height, yaw in degrees, jitter, lens, QMC, ids): "morton" the
+#: fused engines' ids, "px_block" the last of RAYGEN_PX blocks of the
+#: sharded engine's slots (Morton ids, then ids past H*W), timed reps
+RAYGEN_LENS = (LENS_RADIUS, FOCUS_DISTANCE)
+RAYGEN_CASES = (
+    ("headline", MAIN_W, MAIN_H, 0.0, True, None, False, "morton"),
+    ("orbit_360p_yaw", 640, 360, 0.75, True, None, False, "morton"),
+    ("no_jitter", MAIN_W, MAIN_H, 0.0, False, None, False, "morton"),
+    ("qmc", MAIN_W, MAIN_H, 0.0, True, None, True, "morton"),
+    ("lens", MAIN_W, MAIN_H, 0.0, True, RAYGEN_LENS, False, "morton"),
+    ("lens_qmc", MAIN_W, MAIN_H, 0.0, True, RAYGEN_LENS, True, "morton"),
+    ("lens_center", MAIN_W, MAIN_H, 0.0, False, RAYGEN_LENS, False,
+     "morton"),
+    ("sharded_px_block", MAIN_W, MAIN_H, 0.0, True, None, False,
+     "px_block"),
+)
+RAYGEN_PX, RAYGEN_REPS = 7, 20
+#: bytes a camera ray moves through the raygen kernel: its pixel id read,
+#: o and d written
+RAYGEN_RAY_BYTES = 4 + 24
+
+
+def raygen_phase(peaks) -> dict:
+    """Phase 39: the raygen kernel (ops/rays.generate_camera_rays_ids on
+    CUDA tensors, csrc/raygen.cu) against its plain chain
+    (generate_camera_rays_ids_reference) on the card, o and d held equal
+    with torch.equal for every case of RAYGEN_CASES; then both timed on
+    the headline case: the kernel's device ms a launch under the profiler
+    (RAYGEN_REPS launches), the wrapper's and the chain's ms a call by
+    CUDA events (the host's rate: RAYGEN_REPS calls, 3 chains), beside
+    the kernel's bytes bound at the measured read rate and at 3.35 TB/s.
+    Raises on a miss; returns the record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from parallelraytracing_tpu_torch import Camera
+    from parallelraytracing_tpu_torch.benchmarks.roofline import PEAK_BYTES
+    from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm
+    from parallelraytracing_tpu_torch.ops import rays
+    seed = 0xC0FFEE42  # a pixel seed above 2**31
+    gen = rays.generate_camera_rays_ids
+    cases, timed = {}, {}
+    for name, w, h, yaw, jitter, lens, qmc, ids in RAYGEN_CASES:
+        eye, look = np.array([5.0, 5.0, 8.0]), np.zeros(3)
+        a = np.radians(yaw)
+        rot = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                        [-np.sin(a), 0.0, np.cos(a)]])
+        cam = torch.from_numpy(Camera(eye, rot @ (look - eye), float(w),
+                                      float(h), 100.0).ray_params()).cuda()
+        slots = morton_pixel_perm(w, h)[0]
+        if ids == "px_block":
+            blk = -(-w * h // RAYGEN_PX)  # sharding.shard_block_size
+            slots = np.concatenate([slots, np.arange(w * h, RAYGEN_PX * blk)])
+            slots = slots[(RAYGEN_PX - 1) * blk:]
+        idx = torch.from_numpy(slots.astype(np.int32)).cuda()
+        args = (cam, w, h, idx, jitter, seed if jitter or qmc else None,
+                lens, rays.halton_qpt(5) if qmc else None)
+        launches, plain = gen.launches, gen.plain
+        o, d = gen(*args)
+        if gen.launches != launches + 1 or gen.plain != plain:
+            raise AssertionError(f"raygen {name}: {gen.launches - launches} "
+                                 f"launches, {gen.plain - plain} plain")
+        ro, rd = rays.generate_camera_rays_ids_reference(*args)
+        bad = int(((o != ro).any(1) | (d != rd).any(1)).sum())
+        cases[name] = dict(rays=int(idx.numel()), rays_differ=bad,
+                           past_hw=int((idx >= w * h).sum()))
+        if name == "headline":
+            timed = dict(args=args, rays=int(idx.numel()))
+    phase("raygen-vs-plain", "o and d against the plain chain on the card "
+          "(rays differing of rays): " + ", ".join(
+              f"{k} {v['rays_differ']} of {v['rays']}"
+              + (f" ({v['past_hw']} past H*W)" if v["past_hw"] else "")
+              for k, v in cases.items()))
+    if any(v["rays_differ"] for v in cases.values()):
+        raise AssertionError(f"raygen kernel differs from the chain: {cases}")
+    args, n = timed["args"], timed["rays"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(RAYGEN_REPS):
+            gen(*args)
+        torch.cuda.synchronize()
+    # the profiler may miss the first launches after it starts (16 of 20
+    # seen on the H100): the mean is over the launches it recorded
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if "raygen_kernel" in e.name]
+    if not us:
+        raise AssertionError(f"the profiler saw no raygen kernel of "
+                             f"{RAYGEN_REPS} launches")
+    ms = sum(us) / len(us) / 1e3
+    call_ms = cuda_ms(lambda: gen(*args), RAYGEN_REPS)
+    plain_ms = cuda_ms(lambda: rays.generate_camera_rays_ids_reference(
+        *args), 3)
+    nbytes = RAYGEN_RAY_BYTES * n
+    bound_ms = nbytes / peaks["bytes"] * 1e3
+    sheet_ms = nbytes / PEAK_BYTES * 1e3
+    phase("raygen", f"headline {MAIN_W}x{MAIN_H} with jitter, {n} rays: "
+          f"kernel {ms * 1e3:.1f} us of device a launch (the mean of "
+          f"{len(us)} the profiler recorded; {call_ms:.3f} ms "
+          f"a call of its wrapper), plain chain {plain_ms:.3f} ms a call; "
+          f"bound "
+          f"{bound_ms * 1e3:.1f} us ({RAYGEN_RAY_BYTES} B a ray at the "
+          f"measured read rate; {sheet_ms * 1e3:.1f} us at the data "
+          f"sheet's), share {bound_ms / ms:.1%}")
+    return dict(cases=cases, ms=ms, profiled=len(us), call_ms=call_ms,
+                plain_ms=plain_ms,
+                bound_ms=bound_ms, datasheet_bound_ms=sheet_ms, bytes=nbytes,
+                rays=n)
+
+
 def _seconds(fn):
     """(fn(), its host seconds)."""
     t0 = time.perf_counter()
@@ -3714,6 +3838,7 @@ def main(argv=None) -> int:
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
         count_frame_rays, segmented_trace)
     from parallelraytracing_tpu_torch.ops import _build
+    from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays_ids
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
 
@@ -3789,15 +3914,23 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     trace.launches = 0
     segment.launches = 0
+    generate_camera_rays_ids.launches = generate_camera_rays_ids.plain = 0
     frame_ms = cuda_ms(main_r.progressive_render, TIMED)
     launches = trace.launches
+    raygen_launches = (generate_camera_rays_ids.launches,
+                       generate_camera_rays_ids.plain)
     samples = MAIN_W * MAIN_H * main_r.config.samples_per_frame
     phase("main-path", f"fused {MAIN_W}x{MAIN_H} depth {MAIN_DEPTH}: "
           f"{frame_ms:.3f} ms/frame, {samples / frame_ms / 1e3:.3f} "
-          f"Msamples/s over {TIMED} frames; trace launches {launches}")
+          f"Msamples/s over {TIMED} frames; trace launches {launches}; "
+          f"raygen launches {raygen_launches[0]}, plain chains "
+          f"{raygen_launches[1]}")
     if launches < TIMED or segment.launches:
         raise AssertionError(f"{launches} trace launches in {TIMED} frames, "
                              f"{segment.launches} segment launches")
+    if raygen_launches != (TIMED, 0):
+        raise AssertionError(f"raygen (launches, plain chains) "
+                             f"{raygen_launches} in {TIMED} frames")
     phase("main-path", check_film(main_film, main_r._tables.sky,
                                   "random_balls_large", args.png_dir))
     # 23. the probes on the headline
@@ -4064,6 +4197,10 @@ def main(argv=None) -> int:
     # ranks on the card over gloo
     shard_rec = sharded_phase()
 
+    # 39. the raygen kernel against its plain chain at the main paths'
+    # shapes
+    raygen_rec = raygen_phase(mic["peaks"])
+
     print(smi)
     print(json.dumps({"lbvh_engines": lbvh_rec}))
     print(json.dumps({"app": app_rec}))
@@ -4220,7 +4357,31 @@ def main(argv=None) -> int:
                  f"(ms, plain_ms); bound_ms its operations at the data "
                  f"sheet's 67 TFLOP/s, a multiply-add as 2; launches over "
                  f"phase 25's timed runs (both mixes, warm-up included); "
-                 f"library_ms null: no PyTorch call computes it"}]}))
+                 f"library_ms null: no PyTorch call computes it"},
+        {"name": "raygen", "route": "cuda", "source": RAYGEN_SOURCE,
+         "replaces": None, "launches": raygen_launches[0],
+         "plain_launches": raygen_launches[1], "max_abs_err": 0.0,
+         "ms": raygen_rec["ms"], "call_ms": raygen_rec["call_ms"],
+         "plain_ms": raygen_rec["plain_ms"],
+         "bound_ms": raygen_rec["bound_ms"], "bound_by": "bytes",
+         "datasheet_bound_ms": raygen_rec["datasheet_bound_ms"],
+         "library_ms": None, "cases": raygen_rec["cases"],
+         "paths": {k: v["launches"]["raygen"] for k, v in paths.items()},
+         "size": f"ms, call_ms, plain_ms: the headline's "
+                 f"{raygen_rec['rays']} Morton ids at {MAIN_W}x{MAIN_H} with "
+                 f"jitter: ms the kernel's device time a launch (profiler, "
+                 f"mean of the {raygen_rec['profiled']} of {RAYGEN_REPS} "
+                 f"launches it recorded), call_ms its wrapper's and "
+                 f"plain_ms the plain chain's time a call by CUDA events "
+                 f"(host-bound; {RAYGEN_REPS} calls, 3 chains); launches, "
+                 f"plain_launches: phase 4's {TIMED} timed frames; paths: "
+                 f"launches over each timed path's {TIMED} frames; bound_ms "
+                 f"{RAYGEN_RAY_BYTES} B a ray (the id read, o and d "
+                 f"written) at the measured read rate; max_abs_err 0: every "
+                 f"case of phase 39 held to the plain chain with "
+                 f"torch.equal; replaces null: no TPU kernel (the JAX "
+                 f"package's raygen is XLA); library_ms null: no single "
+                 f"PyTorch call computes it"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

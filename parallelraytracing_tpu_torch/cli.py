@@ -142,7 +142,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="print each frame's host and device time and, at "
                         "the end, host and device ms of every span of the "
                         "frame (prt.seeds, prt.raygen, prt.trace, "
-                        "prt.film_add, ...; utils/timing.py)")
+                        "prt.film_add, ...; utils/timing.py) and which "
+                        "raygen ran: kernel launches and plain-chain calls")
     p.add_argument("--doctor", action="store_true",
                    help="probe torch, the card, nvcc, triton, the kernel "
                         "builds, the native helpers and every engine on "
@@ -163,6 +164,7 @@ def main(argv=None) -> int:
                                               ScenePreset, create_renderer)
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
         TRI_HEAVY, scene_triangles)
+    from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays_ids
     from parallelraytracing_tpu_torch.utils.profiling import record_into
     from parallelraytracing_tpu_torch.utils.timing import FrameTimer
 
@@ -246,6 +248,8 @@ def main(argv=None) -> int:
     timer = FrameTimer(device)
     if args.stats:  # every span of the program a stage of the timer
         record_into(timer)
+    raygen_before = (generate_camera_rays_ids.launches,
+                     generate_camera_rays_ids.plain)
     try:
         t_all = time.perf_counter()
         for i in range(args.frames):
@@ -289,6 +293,9 @@ def main(argv=None) -> int:
             print(f"checkpointed film to {args.checkpoint}")
         if args.stats:
             print(timer.summary())
+            print(f"raygen: {generate_camera_rays_ids.launches - raygen_before[0]}"
+                  f" kernel launches, "
+                  f"{generate_camera_rays_ids.plain - raygen_before[1]} plain")
         if own_group:
             dist.destroy_process_group()
         return 0

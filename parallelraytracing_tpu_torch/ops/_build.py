@@ -90,6 +90,12 @@ SIGNATURES = {
         I, P,                  # device, stream
         P, P, I, I, I,         # x, out, n, loops, mix
     ]),
+    "raygen": ("prt_raygen_launch", [
+        I, P,                  # device, stream
+        P, P, P, P, I,         # cam, idx, o, d, n_rays
+        I, U, I,               # width, pixel seed, flags
+        ctypes.POINTER(F),     # ops/rays.kernel_constants
+    ]),
 }
 
 #: the fields of a persistent kernel's launch query (``launch_config``),
@@ -98,7 +104,7 @@ LAUNCH_INFO = ("grid", "threads", "blocks_per_sm", "registers",
                "local_bytes", "static_smem", "dynamic_smem", "sms")
 
 #: every kernel library, in the order chip_smoke.py's build phase lists them
-LIBRARIES = ("trace", "segment", "probe", "micro")
+LIBRARIES = ("trace", "segment", "probe", "micro", "raygen")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 

@@ -9,10 +9,20 @@ thin lens (defocus blur, ``apply_thin_lens``, its aperture drawn from
 salts 103/104) and QMC sampling (each pixel's draws rotate the sample's
 shared 4D Halton point, ``halton_qpt``, by the pixel's own uniforms under
 the frame-independent ``qmc_rotation_seed``).
+
+The pixel-keyed route has two versions of one signature:
+``generate_camera_rays_ids`` dispatches by device: on CUDA tensors one
+launch of the hand-written kernel ``csrc/raygen.cu`` (counted on
+``generate_camera_rays_ids.launches``), on CPU tensors the plain chain
+``generate_camera_rays_ids_reference`` (counted on ``.plain``), which is
+also the kernel's reference on the card.  The threefry key-drawn routes
+of ``generate_camera_rays_flat`` and ``generate_camera_rays`` stay plain
+PyTorch on every device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Tuple
 
@@ -24,6 +34,8 @@ from parallelraytracing_tpu_torch.ops import ieee, rng
 TAN_FOVY = math.tan(0.5)
 #: float32 2 pi of the lens's polar sample
 _TWO_PI32 = float(np.float32(2.0 * math.pi))
+#: the lower clamp of cos(d, front) in the thin lens's focal distance
+_MIN_COS = 1e-6
 
 
 def frame_stream_seeds(skey) -> Tuple[int, int]:
@@ -109,7 +121,8 @@ def apply_thin_lens(o, d, cam_params, lens, u1, u2):
     lx = r * ieee.cos(theta)
     ly = r * ieee.sin(theta)
     t_f = fdist / torch.clamp_min(
-        d[:, 0] * front[0] + d[:, 1] * front[1] + d[:, 2] * front[2], 1e-6)
+        d[:, 0] * front[0] + d[:, 1] * front[1] + d[:, 2] * front[2],
+        _MIN_COS)
     p = o + d * t_f[:, None]
     o2 = o + lx[:, None] * right + ly[:, None] * up
     return o2, _normalize(p - o2)
@@ -150,6 +163,13 @@ def _camera_rays(cam_params, width: int, height: int, idx, jxy, lens, lens_u):
     return o, d
 
 
+def _check_draws(jitter: bool, pix_seed, qpt) -> None:
+    if jitter and pix_seed is None:
+        raise ValueError("jittered raygen needs pix_seed")
+    if qpt is not None and pix_seed is None:
+        raise ValueError("QMC raygen (qpt) needs pix_seed")
+
+
 def generate_camera_rays_ids(cam_params: torch.Tensor, width: int,
                              height: int, idx: torch.Tensor,
                              jitter: bool = True, pix_seed=None,
@@ -165,11 +185,31 @@ def generate_camera_rays_ids(cam_params: torch.Tensor, width: int,
     salts 103/104 (the lens center without a pix_seed).  qpt, the (4,)
     Halton point of ``halton_qpt`` (QMC sampling, with pix_seed the
     ``qmc_rotation_seed``), rotates each pixel's jitter and aperture
-    draws by it."""
-    if jitter and pix_seed is None:
-        raise ValueError("jittered raygen needs pix_seed")
-    if qpt is not None and pix_seed is None:
-        raise ValueError("QMC raygen (qpt) needs pix_seed")
+    draws by it.
+
+    On CUDA tensors one launch of csrc/raygen.cu (``.launches``), bit for
+    bit the plain chain's rays on the card; on CPU tensors the plain chain
+    (``.plain``)."""
+    _check_draws(jitter, pix_seed, qpt)
+    if idx.device.type == "cpu":
+        generate_camera_rays_ids.plain += 1
+        return generate_camera_rays_ids_reference(
+            cam_params, width, height, idx, jitter, pix_seed, lens, qpt)
+    return _raygen_kernel(cam_params, width, height, idx, jitter, pix_seed,
+                          lens, qpt)
+
+
+generate_camera_rays_ids.launches = 0
+generate_camera_rays_ids.plain = 0
+
+
+def generate_camera_rays_ids_reference(cam_params: torch.Tensor, width: int,
+                                       height: int, idx: torch.Tensor,
+                                       jitter: bool = True, pix_seed=None,
+                                       lens=None, qpt=None):
+    """``generate_camera_rays_ids`` as a chain of PyTorch operations on
+    any device: the CPU's raygen and the kernel's reference."""
+    _check_draws(jitter, pix_seed, qpt)
     qpt = None if qpt is None else [float(x) for x in np.asarray(qpt,
                                                                  np.float32)]
     jxy = lens_u = None
@@ -182,6 +222,58 @@ def generate_camera_rays_ids(cam_params: torch.Tensor, width: int,
         if qpt is not None:
             lens_u = _rot(lens_u[0], qpt[2]), _rot(lens_u[1], qpt[3])
     return _camera_rays(cam_params, width, height, idx, jxy, lens, lens_u)
+
+
+#: the kernel's draw and camera flags (csrc/raygen.cu)
+_JITTER, _QMC, _LENS, _LENS_DRAW = 1, 2, 4, 8
+
+
+def kernel_constants(width: int, height: int, lens=None,
+                     qpt=None) -> np.ndarray:
+    """The (9,) float32 scalars of a launch that depend on its inputs,
+    each the float32 that ATen forms on the card from the plain chain's
+    Python scalar: 1 / width and 1 / height (a CUDA tensor over a Python
+    number is a multiply by the float32 reciprocal), width / height *
+    tan(1/2), the Halton point (zeros without QMC), the lens's radius and
+    focus distance (zeros without a lens).  The fixed ones (TAN_FOVY,
+    _TWO_PI32, _MIN_COS) are constants of csrc/raygen.cu."""
+    one = np.float32(1.0)
+    q = np.zeros(4, np.float32) if qpt is None else np.asarray(qpt,
+                                                               np.float32)
+    radius, fdist = (0.0, 0.0) if lens is None else lens
+    return np.array([one / np.float32(width), one / np.float32(height),
+                     width / height * TAN_FOVY, *q, radius, fdist],
+                    np.float32)
+
+
+def _raygen_kernel(cam_params, width: int, height: int, idx, jitter: bool,
+                   pix_seed, lens, qpt):
+    """One launch of csrc/raygen.cu over `idx` on PyTorch's current
+    stream."""
+    from parallelraytracing_tpu_torch.ops import _build
+    from parallelraytracing_tpu_torch.ops.trace import check_tensors, stream_of
+    r = int(idx.shape[0])
+    check_tensors(idx.device, {"cam_params": cam_params},
+                  {"idx": (idx, (r,))})
+    if cam_params.numel() < 12:
+        raise ValueError(f"cam_params has {cam_params.numel()} values; want "
+                         f"Camera.ray_params()'s position, right, up, front")
+    lens_on = lens is not None and lens[0] > 0.0
+    flags = ((_JITTER if jitter else 0) | (_QMC if qpt is not None else 0)
+             | (_LENS if lens_on else 0)
+             | (_LENS_DRAW if lens_on and pix_seed is not None else 0))
+    consts = kernel_constants(width, height, lens if lens_on else None, qpt)
+    o = torch.empty((r, 3), dtype=torch.float32, device=idx.device)
+    d = torch.empty((r, 3), dtype=torch.float32, device=idx.device)
+    ptr = torch.Tensor.data_ptr
+    err = _build.load("raygen")(
+        *stream_of(idx.device), ptr(cam_params), ptr(idx), ptr(o), ptr(d), r,
+        int(width), 0 if pix_seed is None else int(pix_seed) & rng.MASK32,
+        flags, consts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    if err != 0:
+        raise RuntimeError(f"raygen kernel launch failed: cudaError_t {err}")
+    generate_camera_rays_ids.launches += 1
+    return o, d
 
 
 def generate_camera_rays_flat(cam_params: torch.Tensor, width: int,

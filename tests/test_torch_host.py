@@ -175,12 +175,16 @@ def test_kernel_cache_key_covers_included_headers():
 def test_probe_and_micro_libraries():
     """The probe kernel builds from its own source and the shared bounce
     (so the trace library keeps its instantiations), the micro from its
-    source alone; chip_smoke.py's build phase builds all four."""
+    source alone, the raygen from its source and the bounce's PCG;
+    chip_smoke.py's build phase builds all five."""
     from parallelraytracing_tpu_torch.ops import _build
     assert [p.name for p in _build.sources("probe")] == ["probe.cu",
                                                           "bounce.cuh"]
     assert [p.name for p in _build.sources("micro")] == ["micro.cu"]
-    assert _build.LIBRARIES == ("trace", "segment", "probe", "micro")
+    assert [p.name for p in _build.sources("raygen")] == ["raygen.cu",
+                                                           "bounce.cuh"]
+    assert _build.LIBRARIES == ("trace", "segment", "probe", "micro",
+                                "raygen")
     assert set(_build.SIGNATURES) == set(_build.LIBRARIES)
     assert _build.SCENE in _build.SIGNATURES["probe"][1]
     assert _build.SCENE not in _build.SIGNATURES["micro"][1]
