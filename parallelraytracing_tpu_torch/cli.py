@@ -5,7 +5,9 @@ JAX package's showcase scene, and writes a PNG (plus optional linear PFM
 and film checkpoint).  ``--engine auto`` picks wavefront_fused for a scene
 of more than 512 triangles and fused otherwise, as the JAX CLI does on a
 TPU.  A mesh of more than 24,576 triangles renders through the stream
-route (ops/pack.py); the header line then names its chunk.  ``megakernel``
+route (ops/pack.py); the header line then names its chunk, and
+``--stats`` prints its tables' counters (triangles, chunks, slots,
+top-tree nodes, mini-tree columns, bytes).  ``megakernel``
 is the reference engine (plain PyTorch, brute force: slow, for small
 frames and as the oracle); ``bvh``, ``wavefront``, ``wavefront_bvh`` and
 ``tlas_ref`` are its plain PyTorch siblings over the LBVH walk, a
@@ -46,6 +48,8 @@ import os
 import sys
 import time
 
+#: the spans of a renderer's set-up that ``--stats`` prints in seconds
+SETUP_SPANS = ("prt.build_tables", "prt.pack_stream")
 #: engines of this port; "auto" picks by the scene's triangle count
 ENGINE_CHOICES = ("auto", "fused", "wavefront_fused", "tlas", "megakernel",
                   "adaptive", "bvh", "wavefront", "wavefront_bvh", "tlas_ref",
@@ -143,7 +147,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "the end, host and device ms of every span of the "
                         "frame (prt.seeds, prt.raygen, prt.trace, "
                         "prt.film_add, ...; utils/timing.py) and which "
-                        "raygen ran: kernel launches and plain-chain calls")
+                        "raygen ran: kernel launches and plain-chain calls; "
+                        "before the frames, the set-up's spans "
+                        "(prt.build_tables, prt.pack_stream) in seconds "
+                        "and, on the stream route, its tables' counters")
     p.add_argument("--doctor", action="store_true",
                    help="probe torch, the card, nvcc, triton, the kernel "
                         "builds, the native helpers and every engine on "
@@ -162,6 +169,7 @@ def main(argv=None) -> int:
 
     from parallelraytracing_tpu_torch import (Camera, Film, RenderConfig, Scene,
                                               ScenePreset, create_renderer)
+    from parallelraytracing_tpu_torch.engines.tables import stream_counters
     from parallelraytracing_tpu_torch.engines.wavefront_fused import (
         TRI_HEAVY, scene_triangles)
     from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays_ids
@@ -228,8 +236,15 @@ def main(argv=None) -> int:
         film = Film(args.width, args.height, device)
         start_frame = 0
 
+    timer = FrameTimer(device)
+    if args.stats:  # every span of the program a stage of the timer
+        record_into(timer)
     renderer = create_renderer(engine, device)
-    renderer.init(film, scene, cam, cfg)
+    try:
+        renderer.init(film, scene, cam, cfg)
+    except BaseException:
+        record_into(None)
+        raise
     renderer._frame_index = start_frame
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     # the kernels' engines hold packed tables; the megakernel its lights
@@ -245,9 +260,15 @@ def main(argv=None) -> int:
           + (f"stream_chunk={stream.chunk} " if stream is not None else "")
           + f"device={device} ({name})")
 
-    timer = FrameTimer(device)
-    if args.stats:  # every span of the program a stage of the timer
-        record_into(timer)
+    if args.stats:
+        setup = timer.take()
+        print("set-up: " + "  ".join(
+            f"{name} {setup[name][0]:.3f} s" for name in SETUP_SPANS
+            if name in setup))
+        counters = None if tables is None else stream_counters(tables)
+        if counters is not None:
+            print("stream: " + " ".join(f"{k}={v}"
+                                        for k, v in counters.items()))
     raygen_before = (generate_camera_rays_ids.launches,
                      generate_camera_rays_ids.plain)
     try:

@@ -142,7 +142,8 @@ def build_scene_tables(scene, device, nee: bool = False):
     triangles takes the stream route in chunks of ``STREAM_CHUNK`` slots
     (``ops/pack.pack_scene_tables``); instanced meshes stay dense, as in
     the JAX package.  The tables carry their records (``with_records``),
-    made here once for the scene."""
+    made here once for the scene.  The span ``prt.build_tables`` holds
+    the whole of it (``prt.pack_stream`` inside, on the stream route)."""
     from parallelraytracing_tpu_torch.convert import tables_from_numpy
     from parallelraytracing_tpu_torch.ops.nee import extract_lights
     from parallelraytracing_tpu_torch.ops.pack import (pack_instance_tables,
@@ -153,27 +154,45 @@ def build_scene_tables(scene, device, nee: bool = False):
     from parallelraytracing_tpu_torch.ops.textures import TEX_IMAGE_BASE
     has_img = any(t >= TEX_IMAGE_BASE for t in scene._mat_tex)
     inst = None
-    if scene.instances:
-        scene_data = scene.build(device, bake_instances=False)
-        host = scene_data.numpy()
-        ord_base = float(host["sph_valid"].shape[0]
-                         + host["quad_valid"].shape[0]
-                         + host["tri_valid"].shape[0])
-        inst = pack_instance_tables(scene._inst_meshes, scene.instances,
-                                    ord_base, with_uv=has_img)
-    else:
-        scene_data = scene.build(device)
-        host = scene_data.numpy()
-    itex, itex_rows = pack_kernel_textures(host) if has_img else ((), None)
-    packed = pack_scene_tables(host)
-    tables = tables_from_numpy(
-        *packed, sky_spec(host), device,
-        bb=scene_bbox(host, None if inst is None else inst[2]),
-        lights=pack_lights_table(host),
-        nee=nee and extract_lights(host) is not None, inst=inst,
-        checker=checker_spec(scene), itex=itex, itex_tab=itex_rows,
-        stream=packed.stream)
-    return with_records(tables), scene_data
+    with annotate("prt.build_tables"):
+        if scene.instances:
+            scene_data = scene.build(device, bake_instances=False)
+            host = scene_data.numpy()
+            ord_base = float(host["sph_valid"].shape[0]
+                             + host["quad_valid"].shape[0]
+                             + host["tri_valid"].shape[0])
+            inst = pack_instance_tables(scene._inst_meshes, scene.instances,
+                                        ord_base, with_uv=has_img)
+        else:
+            scene_data = scene.build(device)
+            host = scene_data.numpy()
+        itex, itex_rows = pack_kernel_textures(host) if has_img else ((), None)
+        packed = pack_scene_tables(host)
+        tables = tables_from_numpy(
+            *packed, sky_spec(host), device,
+            bb=scene_bbox(host, None if inst is None else inst[2]),
+            lights=pack_lights_table(host),
+            nee=nee and extract_lights(host) is not None, inst=inst,
+            checker=checker_spec(scene), itex=itex, itex_tab=itex_rows,
+            stream=packed.stream)
+        return with_records(tables), scene_data
+
+
+def stream_counters(t: SceneTables) -> Optional[dict]:
+    """The stream route's table sizes (None on the dense route): the
+    triangles (slots with a non-zero geometric normal), chunks, slots,
+    top-tree nodes, mini-tree columns, and the bytes of the slot, top-tree
+    and mini-tree tables as the columns hold them."""
+    s = t.stream
+    if s is None:
+        return None
+    tabs = (t.tri, t.tri_cl, s.mini)
+    return {"triangles": int(t.tri[0:3].ne(0).any(0).sum()),
+            "chunks": int(t.tri.shape[1]) // s.chunk,
+            "slots": int(t.tri.shape[1]),
+            "top_nodes": int(t.tri_cl.shape[1]),
+            "mini_columns": int(s.mini.shape[1]),
+            "table_bytes": sum(a.numel() * a.element_size() for a in tabs)}
 
 
 def trace_tables(t: SceneTables, o, d, pix, seed: int, cfg: RenderConfig,

@@ -74,6 +74,7 @@ import torch
 from parallelraytracing_tpu_torch.core import geometry as geo
 from parallelraytracing_tpu_torch.core.scene import MAT_DIELECTRIC, MAT_EMISSIVE, MAT_METAL
 from parallelraytracing_tpu_torch.ops.textures import TEX_IMAGE_BASE
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 #: primitives per leaf / linear cluster, sphere and quad kinds
 CLUSTER = 24
@@ -634,7 +635,8 @@ def pack_scene_tables(scene: dict, *,
     stream route (the module docstring): chunks of STREAM_CHUNK slots,
     `node_rows` mini-tree columns per chunk (default
     ``default_node_rows``) and mini-tree leaves of STREAM_SUB slots; the
-    result's ``stream`` holds the mini-trees.  With the JAX package's
+    result's ``stream`` holds the mini-trees; its top tree and mini-trees
+    are built inside the span ``prt.pack_stream``.  With the JAX package's
     constants set alike (STREAM_THRESHOLD, STREAM_CHUNK, STREAM_NODE_ROWS,
     STREAM_SUB) its tables are the JAX package's, unpacked from its
     128-lane rows (``convert.stream_from_blocks``)."""
@@ -741,9 +743,11 @@ def pack_scene_tables(scene: dict, *,
     if len(tvd) > STREAM_THRESHOLD:
         chunk = STREAM_CHUNK
         node_rows = node_rows or default_node_rows(chunk)
-        perm, tri_cl = _sah_threaded_tree(t_mn2, t_mx2, chunk, align=chunk)
-        tri, mini = _assemble_stream(tri, perm, tri_cl, t_mn2, t_mx2, chunk,
-                                     node_rows)
+        with annotate("prt.pack_stream"):
+            perm, tri_cl = _sah_threaded_tree(t_mn2, t_mx2, chunk,
+                                              align=chunk)
+            tri, mini = _assemble_stream(tri, perm, tri_cl, t_mn2, t_mx2,
+                                         chunk, node_rows)
         stream = StreamTables(mini=mini, chunk=chunk, node_rows=node_rows)
     else:
         tri, tri_cl = _accelerate(tri, t_mn2, t_mx2, TRI_CLUSTER)

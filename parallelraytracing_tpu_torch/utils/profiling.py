@@ -5,12 +5,14 @@
   around each stage of a frame (``prt.frame``, ``prt.seeds``,
   ``prt.raygen``, ``prt.trace``, ``prt.segment``, ``prt.resort``,
   ``prt.film_add``, ``prt.set_camera``, ``prt.film_clear``,
-  ``prt.gather_film``, ``prt.display``).  With nothing listening it is one
-  shared null context: no allocation, no CUDA call, no sync.  Under an
-  active ``torch.profiler`` it is a ``record_function`` span in the
-  Chrome trace, on the clock of the device's kernels; with a recorder
-  attached (``record_into``) it is also a stage of that
-  ``utils/timing.FrameTimer``.
+  ``prt.gather_film``, ``prt.display``), and two around the set-up's
+  table build (``prt.build_tables``, and ``prt.pack_stream`` inside it on
+  the stream route: engines/tables.py, ops/pack.py).  With nothing
+  listening it is one shared null context: no allocation, no CUDA call,
+  no sync.  Under an active ``torch.profiler`` it is a
+  ``record_function`` span in the Chrome trace, on the clock of the
+  device's kernels; with a recorder attached (``record_into``) it is
+  also a stage of that ``utils/timing.FrameTimer``.
 - ``record_into(timer)``: attach a ``FrameTimer`` to every span (None
   detaches it).
 - ``trace(log_dir)``: a ``torch.profiler`` capture of the host and, where
