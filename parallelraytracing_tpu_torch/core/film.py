@@ -5,7 +5,8 @@ Film, src/core/film.{h,cu}): linear RGB accumulation in float32 with
 per-pixel weights, and a display conversion doing weight-normalize ->
 Reinhard x/(1+x) -> gamma 1/2.2 -> u8 with +0.5 rounding.  Samples stay
 on the film's device; only the display image is fetched.  Accumulation
-updates the buffers in place (the JAX package donates them instead).
+updates the buffers in place (the JAX package donates them instead), and
+copies nothing from the host, so the host never waits for the card there.
 
 An engine may install a storage layout (``set_layout``): accum and
 weights then live as flat (slots,) buffers in the engine's pixel order
@@ -124,20 +125,21 @@ class Film:
     def add_sample_buffer(self, rgb: torch.Tensor, weight: float = 1.0) -> None:
         """Accumulate one frame of per-pixel radiance: (H,W,3) or (H*W,3),
         or (slots,3) in the installed storage layout, or (hi - lo, 3) of its
-        block."""
-        w = torch.tensor(weight, dtype=torch.float32, device=self.device)
+        block.  The weight stays a Python float: each op casts it to
+        float32, the arithmetic of a float32 weight tensor with no upload."""
+        weight = float(weight)
         if self.block is not None:
             lo, hi = self.block
-            self.accum[lo:hi] += rgb.reshape(hi - lo, 3).to(torch.float32) * w
-            self.weights[lo:hi] += w
+            self.accum[lo:hi] += rgb.reshape(hi - lo, 3).to(torch.float32) * weight
+            self.weights[lo:hi] += weight
             self.sample_count += 1
             return
         if self._layout_inv is not None:
             rgb = rgb.reshape(self._slots, 3)
         else:
             rgb = rgb.reshape(self.height, self.width, 3)
-        self.accum += rgb.to(torch.float32) * w
-        self.weights += w
+        self.accum += rgb.to(torch.float32) * weight
+        self.weights += weight
         self.sample_count += 1
 
     def add_sample(self, x: int, y: int, rgb, weight: float = 1.0) -> None:
@@ -160,16 +162,18 @@ class Film:
         selected pixels): slots (B,) index the installed storage layout
         (or the flat H*W order), rgb (B, 3).  Each pixel's weight counts
         its own samples, so its mean stays exact; a slot given twice
-        accumulates twice."""
-        w = torch.tensor(weight, dtype=torch.float32, device=self.device)
+        accumulates twice.  The slots' weights are filled on the film's
+        device, not uploaded."""
+        weight = float(weight)
         slots = slots.to(device=self.device, dtype=torch.int64)
-        rgb = rgb.to(torch.float32) * w
+        rgb = rgb.to(torch.float32) * weight
+        w = rgb.new_full(slots.shape, weight)
         if self._layout_inv is None:
             self.accum.view(-1, 3).index_add_(0, slots, rgb)
-            self.weights.view(-1).index_add_(0, slots, w.expand(slots.shape))
+            self.weights.view(-1).index_add_(0, slots, w)
         else:
             self.accum.index_add_(0, slots, rgb)
-            self.weights.index_add_(0, slots, w.expand(slots.shape))
+            self.weights.index_add_(0, slots, w)
         self.sample_count += 1
 
     def _canonical_buffers(self) -> Tuple[torch.Tensor, torch.Tensor]:

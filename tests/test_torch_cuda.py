@@ -28,7 +28,10 @@ lens and QMC raygen, textured instances), whose float64 atan2 / asin the
 plain version takes the same way as the kernel.  On a big mesh's stream
 route the kernels' two-level walk (top tree, then each chunk's mini-tree)
 is held to the plain version's brute force over every slot column, and
-the streamed films to the dense ones, bit for bit.
+the streamed films to the dense ones, bit for bit.  The film add of the
+fused and wavefront_fused engines copies nothing from the host under the
+profiler, and its film is bit-equal to the same sample buffers
+accumulated with a float32 weight tensor.
 """
 
 import numpy as np
@@ -743,6 +746,63 @@ def test_depth_sort_films_equal_on_card(cuda):
             r.progressive_render()
         films.append(film.hdr_average())
     assert torch.equal(films[0], films[1]) and torch.equal(films[0], films[2])
+
+
+def _film_add_uploads(path):
+    """The host-to-device copies a Chrome trace puts inside ``prt.film_add``
+    spans: the runtime's memcpy calls made in a span, and the device's
+    ``Memcpy HtoD`` events they launched (matched by correlation id: the
+    device runs a copy after the host has issued it, and by then the host
+    may be in another span)."""
+    import json
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and "dur" in e]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+             if e.get("cat") == "user_annotation" and e["name"] == "prt.film_add"]
+    assert spans, "no prt.film_add span in the trace"
+
+    def inside(e):
+        return any(lo <= e["ts"] <= hi for lo, hi in spans)
+    calls = [e for e in evs if e.get("cat") == "cuda_runtime"
+             and "Memcpy" in e["name"] and inside(e)]
+    ids = {e.get("args", {}).get("correlation") for e in calls}
+    copies = [e for e in evs if "Memcpy HtoD" in e["name"]
+              and e.get("args", {}).get("correlation") in ids]
+    return [e["name"] for e in calls + copies]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["fused", "wavefront_fused"])
+def test_film_add_uploads_nothing_and_stays_bit_equal(cuda, tmp_path, engine):
+    """Ten frames under the profiler (CPU + CUDA): no host-to-device copy
+    inside any ``prt.film_add`` span, and the film bit-equal to the same
+    frames' sample buffers accumulated with a float32 weight tensor on the
+    card (3 spp: the weight is 3.0)."""
+    from parallelraytracing_tpu_torch.utils import profiling
+    r, film = preset_renderer("random_balls_large", 64, 48, engine,
+                              max_depth=4, samples_per_frame=3)
+    bufs = []
+    render = r.render_sample_buffer
+
+    def kept(frame_index):
+        rgb = render(frame_index)
+        bufs.append(rgb.clone())
+        return rgb
+    r.render_sample_buffer = kept
+    with profiling.trace(str(tmp_path / engine)) as path:
+        for _ in range(10):
+            r.progressive_render()
+        torch.cuda.synchronize()
+    assert _film_add_uploads(path) == []
+
+    w = torch.tensor(3.0, dtype=torch.float32, device=cuda)
+    accum, weights = torch.zeros_like(film.accum), torch.zeros_like(film.weights)
+    for rgb in bufs:
+        accum += rgb.reshape(accum.shape).to(torch.float32) * w
+        weights += w
+    assert len(bufs) == 10 and film.sample_count == 10
+    assert torch.equal(film.accum, accum) and torch.equal(film.weights, weights)
 
 
 @pytest.mark.cuda

@@ -85,6 +85,61 @@ def test_film_accumulates_like_jax():
                                   np.asarray(jfilm.hdr_average()))
 
 
+@pytest.mark.parametrize("weight", [1.0, 0.25, 1.0 / 3.0, 7.0])
+@pytest.mark.parametrize("layout", ["canonical", "slots", "block"])
+def test_film_adds_bit_equal_with_no_upload(monkeypatch, layout, weight):
+    """``add_sample_buffer`` and ``add_sample_slots`` leave accum and
+    weights bit-equal to accumulating with a float32 0-dim weight tensor,
+    and build no tensor from host data while they add."""
+    rng = np.random.default_rng(5)
+    slots = W * H + 8  # a padded storage layout
+    inv = torch.from_numpy(rng.permutation(slots)[:W * H].astype(np.int64))
+    lo, hi = 64, 320
+    n, shape = {"canonical": (W * H, (H, W, 3)),
+                "slots": (slots, (slots, 3)),
+                "block": (hi - lo, (slots, 3))}[layout]
+    film = T.Film(W, H, "cpu")
+    if layout != "canonical":
+        film.set_layout((inv, slots) if layout == "slots" else
+                        (inv, slots, (lo, hi)))
+    frames = [torch.from_numpy(rng.uniform(0, 3, (n, 3)).astype(np.float32))
+              for _ in range(3)]
+    ids = torch.from_numpy(rng.integers(
+        0, W * H if layout == "canonical" else slots, 50))
+    ids = torch.cat([ids, ids[:5]])  # a slot given twice adds twice
+    sub = torch.from_numpy(rng.uniform(0, 3, (len(ids), 3)).astype(np.float32))
+
+    w = torch.tensor(weight, dtype=torch.float32)  # the old formula
+    accum = torch.zeros(shape, dtype=torch.float32)
+    weights = torch.zeros(shape[:-1], dtype=torch.float32)
+    for f in frames:
+        if layout == "block":
+            accum[lo:hi] += f * w
+            weights[lo:hi] += w
+        else:
+            accum += f.reshape(shape) * w
+            weights += w
+    accum.view(-1, 3).index_add_(0, ids, sub * w)
+    weights.view(-1).index_add_(0, ids, w.expand(ids.shape))
+
+    built = []
+
+    def counted(make):
+        def call(*args, **kwargs):
+            built.append(make)
+            return make(*args, **kwargs)
+        return call
+    monkeypatch.setattr(torch, "tensor", counted(torch.tensor))
+    monkeypatch.setattr(torch, "as_tensor", counted(torch.as_tensor))
+    for f in frames:
+        film.add_sample_buffer(f, weight)
+    film.add_sample_slots(ids, sub, weight)
+    monkeypatch.undo()
+    assert built == []
+    assert film.accum.shape == accum.shape and film.sample_count == 4
+    assert torch.equal(film.accum, accum) and torch.equal(film.weights, weights)
+
+
 def test_film_checkpoint_round_trip(tmp_path):
     film = T.Film(W, H, "cpu")
     film.set_layout((morton_pixel_perm(W, H)[1], W * H))
