@@ -187,8 +187,8 @@ non-zero):
     grid's threads + 1, the trace kernel's radiance equals the probe
     kernel's (one thread per ray, the loop the trace kernel had) bit for
     bit, and two launches give the same bits; the headline's trace
-    kernel timed on frames 0 and 7, and the records' cost when a caller
-    passes only column tables (the wrapper makes them at each call);
+    kernel timed on frames 0 and 7, and the records' pack alone
+    (ops/pack.scene_records, made once with the table set);
 27. (run inside phases 7, 10, 14, 18 and 21) the sort modes: on the
     mesh, path C, the instanced scene and T1 at 1920x1080 and level 7 at
     960x540, wavefront_fused under sort_rays "octant", "origin" and ""
@@ -437,33 +437,19 @@ def frame_inputs(renderer, frame_index: int, jitter=None):
     return o, d, renderer._ids, seed
 
 
-def trace_kw(tables, cfg) -> dict:
-    """The trace's keyword arguments as the engines pass them (NEE,
-    Russian roulette, instances and the scene extensions included)."""
-    return dict(max_depth=cfg.max_depth, t_min=cfg.t_min, t_max=cfg.t_max,
-                sky=tables.sky, tri_live=tables.tri_live, nee=tables.nee,
-                lights=tables.lights, rr_depth=cfg.russian_roulette_depth,
-                inst=tables.inst, checker=tables.checker, itex=tables.itex,
-                itex_tab=tables.itex_tab, stream=tables.stream,
-                records=tables.records)
-
-
 def both_traces(tables, cfg, o, d, pix, seed):
-    """(kernel radiance, plain radiance) for the same inputs."""
+    """(kernel radiance, plain radiance) for the same inputs (NEE, Russian
+    roulette, instances and the scene extensions as the table set and the
+    config have them)."""
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
-    args = (o, d, pix, seed, tables.sph, tables.quad, tables.tri,
-            tables.sph_cl, tables.quad_cl, tables.tri_cl, tables.mats)
-    kw = trace_kw(tables, cfg)
-    return trace(*args, **kw), trace_reference(*args, **kw)
+    return (trace(o, d, pix, seed, tables, cfg),
+            trace_reference(o, d, pix, seed, tables, cfg))
 
 
 def traced_on(r, fn):
     """fn (trace or trace_reference) on renderer r's tables and config,
     called as fn(o, d, pix, seed)."""
-    t = r._tables
-    return lambda o, d, pix, seed: fn(
-        o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl,
-        t.mats, **trace_kw(t, r.config))
+    return lambda o, d, pix, seed: fn(o, d, pix, seed, r._tables, r.config)
 
 
 def make_renderer(preset: str, width: int, height: int, engine="fused",
@@ -588,16 +574,14 @@ def queue_vs_plain(r, pix, state, count, seed: int, depth0: int,
     and the plain version's.  Returns (record, the kernel's result, its
     radiance): a timed launch leaves the same survivors and radiance."""
     import torch
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
-        _run_segment
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     t, cfg = r._tables, r.config
     rads = [torch.full((cfg.width * cfg.height, 3), float("nan"),
                        device="cuda") for _ in range(2)]
 
     def run(fn, rad, queue_out=None):
-        return _run_segment(t, (state, pix), count, rad, seed, depth0,
-                            n_bounces, cfg, sort_rays, fn, out=queue_out)
+        return fn(pix, state, count, rad, t, cfg, seed=seed, depth0=depth0,
+                  n_bounces=n_bounces, sort_rays=sort_rays, out=queue_out)
     p, plain_ms = timed_ms(lambda: run(segment_reference, rads[1]))
     k = run(segment, rads[0], out)
     live = pix[:int(count)].long()
@@ -1284,12 +1268,11 @@ def regeneration_phase(head) -> dict:
     kernel's radiance equals the probe kernel's (one thread per ray)
     bit for bit and a second launch gives the same bits.  Then the
     headline renderer `head`'s trace kernel on frames 0 and 7 (mean of 5
-    launches each), and the same frame-0 launch with only the column
-    tables passed, the wrapper making the records at each call, beside
-    ``scene_records`` alone.  Raises on a miss; returns the record."""
+    launches each), beside ``scene_records`` alone.  Raises on a miss;
+    returns the record."""
     import torch
-    from parallelraytracing_tpu_torch.engines.tables import (trace_launch,
-                                                             with_records)
+    from parallelraytracing_tpu_torch.engines.tables import trace_launch
+    from parallelraytracing_tpu_torch.ops.pack import scene_records
     from parallelraytracing_tpu_torch.ops.trace import trace
     cases = []
     for preset, nee in (("random_balls_large", False), ("cornell", True)):
@@ -1325,17 +1308,12 @@ def regeneration_phase(head) -> dict:
     for f in (0, 7):
         inputs = frame_inputs(head, f)
         frames[f] = cuda_ms(lambda: traced_on(head, trace)(*inputs), 5)
-    inputs = frame_inputs(head, 0)
-    cols_only = dict(trace_kw(t, head.config), records=None)
-    args = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    cols_ms = cuda_ms(lambda: trace(*inputs, *args, **cols_only), 5)
-    pack_ms = cuda_ms(lambda: with_records(t), 5)
+    pack_ms = cuda_ms(lambda: scene_records(t), 5)
     phase("regeneration", f"headline trace kernel frame 0 {frames[0]:.3f} "
-          f"ms, frame 7 {frames[7]:.3f} ms; frame 0 with only the column "
-          f"tables passed (records made per call) {cols_ms:.3f} ms, "
-          f"scene_records alone {pack_ms:.3f} ms")
+          f"ms, frame 7 {frames[7]:.3f} ms; scene_records alone "
+          f"{pack_ms:.3f} ms")
     return dict(cases=cases, frame0_ms=frames[0], frame7_ms=frames[7],
-                columns_only_ms=cols_ms, scene_records_ms=pack_ms)
+                scene_records_ms=pack_ms)
 
 
 #: phase 24: the depth_sort values driven on the headline
@@ -1780,10 +1758,10 @@ def camera_hit_counts(r) -> dict:
     mats[2] = checker
     mats[3, n] = 2.0
     o, d, pix, seed = frame_inputs(r, 0)
-    out = trace(o, d, pix, seed, sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
-                t.tri_cl, mats, max_depth=1, t_min=cfg.t_min, t_max=cfg.t_max,
-                sky=(0.0, 0.0, 1.0), tri_live=t.tri_live, inst=t.inst,
-                stream=t.stream)
+    out = trace(o, d, pix, seed, dataclasses.replace(
+        t, sph=sph, mats=mats, sky=(0.0, 0.0, 1.0), nee=False, checker=(),
+        itex=(), itex_tab=None, records=None),
+        cfg.replace(max_depth=1, russian_roulette_depth=0))
     return dict(image=int((out[:, 0] == 1.0).sum()),
                 sphere_image=int((out[:, 2] == 2.0).sum()),
                 checker=int((out[:, 1] == 1.0).sum()),
@@ -2287,8 +2265,8 @@ def layout_divergence(scene) -> dict:
     Raises otherwise; returns the differing slots of each chunk and the
     layouts the plain version sided with.  Only with --stream-sweep."""
     import torch
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import (
-        _initial_state, _run_segment)
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _initial_state
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     rs = {"dense": big_renderer("fused", scene, threshold=DENSE)[0]}
     for chunk in CHUNK_SWEEP:
@@ -2300,8 +2278,8 @@ def layout_divergence(scene) -> dict:
 
     def outcomes(r, pix, state, count, seed, b, fn):
         rad = torch.full((n_pix, 3), float("nan"), device="cuda")
-        res = _run_segment(r._tables, (state, pix), count, rad, seed, b, 1,
-                           r.config, "", fn)
+        res = fn(pix, state, count, rad, r._tables, r.config, seed=seed,
+                 depth0=b, n_bounces=1)
         return res, segment_outcomes(res, rad)
 
     def near(x, y):  # every value within RAY_ATOL, or held by neither
@@ -2848,7 +2826,6 @@ def adaptive_phase(png_dir, peaks) -> dict:
     import torch
     from parallelraytracing_tpu_torch import Film
     from parallelraytracing_tpu_torch.engines.adaptive import select_slots
-    from parallelraytracing_tpu_torch.engines.tables import trace_tables
     from parallelraytracing_tpu_torch.ops.segment import segment
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
     ad, ad_film = make_renderer("random_balls_large", MAIN_W, MAIN_H,
@@ -2871,10 +2848,10 @@ def adaptive_phase(png_dir, peaks) -> dict:
     sel_ms = cuda_ms(select, 5)
     ids = ad._ids[sel]
     o, d, seed = ad._sample_rays(ids, ad._frame_index, 0)
-    k, k_ms = timed_ms(lambda: trace_tables(ad._tables, o, d, ids, seed,
-                                            ad.config))
-    kernel_ms = cuda_ms(lambda: trace_tables(ad._tables, o, d, ids, seed,
-                                             ad.config), 5)
+    k, k_ms = timed_ms(lambda: trace(o, d, ids, seed, ad._tables,
+                                     ad.config))
+    kernel_ms = cuda_ms(lambda: trace(o, d, ids, seed, ad._tables,
+                                      ad.config), 5)
     p, plain_ms = timed_ms(lambda: traced_on(ad, trace_reference)(o, d, ids,
                                                                   seed))
     # the probe kernel's counted visits of the same launch: its bound
@@ -3889,16 +3866,9 @@ def main(argv=None) -> int:
     err = (k - p).abs().amax(1)
     max_abs_err = float(err.max())
     share_main = float((err <= RAY_ATOL).float().mean())
-    args_t = (o, d, pix, seed, main_r._tables.sph, main_r._tables.quad,
-              main_r._tables.tri, main_r._tables.sph_cl,
-              main_r._tables.quad_cl, main_r._tables.tri_cl,
-              main_r._tables.mats)
-    kw = dict(max_depth=MAIN_DEPTH, t_min=main_r.config.t_min,
-              t_max=main_r.config.t_max, sky=main_r._tables.sky,
-              tri_live=main_r._tables.tri_live,
-              records=main_r._tables.records)
-    kernel_ms = cuda_ms(lambda: trace(*args_t, **kw), 5)
-    plain_ms = cuda_ms(lambda: trace_reference(*args_t, **kw), 1)
+    args_t = (o, d, pix, seed, main_r._tables, main_r.config)
+    kernel_ms = cuda_ms(lambda: trace(*args_t), 5)
+    plain_ms = cuda_ms(lambda: trace_reference(*args_t), 1)
     trace_bound = trace_bounds(main_r, (o, d, pix, seed),
                                sum(depth_counts(main_r)), tag="headline")
     phase("kernel-vs-plain", f"main frame {MAIN_W}x{MAIN_H} depth "

@@ -331,9 +331,9 @@ def main(argv=None) -> int:
     wl = trace_stats.workload("spheres", small=cpu)
     r = trace_stats.renderer(*wl, device=args.device)
     o, d, seed = r._sample_rays(r._ids, 0, 0)
-    from parallelraytracing_tpu_torch.engines.tables import trace_tables
-    _, stats = trace_tables(r._tables, o, d, r._ids, seed, r.config,
-                            collect_stats=True)
+    from parallelraytracing_tpu_torch.ops.trace import trace
+    _, stats = trace(o, d, r._ids, seed, r._tables, r.config,
+                     collect_stats=True)
     counts = sum_counts(stats)
     n = int(o.shape[0])
     rec = dict(device=args.device if cpu else torch.cuda.get_device_name(0),
@@ -347,10 +347,10 @@ def main(argv=None) -> int:
     peaks = measured_peaks()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    trace_tables(r._tables, o, d, r._ids, seed, r.config)
+    trace(o, d, r._ids, seed, r._tables, r.config)
     start.record()
     for _ in range(5):
-        trace_tables(r._tables, o, d, r._ids, seed, r.config)
+        trace(o, d, r._ids, seed, r._tables, r.config)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / 5

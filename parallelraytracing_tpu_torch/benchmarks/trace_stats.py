@@ -71,11 +71,10 @@ def renderer(scene, camera, cfg, device="cuda"):
 def stats_for(scene, camera, cfg, device="cuda", frame: int = 0):
     """(R, 4) int32 counters of one frame's rays in launch order (the
     engine's Morton order), through the engine's own tables."""
-    from parallelraytracing_tpu_torch.engines.tables import trace_tables
+    from parallelraytracing_tpu_torch.ops.trace import trace
     r = renderer(scene, camera, cfg, device)
     o, d, seed = r._sample_rays(r._ids, frame, 0)
-    _, stats = trace_tables(r._tables, o, d, r._ids, seed, cfg,
-                            collect_stats=True)
+    _, stats = trace(o, d, r._ids, seed, r._tables, cfg, collect_stats=True)
     return stats
 
 

@@ -15,11 +15,10 @@ import numpy as np
 import torch
 
 from parallelraytracing_tpu_torch.core.scene import SceneData
-from parallelraytracing_tpu_torch.engines.tables import InstanceTables, SceneTables
-from parallelraytracing_tpu_torch.ops.pack import (LIGHT_ROWS, StreamTables,
+from parallelraytracing_tpu_torch.ops.pack import (LIGHT_ROWS, InstanceTables,
+                                                   SceneTables, StreamTables,
                                                    check_instance_layout,
-                                                   instance_ranges)
-from parallelraytracing_tpu_torch.ops.trace import _check_sky
+                                                   check_sky, instance_ranges)
 
 
 def stream_from_blocks(blocks, n_attr: int, chunk: int, pack: int,
@@ -84,7 +83,10 @@ def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
     ``itex_tab`` the texel rows of ``pack_kernel_textures`` (None without
     image textures).  ``stream`` is the StreamTables of a mesh on the
     stream route (``pack_scene_tables(...).stream``, or the second value
-    of ``stream_from_blocks``, whose slots are then `tri`), else None."""
+    of ``stream_from_blocks``, whose slots are then `tri`), else None.
+    Making the SceneTables validates the tables and makes their records:
+    a table the kernels cannot read raises ValueError (NotImplementedError
+    for a layout left out)."""
     def dev(a):
         return torch.from_numpy(
             np.array(a, dtype=np.float32, order="C")).to(device)
@@ -116,5 +118,5 @@ def tables_from_numpy(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, sky,
 def _sky(sky) -> tuple:
     """A sky spec with its colors rounded to float32; the sun power of a
     13-value spec stays an integer."""
-    return _check_sky(tuple(float(np.float32(s)) for s in sky[:12])
+    return check_sky(tuple(float(np.float32(s)) for s in sky[:12])
                       + tuple(sky[12:]))

@@ -3,9 +3,9 @@
 The counterpart of ``parallelraytracing_tpu.engines.fused``.  Per frame:
 derive the frame's seeds (threefry chain, ops/rays.frame_stream_seeds),
 generate pixel-keyed jittered camera rays straight from the Morton-
-permuted pixel ids, trace them (engines/tables.trace_tables ->
-ops/trace.trace, the CUDA kernel on a card), and accumulate into the film
-in that same Morton order (film_layout), so no per-frame gather is needed.
+permuted pixel ids, trace them (ops/trace.trace, the CUDA kernel on a
+card), and accumulate into the film in that same Morton order
+(film_layout), so no per-frame gather is needed.
 
 ``depth_sort`` (``PRT_DEPTH_SORT``, as the JAX class reads it) reorders
 the rays by the depth a probe frame measured (ops/trace.py's
@@ -31,6 +31,7 @@ from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
 from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
                                                    generate_camera_rays_ids,
                                                    sample_key)
+from parallelraytracing_tpu_torch.ops.trace import scene_struct, trace
 from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
@@ -97,6 +98,7 @@ class FusedRenderer(Renderer):
         cfg = self.config
         self._tables, self._scene_data = build_scene_tables(
             self._scene, self.device, nee=cfg.nee)
+        scene_struct(self._tables, cfg)  # the kernels' struct, made once
         perm, inv = morton_pixel_perm(cfg.width, cfg.height)
         self._ids = torch.from_numpy(perm.copy()).to(self.device)
         self._minv = torch.from_numpy(inv.copy()).to(self.device)
@@ -109,11 +111,9 @@ class FusedRenderer(Renderer):
         layout.  The key is the JAX engine's: ((rank >> depth_sort) << 5)
         | depth for depth_sort >= 8, else depth * R + rank, depth clipped
         to [0, 31], rank the id's current position, sorted stably."""
-        from parallelraytracing_tpu_torch.engines.tables import trace_tables
-        cfg = self.config
         o, d, s0 = self._sample_rays(self._ids, 0, 0)
-        _, depth = trace_tables(self._tables, o, d, self._ids, s0, cfg,
-                                depth_out=True)
+        _, depth = trace(o, d, self._ids, s0, self._tables, self.config,
+                         depth_out=True)
         self._probe_eye = np.asarray(self._camera.position, np.float64).copy()
         r = int(self._ids.shape[0])
         rank = torch.arange(r, dtype=torch.int64, device=self.device)
@@ -150,11 +150,10 @@ class FusedRenderer(Renderer):
     def _trace_ids(self, ids, frame_index: int) -> torch.Tensor:
         """One frame's mean radiance for an explicit pixel-id vector (in
         that order); a pixel's streams depend only on (pixel, frame)."""
-        from parallelraytracing_tpu_torch.engines.tables import trace_tables
         cfg = self.config
         acc = None
         for s in range(cfg.samples_per_frame):
             o, d, s0 = self._sample_rays(ids, frame_index, s)
-            rad = trace_tables(self._tables, o, d, ids, s0, cfg)
+            rad = trace(o, d, ids, s0, self._tables, cfg)
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

@@ -89,8 +89,10 @@ class ShardedRenderer(FusedRenderer):
     def _pack_tables(self) -> None:
         """The scene's tables, packed once for either route."""
         from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
+        from parallelraytracing_tpu_torch.ops.trace import scene_struct
         self._tables, self._scene_data = build_scene_tables(
             self._scene, self.device, nee=self.config.nee)
+        scene_struct(self._tables, self.config)  # the kernels' struct, once
 
     def _post_init(self) -> None:
         import torch.distributed as dist

@@ -37,6 +37,7 @@ from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
 from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm, raygen_ids
 from parallelraytracing_tpu_torch.ops.rays import frame_stream_seeds, sample_key
 from parallelraytracing_tpu_torch.ops.segment import segment
+from parallelraytracing_tpu_torch.ops.trace import scene_struct
 from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 SORT_MODES = ("octant", "origin", "")
@@ -69,23 +70,6 @@ def segment_lengths(max_depth: int, segment: int, first_segment: int = 0,
     while sum(lens) < max_depth:
         lens.append(min(segment, max_depth - sum(lens)))
     return lens
-
-
-def _run_segment(tables, queue, count, rad, seed: int, depth0: int,
-                 n_bounces: int, cfg: RenderConfig, sort_rays: str, seg_fn,
-                 out=None):
-    """One segment over `queue` ((13, R) state, (R,) pixel ids) with its
-    live count: (state, pix, key, count) of the next queue."""
-    t = tables
-    return seg_fn(queue[1], queue[0], count, rad, t.sph, t.quad, t.tri,
-                  t.sph_cl, t.quad_cl, t.tri_cl, t.mats, seed=seed,
-                  depth0=depth0, max_depth=cfg.max_depth,
-                  n_bounces=n_bounces, t_min=cfg.t_min, t_max=cfg.t_max,
-                  sky=t.sky, tri_live=t.tri_live, sort_rays=sort_rays,
-                  bb=t.bb, out=out, rr_depth=cfg.russian_roulette_depth,
-                  nee=t.nee, lights=t.lights, inst=t.inst, checker=t.checker,
-                  itex=t.itex, itex_tab=t.itex_tab, stream=t.stream,
-                  records=t.records)
 
 
 def _initial_state(o, d) -> torch.Tensor:
@@ -128,9 +112,10 @@ def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
     for s, n_bounces in enumerate(lens):
         last = s + 1 == len(lens)  # every path ends: no key, no next queue
         with annotate("prt.segment"):
-            state, ids, key, count = _run_segment(
-                tables, queue, count, rad, seed, depth0, n_bounces, cfg,
-                "" if last else sort_rays, seg_fn, out=b)
+            state, ids, key, count = seg_fn(
+                queue[1], queue[0], count, rad, tables, cfg, seed=seed,
+                depth0=depth0, n_bounces=n_bounces,
+                sort_rays="" if last else sort_rays, out=b)
         depth0 += n_bounces
         if last:
             break
@@ -161,8 +146,9 @@ def count_depth_rays(tables, o, d, pix, seed: int, cfg: RenderConfig,
     counts = []
     for depth in range(cfg.max_depth):
         counts.append(count)
-        state, ids, _, count = _run_segment(tables, queue, count, rad, seed,
-                                            depth, 1, cfg, "", seg_fn)
+        state, ids, _, count = seg_fn(queue[1], queue[0], count, rad, tables,
+                                      cfg, seed=seed, depth0=depth,
+                                      n_bounces=1)
         queue = (state, ids)
     return [int(c) for c in torch.cat(counts).tolist()]
 
@@ -207,6 +193,7 @@ class WavefrontFusedRenderer(Renderer):
                                      self.segment_first, tuple(schedule or ()))
         self._tables, self._scene_data = build_scene_tables(
             self._scene, self.device, nee=cfg.nee)
+        scene_struct(self._tables, cfg)  # the kernels' struct, made once
         perm, _ = morton_pixel_perm(cfg.width, cfg.height)
         self._ids = torch.from_numpy(perm.copy()).to(self.device)
 

@@ -54,6 +54,10 @@ unique meshes' local triangles, their concatenated threaded trees, the
 instances' world boxes and the instance records.  Image textures are
 packed as rows of 128 texels (``pack_kernel_textures``).
 
+The packed tables reach the kernels as one table set on a device,
+``SceneTables`` (with ``InstanceTables`` and the kernels' 16-byte copy,
+``SceneRecords``), validated when it is made.
+
 The JAX package's other layouts (Karras tree, ordered tree, straggler-tail
 views, SBVH, tile-SAH, eye-ordered linear scans, the stream route's
 128-lane rows) are left out: none is on its default path, and the eye
@@ -66,7 +70,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import sys
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1095,27 +1099,248 @@ RECORD_KINDS = (("sph", "sph"), ("sph_cl", "node"), ("quad", "quad"),
                 ("mini", "node"))
 
 
-def record_columns(sph, quad, tri, sph_cl, quad_cl, tri_cl, mats,
-                   lights=None, inst=None, stream=None) -> dict:
+def record_columns(t) -> dict:
     """{SceneRecords field: the column table its records are made of} for
-    a scene's tables: the column tables, the light table or None, the
-    instance tables (an ``engines/tables.InstanceTables``) or None, the
-    stream route's ``StreamTables`` or None."""
-    cols = dict(sph=sph, sph_cl=sph_cl, quad=quad, quad_cl=quad_cl, tri=tri,
-                tri_tail=tri, tri_cl=tri_cl, mats=mats, lights=lights)
-    if inst is not None:
-        cols.update(itri=inst.itri, itri_tail=inst.itri, iacc=inst.iacc,
-                    ibox=inst.ibox, inst=inst.inst)
-    if stream is not None:
-        cols["mini"] = stream.mini
+    the tables of SceneTables `t`: the instance tables and the mini-trees
+    only where `t` has them."""
+    cols = dict(sph=t.sph, sph_cl=t.sph_cl, quad=t.quad, quad_cl=t.quad_cl,
+                tri=t.tri, tri_tail=t.tri, tri_cl=t.tri_cl, mats=t.mats,
+                lights=t.lights)
+    if t.inst is not None:
+        cols.update(itri=t.inst.itri, itri_tail=t.inst.itri,
+                    iacc=t.inst.iacc, ibox=t.inst.ibox, inst=t.inst.inst)
+    if t.stream is not None:
+        cols["mini"] = t.stream.mini
     return cols
 
 
-def scene_records(*tables, **kw) -> SceneRecords:
-    """The records of a scene's tables (``pack_records`` of each table of
-    ``record_columns``, same arguments).  Made once per scene by
-    ``engines/tables.build_scene_tables``."""
-    cols = record_columns(*tables, **kw)
+def scene_records(t) -> SceneRecords:
+    """The records of SceneTables `t`'s tables (``pack_records`` of each
+    table of ``record_columns``), made once with the table set."""
+    cols = record_columns(t)
     return SceneRecords(**{name: pack_records(cols[name], kind)
                            for name, kind in RECORD_KINDS
                            if cols.get(name) is not None})
+
+
+# ---------------------------------------------------------------------------
+# The table set
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InstanceTables:
+    """The instance block's tables (``pack_instance_tables``) on one
+    device, and the host facts the plain versions need."""
+    itri: torch.Tensor     # (25 or 31, Nt) unique meshes' local triangles
+    iacc: torch.Tensor     # (8, Mb) their concatenated threaded trees
+    ibox: torch.Tensor     # (6, Ni) instance world boxes
+    inst: torch.Tensor     # (24, Ni) instance records
+    #: each instance's run of itri columns, ((lo, hi), ...)
+    #: (``instance_ranges``): the plain versions test an instance against
+    #: its own mesh's triangles only
+    ranges: Tuple[Tuple[int, int], ...]
+
+    @property
+    def n_inst(self) -> int:
+        return int(self.inst.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneTables:
+    """A scene's tables on one device, as the trace and segment kernels and
+    their plain versions read them: the tables of this module as float32
+    tensors, the host facts the trace needs, and the kernels' copy of the
+    tables as 16-byte records.  The TPU package's SMEM/VMEM placement and
+    hot/cold table splits have no Hopper analogue: every table is plain
+    read-only device memory.
+
+    Made by ``convert.tables_from_numpy`` (``engines/tables.
+    build_scene_tables`` for a Scene).  Making one validates it (``_check``:
+    shapes, linear-table widths, the instance layout, the light table,
+    the textures, the stream tables, the sky, every tensor float32,
+    contiguous and on one device) and makes its ``records``, or checks the
+    shapes of the ones passed against the tables (``dataclasses.replace``
+    passes them on: a replace that changes a column table's values passes
+    ``records=None``), so a table set that exists is one the kernels read
+    as it is.
+    ``structs`` keeps the kernels' ``PrtScene`` struct for each (t_min,
+    t_max, rr_depth) it is launched under (``ops/trace.scene_struct``),
+    whose raw pointers point at the records this table set owns."""
+    sph: torch.Tensor      # (6, Ns)
+    quad: torch.Tensor     # (14, Nq)
+    tri: torch.Tensor      # (27, Nt), or (33, Nt) with texture coordinates
+    sph_cl: torch.Tensor   # (8, M) tree or (6, n_cl + 1) linear
+    quad_cl: torch.Tensor
+    tri_cl: torch.Tensor
+    mats: torch.Tensor     # (5, Nm)
+    #: the sky spec: the constant sky (3 floats), or for ``Scene.set_sky``
+    #: the 13-tuple (bottom(3), top(3), sun direction(3), sun color(3),
+    #: sun power) of ``engines/tables.sky_spec``
+    sky: Tuple
+    #: True iff some triangle column has a non-zero geometric normal (a
+    #: kind of never-hit pad columns is skipped by the trace)
+    tri_live: bool
+    lights: torch.Tensor   # (28, Nl), a (28, 1) zero table without lights
+    #: NEE runs: the config asks for it and the scene has a light
+    nee: bool
+    #: the scene box as ((lo xyz), (1 / extent xyz)): the frame of
+    #: wavefront_fused's origin-Morton sort key (``scene_bbox``)
+    bb: Tuple[Tuple[float, float, float], Tuple[float, float, float]]
+    #: the instance tables; None for a scene without instances
+    inst: Optional[InstanceTables] = None
+    #: checker materials ((material id, cell scale, odd r, g, b), ...)
+    checker: Tuple = ()
+    #: image-textured materials ((material id, first row, height, width),
+    #: ...) of ``pack_kernel_textures``, and its (Rt, 128) texel rows
+    itex: Tuple = ()
+    itex_tab: Optional[torch.Tensor] = None
+    #: a mesh on the stream route: its mini-trees (a tensor) and integers;
+    #: `tri` then holds its slots and `tri_cl` its top tree.  None on the
+    #: dense route
+    stream: Optional[StreamTables] = None
+    #: the kernels' copy of every table they read (``scene_records``),
+    #: made with the table set when not passed
+    records: Optional[SceneRecords] = None
+    structs: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        self._check()
+        if self.records is None:
+            object.__setattr__(self, "records", scene_records(self))
+            return
+        cols = record_columns(self)
+        for name, kind in RECORD_KINDS:
+            col, rec = cols.get(name), getattr(self.records, name)
+            if col is None:
+                continue
+            want = (int(col.shape[1]), len(record_rows(kind, col.shape[0])))
+            if rec is None or tuple(rec.shape) != want:
+                raise ValueError(f"records.{name}: want {want} for its "
+                                 f"{tuple(col.shape)} table, got "
+                                 f"{None if rec is None else tuple(rec.shape)}")
+            check_tensors(self.sph.device, {f"records.{name}": rec}, {})
+
+    def _check(self) -> None:
+        check_sky(self.sky)
+        inst, stream, tri = self.inst, self.stream, self.tri
+        tabs = {"sph": self.sph, "quad": self.quad, "tri": tri,
+                "sph_cl": self.sph_cl, "quad_cl": self.quad_cl,
+                "tri_cl": self.tri_cl, "mats": self.mats,
+                "lights": self.lights}
+        if inst is not None:
+            check_instance_layout(inst.itri.shape[0], inst.iacc.shape[0])
+            tabs.update(itri=inst.itri, iacc=inst.iacc, ibox=inst.ibox,
+                        inst=inst.inst)
+        if stream is not None:
+            tabs["mini"] = stream.mini
+        if self.itex:
+            if (self.itex_tab is None or self.itex_tab.dim() != 2
+                    or self.itex_tab.shape[1] != TEX_LANES):
+                raise ValueError(f"image textures need their (Rt, "
+                                 f"{TEX_LANES}) texel rows as itex_tab "
+                                 f"(pack_kernel_textures)")
+            tabs["itex_tab"] = self.itex_tab
+        check_tensors(self.sph.device, tabs, {})
+        if (self.sph.shape[0] != 6 or self.quad.shape[0] != 14
+                or tri.shape[0] not in (TRI_ROWS, TRI_UV_ROWS)
+                or self.mats.shape[0] != 5):
+            raise ValueError("tables: want sph (6,N), quad (14,N), tri "
+                             "(27,N) or (33,N), mats (5,N)")
+        if self.lights.dim() != 2 or self.lights.shape[0] != LIGHT_ROWS:
+            raise ValueError(f"lights {tuple(self.lights.shape)}: want the "
+                             f"({LIGHT_ROWS}, Nl) light table of "
+                             f"pack_lights_table")
+        if len(self.bb) != 2 or any(len(x) != 3 for x in self.bb):
+            raise ValueError("bb: want the scene box ((lo xyz), (1 / extent "
+                             "xyz))")
+        # Each kind's linear table has one column per run of its own
+        # cluster size (TRI_CLUSTER for triangles) plus the root pretest
+        # column.
+        for name, cl, n, csize in (
+                ("sph_cl", self.sph_cl, self.sph.shape[1], CLUSTER),
+                ("quad_cl", self.quad_cl, self.quad.shape[1], CLUSTER),
+                ("tri_cl", self.tri_cl, tri.shape[1], TRI_CLUSTER)):
+            n_cl = max(1, -(-int(n) // csize))
+            if not (cl.shape[0] == TREE_ROWS
+                    or (cl.shape[0] == 6 and cl.shape[1] == n_cl + 1)):
+                raise ValueError(f"{name} {tuple(cl.shape)}: want an (8, M) "
+                                 f"tree or a (6, {n_cl + 1}) linear table")
+        if inst is not None:
+            n_inst = inst.inst.shape[1]
+            if (inst.itri.dim() != 2 or inst.iacc.dim() != 2 or n_inst < 1
+                    or tuple(inst.ibox.shape) != (IBOX_ROWS, n_inst)
+                    or inst.inst.shape[0] != INST_ROWS
+                    or len(inst.ranges) != n_inst):
+                raise ValueError(
+                    f"instance tables: want itri ({ITRI_ROWS}, Nt), iacc "
+                    f"({IACC_ROWS}, Mb), ibox ({IBOX_ROWS}, Ni), inst "
+                    f"({INST_ROWS}, Ni) with Ni >= 1 and one triangle run "
+                    f"per instance")
+        if stream is not None:
+            chunk, node_rows, mini = (int(stream.chunk),
+                                      int(stream.node_rows), stream.mini)
+            n_chunks = mini.shape[1] // node_rows if node_rows > 0 else 0
+            if (chunk < 1 or node_rows < 1 or mini.dim() != 2
+                    or mini.shape[0] != TREE_ROWS or n_chunks < 1
+                    or mini.shape[1] != n_chunks * node_rows
+                    or tri.shape[1] != n_chunks * chunk
+                    or self.tri_cl.shape[0] != TREE_ROWS):
+                raise ValueError(
+                    f"stream tables: want mini ({TREE_ROWS}, n_chunks x "
+                    f"node_rows {node_rows}), tri (C, n_chunks x chunk "
+                    f"{chunk}) and an ({TREE_ROWS}, M) top tree; got mini "
+                    f"{tuple(mini.shape)}, tri {tuple(tri.shape)}, tri_cl "
+                    f"{tuple(self.tri_cl.shape)}")
+        n_mats = int(self.mats.shape[1])
+        for c in self.checker:
+            if len(c) != 5 or not 0 <= int(c[0]) < n_mats:
+                raise ValueError(f"checker entry {c}: want (material id < "
+                                 f"{n_mats}, scale, r, g, b)")
+        if not self.itex:
+            return
+        for mid, toff, th, tw in self.itex:
+            rows = -(-int(th) * int(tw) // TEX_LANES)
+            if (not 0 <= int(mid) < n_mats or not 0 < th <= KTEX_MAX
+                    or not 0 < tw <= KTEX_MAX or toff < 0
+                    or toff + rows > self.itex_tab.shape[0]):
+                raise ValueError(
+                    f"itex entry {(mid, toff, th, tw)}: want a material id "
+                    f"< {n_mats} and an image of at most {KTEX_MAX}x"
+                    f"{KTEX_MAX} inside itex_tab "
+                    f"({self.itex_tab.shape[0]} rows)")
+        if tri.shape[0] != TRI_UV_ROWS or (
+                inst is not None and inst.itri.shape[0] != ITRI_UV_ROWS):
+            raise ValueError(f"image textures need texture coordinates: tri "
+                             f"of {TRI_UV_ROWS} rows and itri of "
+                             f"{ITRI_UV_ROWS}")
+
+
+def check_sky(sky) -> tuple:
+    """The sky spec as Python numbers: 3 colors, or the 13-tuple of
+    ``engines/tables.sky_spec`` whose last entry is the sun's integer
+    power."""
+    if len(sky) == 3:
+        return tuple(float(s) for s in sky)
+    if len(sky) == 13 and int(sky[12]) == sky[12] and int(sky[12]) >= 0:
+        return tuple(float(s) for s in sky[:12]) + (int(sky[12]),)
+    raise ValueError(f"sky spec of {len(sky)} values: want the constant sky "
+                     f"(3) or the gradient and sun spec (13, integer power)")
+
+
+def check_tensors(device, floats: dict, ints: dict) -> None:
+    """Validate what a kernel reads: float32 `floats` and int32 `ints`
+    ({name: (tensor, shape)}), all contiguous and on `device`."""
+    for name, (t, shape) in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)}: want {shape}")
+    for name, t in floats.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in {**floats, **{k: v[0] for k, v in ints.items()}}.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

@@ -251,7 +251,8 @@ def _raygen_kernel(cam_params, width: int, height: int, idx, jitter: bool,
     """One launch of csrc/raygen.cu over `idx` on PyTorch's current
     stream."""
     from parallelraytracing_tpu_torch.ops import _build
-    from parallelraytracing_tpu_torch.ops.trace import check_tensors, stream_of
+    from parallelraytracing_tpu_torch.ops.pack import check_tensors
+    from parallelraytracing_tpu_torch.ops.trace import stream_of
     r = int(idx.shape[0])
     check_tensors(idx.device, {"cam_params": cam_params},
                   {"idx": (idx, (r,))})

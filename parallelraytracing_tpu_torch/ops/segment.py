@@ -24,22 +24,20 @@ at the previous, diffuse vertex: the next vertex adds no emission,
 whichever segment traces it), of which the slots [0, count) are read;
 ``count`` a (1,) int32 tensor on the state's device (the kernel reads it
 there, so a frame needs no host sync between segments); ``rad`` the
-frame's (P, 3) float32 radiance in pixel order; ``seed`` the frame's
-path seed, ``depth0`` the absolute depth of the segment's first bounce,
-``max_depth`` the frame's depth; ``sort_rays`` the key written for each
-survivor ("octant", "origin", or "" for none) with ``bb``, the scene box
-((lo xyz), (1 / extent xyz), ``SceneTables.bb``); ``out`` optionally the
-output queue's buffers (state (13, R), pix (R,), key (R,) int32 or None),
-reused across segments; and the tables of ops/pack.py, with ``nee`` the
-light table, with ``inst`` the instance tables, and the sky spec and the
-``checker`` / ``itex`` / ``itex_tab`` textures and the ``stream`` tables
-of a mesh on the stream route, and ``records``, the kernels' copy of the
-tables (as in ops/trace.py: made by the wrapper when None).
+frame's (P, 3) float32 radiance in pixel order; ``tables`` the scene's
+``ops/pack.SceneTables`` and ``cfg`` the ``RenderConfig``, as in
+ops/trace.py (``cfg.max_depth`` is the frame's depth); ``seed`` the
+frame's path seed, ``depth0`` the absolute depth of the segment's first
+bounce; ``sort_rays`` the key written for each survivor ("octant",
+"origin", or "" for none) in the scene box ``tables.bb``; ``out``
+optionally the output queue's buffers (state (13, R), pix (R,), key (R,)
+int32 or None), reused across segments.
 
 Each live slot runs its bounces from absolute depth ``depth0`` (bounce i
-draws the streams of depth depth0 + i; Russian roulette, ``rr_depth`` >
-0, starts at absolute depth ``rr_depth``).  A path that ends, because its
-alive value becomes 0 or its depth reaches ``max_depth``, writes its
+draws the streams of depth depth0 + i; Russian roulette, with
+``cfg.russian_roulette_depth`` > 0, starts at that absolute depth).  A
+path that ends, because its alive value becomes 0 or its depth reaches
+``cfg.max_depth``, writes its
 radiance to ``rad[pix]`` and is gone: at the frame's last segment every
 path ends.  A survivor, alive after ``n_bounces``, goes to the output
 queue with its 13 planes, its pixel id and its key (``sort_key``).
@@ -58,12 +56,9 @@ import ctypes
 import torch
 
 from parallelraytracing_tpu_torch.ops import rng
-from parallelraytracing_tpu_torch.ops.trace import (_bounce, _check_sky,
-                                                    _check_stream,
-                                                    _check_textures,
-                                                    _light_table, _t_cap,
-                                                    check_tensors, scene_arg,
-                                                    stream_of)
+from parallelraytracing_tpu_torch.ops.pack import check_tensors
+from parallelraytracing_tpu_torch.ops.trace import (_bounce, _t_cap,
+                                                    scene_struct, stream_of)
 
 #: planes of the segment state: origin, direction, throughput, radiance, alive
 PLANES = 13
@@ -108,14 +103,10 @@ def sort_key(state, bb, mode: str) -> torch.Tensor:
     return (oct_ << 27) | (m >> 3)
 
 
-def _key_mode(sort_rays: str, bb) -> int:
+def _key_mode(sort_rays: str) -> int:
     if sort_rays not in KEY_MODES:
         raise ValueError(f"sort_rays {sort_rays!r}: want one of "
                          f"{tuple(KEY_MODES)}")
-    if sort_rays and (bb is None or len(bb) != 2
-                      or any(len(x) != 3 for x in bb)):
-        raise ValueError("a sort key needs the scene box bb ((lo xyz), "
-                         "(1 / extent xyz))")
     return KEY_MODES[sort_rays]
 
 
@@ -140,43 +131,33 @@ def _out_queue(state, sort_rays: str, out):
     return state_out, pix_out, key_out if sort_rays else None
 
 
-def segment(pix, state, count, rad, sph, quad, tri, sph_cl, quad_cl, tri_cl,
-            mats, *, seed: int, depth0: int, max_depth: int, n_bounces: int,
-            t_min: float, t_max: float, sky, tri_live: bool,
-            sort_rays: str = "", bb=None, out=None, rr_depth: int = 0,
-            nee: bool = False, lights=None, inst=None, checker=(), itex=(),
-            itex_tab=None, stream=None, records=None):
+def segment(pix, state, count, rad, tables, cfg, *, seed: int, depth0: int,
+            n_bounces: int, sort_rays: str = "", out=None):
     """Run the queue's paths for up to `n_bounces` bounces; (state_out,
     pix_out, key_out, count_out), ended paths' radiance written to `rad`
     (the module's note)."""
     if state.device.type == "cpu":
-        return segment_reference(
-            pix, state, count, rad, sph, quad, tri, sph_cl, quad_cl, tri_cl,
-            mats, seed=seed, depth0=depth0, max_depth=max_depth,
-            n_bounces=n_bounces, t_min=t_min, t_max=t_max, sky=sky,
-            tri_live=tri_live, sort_rays=sort_rays, bb=bb, out=out,
-            rr_depth=rr_depth, nee=nee, lights=lights, inst=inst,
-            checker=checker, itex=itex, itex_tab=itex_tab, stream=stream)
+        return segment_reference(pix, state, count, rad, tables, cfg,
+                                 seed=seed, depth0=depth0,
+                                 n_bounces=n_bounces, sort_rays=sort_rays,
+                                 out=out)
     if state.device.type != "cuda":
         raise ValueError(f"segment runs on cpu or cuda tensors, not {state.device}")
-    key_mode = _key_mode(sort_rays, bb)
+    key_mode = _key_mode(sort_rays)
     r = int(state.shape[1])
     if state.shape != (PLANES, r):
         raise ValueError(f"state {tuple(state.shape)}: want ({PLANES}, R)")
     if rad.dim() != 2 or rad.shape[1] != 3:
         raise ValueError(f"rad {tuple(rad.shape)}: want (P, 3)")
-    check_tensors(state.device, {"state": state, "rad": rad},
+    check_tensors(state.device, {"state": state, "rad": rad,
+                                 "tables.sph": tables.sph},
                   {"pix": (pix, (r,)), "count": (count, (1,))})
-    scene = scene_arg(state.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
-                      mats, t_min=t_min, t_max=t_max, sky=sky,
-                      tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                      lights=lights, inst=inst, checker=checker, itex=itex,
-                      itex_tab=itex_tab, stream=stream, records=records)
+    scene = scene_struct(tables, cfg)
     state_out, pix_out, key_out = _out_queue(state, sort_rays, out)
     # counters[0]: the next input slot, counters[1]: the survivors (the
     # next segment's count); the launch function sets both to 0
     counters = torch.empty((2,), dtype=torch.int32, device=state.device)
-    box = (ctypes.c_float * 6)(*(bb[0] + bb[1] if bb else (0.0,) * 6))
+    box = (ctypes.c_float * 6)(*(tables.bb[0] + tables.bb[1]))
 
     from parallelraytracing_tpu_torch.ops import _build
     ptr = torch.Tensor.data_ptr
@@ -185,7 +166,7 @@ def segment(pix, state, count, rad, sph, quad, tri, sph_cl, quad_cl, tri_cl,
         ptr(count), ptr(pix_out), ptr(state_out),
         ptr(key_out) if key_out is not None else None, ptr(rad),
         ptr(counters), r, int(seed) & rng.MASK32, int(depth0),
-        int(n_bounces), int(max_depth), key_mode, box)
+        int(n_bounces), int(cfg.max_depth), key_mode, box)
     if err != 0:
         raise RuntimeError(f"segment kernel launch failed: cudaError_t {err}")
     segment.launches += 1
@@ -205,29 +186,22 @@ def segment_config(device, variant: int) -> dict:
                                 stream_of(torch.device(device))[0], variant)
 
 
-def segment_reference(pix, state, count, rad, sph, quad, tri, sph_cl,
-                      quad_cl, tri_cl, mats, *, seed: int, depth0: int,
-                      max_depth: int, n_bounces: int, t_min: float,
-                      t_max: float, sky, tri_live: bool, sort_rays: str = "",
-                      bb=None, out=None, rr_depth: int = 0, nee: bool = False,
-                      lights=None, inst=None, checker=(), itex=(),
-                      itex_tab=None, stream=None, records=None):
+def segment_reference(pix, state, count, rad, tables, cfg, *, seed: int,
+                      depth0: int, n_bounces: int, sort_rays: str = "",
+                      out=None):
     """Plain PyTorch version of ``segment`` (same signature and result;
     the records are not read): ``segment_slots``' step over the live
     prefix, then the ended paths' radiance scattered to `rad` and the
     survivors gathered in queue order."""
-    _key_mode(sort_rays, bb)
+    _key_mode(sort_rays)
     r = state.shape[1]
     dev = state.device
     n = min(int(count.reshape(-1)[0]), r)
-    end = min(depth0 + n_bounces, max_depth)
-    new = _slots(pix, state, seed, depth0, n, max(0, end - depth0), sph,
-                 quad, tri, sph_cl, quad_cl, tri_cl, mats, t_min=t_min,
-                 t_max=t_max, sky=sky, tri_live=tri_live, rr_depth=rr_depth,
-                 nee=nee, lights=lights, inst=inst, checker=checker,
-                 itex=itex, itex_tab=itex_tab, stream=stream)
+    end = min(depth0 + n_bounces, cfg.max_depth)
+    new = _slots(pix, state, seed, depth0, n, max(0, end - depth0), tables,
+                 cfg)
     live = torch.arange(r, device=dev) < n
-    survives = live & (new[12] > 0.0) & (end < max_depth)
+    survives = live & (new[12] > 0.0) & (end < cfg.max_depth)
     ended = torch.nonzero(live & ~survives)[:, 0]
     rad[pix[ended].long()] = new[9:12, ended].t()
     keep = torch.nonzero(survives)[:, 0]
@@ -237,17 +211,13 @@ def segment_reference(pix, state, count, rad, sph, quad, tri, sph_cl,
     pix_out[:c] = pix[keep]
     if key_out is not None:
         key_out.fill_(DEAD_KEY)
-        key_out[:c] = sort_key(new[:, keep], bb, sort_rays)
+        key_out[:c] = sort_key(new[:, keep], tables.bb, sort_rays)
     return (state_out, pix_out, key_out,
             torch.tensor([c], dtype=torch.int32, device=dev))
 
 
-def segment_slots(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
-                  tri_cl, mats, *, n_bounces: int, t_min: float,
-                  t_max: float, sky, tri_live: bool, rr_depth: int = 0,
-                  nee: bool = False, lights=None, inst=None, checker=(),
-                  itex=(), itex_tab=None, stream=None,
-                  records=None) -> torch.Tensor:
+def segment_slots(pix, state, scalars, tables, cfg, *,
+                  n_bounces: int) -> torch.Tensor:
     """The per-slot step: ``pallas_segment``'s result slot for slot.
     `scalars` (3,) int32 [seed, depth0, count]; returns a new (13, R)
     state: the 12 planes after the segment and alive (0.0 ended, 1.0 or
@@ -256,24 +226,16 @@ def segment_slots(pix, state, scalars, sph, quad, tri, sph_cl, quad_cl,
     slots still alive; as in ``trace_reference``, the fold tests every
     slot column of a stream route's tables (the records are not read)."""
     seed, depth0, count = (int(v) for v in scalars.tolist())
-    return _slots(pix, state, seed, depth0, count, n_bounces, sph, quad, tri,
-                  sph_cl, quad_cl, tri_cl, mats, t_min=t_min, t_max=t_max,
-                  sky=sky, tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                  lights=lights, inst=inst, checker=checker, itex=itex,
-                  itex_tab=itex_tab, stream=stream)
+    return _slots(pix, state, seed, depth0, count, n_bounces, tables, cfg)
 
 
 def _slots(pix, state, seed: int, depth0: int, count: int, n_bounces: int,
-           sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *, t_min: float,
-           t_max: float, sky, tri_live: bool, rr_depth: int, nee: bool,
-           lights, inst, checker, itex, itex_tab, stream) -> torch.Tensor:
-    lights = _light_table(nee, lights)
-    sky = _check_sky(sky)
-    _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
-    _check_stream(tri, tri_cl, stream)
+           t, cfg) -> torch.Tensor:
+    lights = t.lights if t.nee else None
+    tri = t.tri if t.tri_live else None
     r = state.shape[1]
     dev = state.device
-    t_cap = _t_cap(t_max)
+    t_cap = _t_cap(cfg.t_max)
     out = state.clone()
     planes = [out[k] for k in range(PLANES - 1)]
     alive = out[12]
@@ -287,9 +249,10 @@ def _slots(pix, state, seed: int, depth0: int, count: int, n_bounces: int,
         depth = depth0 + i
         rng_d = (rng_base[idx] + depth * rng.DEPTH_STEP) & rng.MASK32
         new, alive_out = _bounce([p[idx] for p in planes], alive[idx], rng_d,
-                                 depth, sph, quad, tri if tri_live else None,
-                                 mats, t_min, t_cap, sky, lights, rr_depth,
-                                 inst, checker, itex, itex_tab)
+                                 depth, t.sph, t.quad, tri, t.mats,
+                                 cfg.t_min, t_cap, t.sky, lights,
+                                 cfg.russian_roulette_depth, t.inst,
+                                 t.checker, t.itex, t.itex_tab)
         for p, v in zip(planes, new):
             p[idx] = v
         alive[idx] = alive_out

@@ -24,37 +24,27 @@ image textures and the directional sky.  Two functions of one signature:
   (ops/segment.py).
 
 Rays: o, d (R, 3) float32; pix (R,) int32 pixel ids keying the PCG
-streams; seed the frame's int32 path seed.  Tables: the (C, N) float32
-tables of ops/pack.py (or of the JAX package, via convert.py); ``sky``
-the constant sky (3 floats) or the 13-tuple of
-``engines/tables.sky_spec`` (gradient and sun); ``checker`` the checker
-materials ((material id, cell scale, odd r, g, b), ...) and ``itex`` the
-image-textured ones ((material id, first row, height, width), ...) of
-``pack_kernel_textures``, whose (Rt, 128) texel rows are ``itex_tab``
-(the triangle tables then carry texture coordinates: tri 33 rows, itri
-31); with
-``nee`` the (28, Nl) light table of ``pack_lights_table`` too, whose
-every column is sampled (as in ``pallas_trace``, which takes
-``lights.shape[1]`` lights: pass ``nee`` only for a scene with lights,
-as engines/tables.py does).  ``rr_depth`` > 0 plays Russian roulette
-from that absolute depth on.  ``inst`` is the scene's
-``engines/tables.InstanceTables`` (the four tables of
-``pack_instance_tables`` and each instance's triangle run), or None.
-``records`` is the ``ops/pack.SceneRecords`` of those tables, the copy
-the kernels read (``SceneTables.records``, made once per scene); without
-it the wrapper makes them at each call (``ops/pack.scene_records``: one
-stack of row views a table on the device, ~15 small launches, no host
-sync; the plain version reads the columns and ignores them).  Returns
-(R, 3) float32 radiance.
+streams; seed the frame's int32 path seed.  ``tables`` is the scene's
+``ops/pack.SceneTables`` (``engines/tables.build_scene_tables``, or the
+JAX package's tables via ``convert.tables_from_numpy``), validated when
+it was made: the (C, N) float32 tables of ops/pack.py, the sky spec, the
+light table NEE samples when ``tables.nee`` (every column, as in
+``pallas_trace``, which takes ``lights.shape[1]`` lights), the instance
+tables, the checker and image textures, a mesh on the stream route's
+tables, and the records the kernels read.  ``cfg`` is the
+``RenderConfig``: ``max_depth``, ``t_min``, ``t_max`` and
+``russian_roulette_depth`` (> 0 plays Russian roulette from that
+absolute depth on).  A launch checks the rays and fetches the table set's
+kernel struct for the config (``scene_struct``, made once).  Returns (R,
+3) float32 radiance.
 
 A triangle kind of never-hit pad columns (``tri_live`` False) is skipped.
-``stream`` is the ``ops/pack.StreamTables`` of a mesh on the stream route
-(then ``tri`` holds its chunks' slots and ``tri_cl`` its top tree), or
-None: the kernel walks the top tree to a chunk and the chunk's mini-tree
-to its slots (the stream instantiations of csrc/bounce.cuh), while the
-plain version's brute-force fold over every slot column, pad slots never
-hit, gives the dense answer, which holds the two-level walk to missing
-nothing.
+On the stream route (``tables.stream``: ``tri`` holds the chunks' slots
+and ``tri_cl`` its top tree) the kernel walks the top tree to a chunk and
+the chunk's mini-tree to its slots (the stream instantiations of
+csrc/bounce.cuh), while the plain version's brute-force fold over every
+slot column, pad slots never hit, gives the dense answer, which holds the
+two-level walk to missing nothing.
 
 The probes, as ``pallas_trace`` has them: ``depth_out`` adds each ray's
 depth, the bounces it entered alive, (R,) float32; ``collect_stats`` adds
@@ -75,7 +65,6 @@ fold.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import numpy as np
@@ -84,17 +73,11 @@ import torch
 from parallelraytracing_tpu_torch.core.scene import (MAT_DIELECTRIC, MAT_EMISSIVE,
                                                   MAT_LAMBERTIAN, MAT_METAL)
 from parallelraytracing_tpu_torch.ops import ieee, rng
-from parallelraytracing_tpu_torch.ops.pack import (CLUSTER, IACC_ROWS, IBOX_ROWS,
-                                                   INST_ROWS, ITRI_ROWS,
-                                                   ITRI_UV_ROWS, KTEX_MAX,
-                                                   LIGHT_ROWS, RECORD_KINDS,
-                                                   TEX_LANES, TREE_ROWS,
-                                                   TRI_CLUSTER, TRI_ROWS,
-                                                   TRI_UV_ROWS,
-                                                   check_instance_layout,
-                                                   record_columns,
-                                                   record_rows, scene_records)
+from parallelraytracing_tpu_torch.ops.pack import (CLUSTER, TEX_LANES,
+                                                   TRI_CLUSTER, check_tensors,
+                                                   record_columns)
 from parallelraytracing_tpu_torch.ops.textures import CHECKER_OFFSET
+from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 BIG = 3.0e38
 TWO_PI = 2.0 * math.pi
@@ -112,86 +95,64 @@ INV_255 = float(np.float32(1.0 / 255.0))
 #: (``texture_table``)
 MTEX_ROWS = 6
 
-def _check_sky(sky) -> tuple:
-    """The sky spec as Python numbers: 3 colors, or the 13-tuple of
-    ``engines/tables.sky_spec`` whose last entry is the sun's integer
-    power."""
-    if len(sky) == 3:
-        return tuple(float(s) for s in sky)
-    if len(sky) == 13 and int(sky[12]) == sky[12] and int(sky[12]) >= 0:
-        return tuple(float(s) for s in sky[:12]) + (int(sky[12]),)
-    raise ValueError(f"sky spec of {len(sky)} values: want the constant sky "
-                     f"(3) or the gradient and sun spec (13, integer power)")
-
-
 def _t_cap(t_max: float) -> float:
     return math.inf if t_max >= T_MAX_INF else float(t_max)
 
 
-def trace(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl, tri_cl,
-          mats, *, max_depth: int, t_min: float, t_max: float, sky,
-          tri_live: bool, rr_depth: int = 0, nee: bool = False,
-          lights=None, inst=None, checker=(), itex=(), itex_tab=None,
-          stream=None, depth_out: bool = False,
-          collect_stats: bool = False, records=None):
-    """Trace R rays through up to `max_depth` bounces; (R, 3) radiance,
-    with the probes asked for after it (the module's note).
+def trace(o, d, pix, seed: int, tables, cfg, *, depth_out: bool = False,
+          collect_stats: bool = False):
+    """Trace R rays through up to ``cfg.max_depth`` bounces; (R, 3)
+    radiance, with the probes asked for after it (the module's note).
+    The span ``prt.trace`` holds the call."""
+    with annotate("prt.trace"):
+        if o.device.type == "cpu":
+            return trace_reference(o, d, pix, seed, tables, cfg,
+                                   depth_out=depth_out,
+                                   collect_stats=collect_stats)
+        if o.device.type != "cuda":
+            raise ValueError(f"trace runs on cpu or cuda tensors, not "
+                             f"{o.device}")
+        r = int(o.shape[0])
+        if o.shape != (r, 3) or d.shape != (r, 3):
+            raise ValueError(f"rays: o {tuple(o.shape)}, d {tuple(d.shape)}; "
+                             f"want (R,3), (R,3)")
+        check_tensors(o.device, {"o": o, "d": d, "tables.sph": tables.sph},
+                      {"pix": (pix, (r,))})
+        scene = scene_struct(tables, cfg)
 
-    `tri_live` says whether the triangle table holds any hittable column
-    (engines/tables.py and convert.py compute it on the host)."""
-    if o.device.type == "cpu":
-        return trace_reference(o, d, pix, seed, sph, quad, tri, sph_cl,
-                               quad_cl, tri_cl, mats, max_depth=max_depth,
-                               t_min=t_min, t_max=t_max, sky=sky,
-                               tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                               lights=lights, inst=inst, checker=checker,
-                               itex=itex, itex_tab=itex_tab, stream=stream,
-                               depth_out=depth_out,
-                               collect_stats=collect_stats)
-    if o.device.type != "cuda":
-        raise ValueError(f"trace runs on cpu or cuda tensors, not {o.device}")
-    r = int(o.shape[0])
-    if o.shape != (r, 3) or d.shape != (r, 3):
-        raise ValueError(f"rays: o {tuple(o.shape)}, d {tuple(d.shape)}; "
-                         f"want (R,3), (R,3)")
-    check_tensors(o.device, {"o": o, "d": d}, {"pix": (pix, (r,))})
-    scene = scene_arg(o.device, sph, quad, tri, sph_cl, quad_cl, tri_cl,
-                      mats, t_min=t_min, t_max=t_max, sky=sky,
-                      tri_live=tri_live, rr_depth=rr_depth, nee=nee,
-                      lights=lights, inst=inst, checker=checker, itex=itex,
-                      itex_tab=itex_tab, stream=stream, records=records)
-
-    from parallelraytracing_tpu_torch.ops import _build
-    out = torch.empty((r, 3), dtype=torch.float32, device=o.device)
-    ptr = torch.Tensor.data_ptr
-    if not (depth_out or collect_stats):
-        # the persistent grid's ray counter, 0 at the launch
-        nxt = torch.zeros((1,), dtype=torch.int32, device=o.device)
-        err = _build.load("trace")(
+        from parallelraytracing_tpu_torch.ops import _build
+        out = torch.empty((r, 3), dtype=torch.float32, device=o.device)
+        ptr = torch.Tensor.data_ptr
+        if not (depth_out or collect_stats):
+            # the persistent grid's ray counter, 0 at the launch
+            nxt = torch.zeros((1,), dtype=torch.int32, device=o.device)
+            err = _build.load("trace")(
+                *stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d),
+                ptr(pix), ptr(out), ptr(nxt), r, int(seed) & rng.MASK32,
+                int(cfg.max_depth))
+            if err != 0:
+                raise RuntimeError(f"trace kernel launch failed: "
+                                   f"cudaError_t {err}")
+            trace.launches += 1
+            return out
+        depth = torch.empty((r,), dtype=torch.float32, device=o.device)
+        stats = torch.empty((r, 4), dtype=torch.int32, device=o.device)
+        err = _build.load("probe")(
             *stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d),
-            ptr(pix), ptr(out), ptr(nxt), r, int(seed) & rng.MASK32,
-            int(max_depth))
+            ptr(pix), ptr(out), ptr(depth), ptr(stats), r,
+            int(seed) & rng.MASK32, int(cfg.max_depth))
         if err != 0:
-            raise RuntimeError(f"trace kernel launch failed: cudaError_t {err}")
-        trace.launches += 1
-        return out
-    depth = torch.empty((r,), dtype=torch.float32, device=o.device)
-    stats = torch.empty((r, 4), dtype=torch.int32, device=o.device)
-    err = _build.load("probe")(
-        *stream_of(o.device), ctypes.byref(scene), ptr(o), ptr(d), ptr(pix),
-        ptr(out), ptr(depth), ptr(stats), r, int(seed) & rng.MASK32,
-        int(max_depth))
-    if err != 0:
-        raise RuntimeError(f"probe kernel launch failed: cudaError_t {err}")
-    trace.probe_launches += 1
-    return _with_probes(out, depth, stats, depth_out, collect_stats)
+            raise RuntimeError(f"probe kernel launch failed: cudaError_t "
+                               f"{err}")
+        trace.probe_launches += 1
+        return _with_probes(out, depth, stats, depth_out, collect_stats)
 
 
 trace.launches = 0
 trace.probe_launches = 0
 
 def trace_variant(scene) -> int:
-    """The instantiation a launch picks for a ``scene_arg`` struct
+    """The instantiation a launch picks for a ``scene_struct`` struct
     (csrc/bounce.cuh kernel_variant)."""
     from parallelraytracing_tpu_torch.ops import _build
     lib = _build.load("trace").library
@@ -225,120 +186,21 @@ def stream_of(device) -> tuple:
     return index, torch.cuda.current_stream(device).cuda_stream
 
 
-def check_tensors(device, floats: dict, ints: dict) -> None:
-    """Validate what a kernel reads: float32 `floats` and int32 `ints`
-    ({name: (tensor, shape)}), all contiguous and on `device`."""
-    for name, (t, shape) in ints.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} {tuple(t.shape)}: want {shape}")
-    for name, t in floats.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    for name, t in {**floats, **{k: v[0] for k, v in ints.items()}}.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, rays on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _light_table(nee: bool, lights):
-    """The light table NEE samples, or None with NEE off."""
-    if not nee:
-        return None
-    if lights is None or lights.dim() != 2 or lights.shape[0] != LIGHT_ROWS:
-        raise ValueError("nee needs the (28, Nl) light table of "
-                         "pack_lights_table as `lights`")
-    return lights
-
-
-def _instance_tables(device, inst):
-    """Validate the instance tables a kernel reads: their widths for
-    ``PrtScene``, all 0 without instances."""
-    if inst is None:
-        return (0,) * 3
-    check_instance_layout(inst.itri.shape[0], inst.iacc.shape[0])
-    tabs = {"itri": inst.itri, "iacc": inst.iacc, "ibox": inst.ibox,
-            "inst": inst.inst}
-    check_tensors(device, tabs, {})
-    n_inst = inst.inst.shape[1]
-    if (inst.itri.dim() != 2 or inst.iacc.dim() != 2 or n_inst < 1
-            or tuple(inst.ibox.shape) != (IBOX_ROWS, n_inst)
-            or inst.inst.shape[0] != INST_ROWS or len(inst.ranges) != n_inst):
-        raise ValueError(
-            f"instance tables: want itri ({ITRI_ROWS}, Nt), iacc "
-            f"({IACC_ROWS}, Mb), ibox ({IBOX_ROWS}, Ni), inst ({INST_ROWS}, "
-            f"Ni) with Ni >= 1 and one triangle run per instance")
-    return inst.itri.shape[1], inst.iacc.shape[1], n_inst
-
-
-def _check_stream(tri, tri_cl, stream) -> None:
-    """Validate a stream route's tables: the top tree (8, M), the mini-trees
-    (8, n_chunks * node_rows) and the slots (C, n_chunks * chunk)."""
-    if stream is None:
-        return
-    chunk, node_rows = int(stream.chunk), int(stream.node_rows)
-    mini = stream.mini
-    n_chunks = mini.shape[1] // node_rows if node_rows > 0 else 0
-    if (chunk < 1 or node_rows < 1 or mini.dim() != 2
-            or mini.shape[0] != TREE_ROWS or n_chunks < 1
-            or mini.shape[1] != n_chunks * node_rows
-            or tri.shape[1] != n_chunks * chunk
-            or tri_cl.shape[0] != TREE_ROWS):
-        raise ValueError(
-            f"stream tables: want mini ({TREE_ROWS}, n_chunks x node_rows "
-            f"{node_rows}), tri (C, n_chunks x chunk {chunk}) and an "
-            f"({TREE_ROWS}, M) top tree; got mini {tuple(mini.shape)}, tri "
-            f"{tuple(tri.shape)}, tri_cl {tuple(tri_cl.shape)}")
-
-
-def _check_textures(checker, itex, itex_tab, tri, inst, n_mats: int) -> None:
-    """Validate the texture specs against the tables: material ids in
-    range, image textures within KTEX_MAX and within the texel rows, and
-    texture coordinates in the triangle tables when an image is used."""
-    for c in checker:
-        if len(c) != 5 or not 0 <= int(c[0]) < n_mats:
-            raise ValueError(f"checker entry {c}: want (material id < "
-                             f"{n_mats}, scale, r, g, b)")
-    if not itex:
-        return
-    if itex_tab is None or itex_tab.dim() != 2 \
-            or itex_tab.shape[1] != TEX_LANES:
-        raise ValueError(f"image textures need their (Rt, {TEX_LANES}) texel "
-                         f"rows as itex_tab (ops/pack.pack_kernel_textures)")
-    for mid, toff, th, tw in itex:
-        rows = -(-int(th) * int(tw) // TEX_LANES)
-        if (not 0 <= int(mid) < n_mats or not 0 < th <= KTEX_MAX
-                or not 0 < tw <= KTEX_MAX or toff < 0
-                or toff + rows > itex_tab.shape[0]):
-            raise ValueError(f"itex entry {(mid, toff, th, tw)}: want a "
-                             f"material id < {n_mats} and an image of at "
-                             f"most {KTEX_MAX}x{KTEX_MAX} inside itex_tab "
-                             f"({itex_tab.shape[0]} rows)")
-    if tri.shape[0] != TRI_UV_ROWS or (
-            inst is not None and inst.itri.shape[0] != ITRI_UV_ROWS):
-        raise ValueError(f"image textures need texture coordinates: tri of "
-                         f"{TRI_UV_ROWS} rows and itri of {ITRI_UV_ROWS}")
-
-
-@functools.lru_cache(maxsize=32)
-def texture_table(checker: tuple, itex: tuple, n_mats: int,
-                  device: torch.device) -> torch.Tensor:
-    """The per-material texture table the kernels read, (6, n_mats)
-    float32 on `device` (cached: built once per scene and device).  Row 0
-    is the kind (0 none, 1 checker, 2 image); a checker's rows 1-4 its
-    cell scale and odd color; an image's rows 1-5 its first texel row,
-    height, width, 1/height and 1/width (float32 of the float64
-    quotients, the JAX kernel's constants).  A material has at most one
-    texture, so one lookup by material id stands for the JAX kernel's
-    unrolled loops over the checker and image lists."""
-    lut = np.zeros((MTEX_ROWS, n_mats), np.float32)
-    for mid, scale, r, g, b in checker:
+def texture_table(t) -> torch.Tensor:
+    """The per-material texture table the kernels read for SceneTables
+    `t`, (6, n_mats) float32 on its device.  Row 0 is the kind (0 none, 1
+    checker, 2 image); a checker's rows 1-4 its cell scale and odd color;
+    an image's rows 1-5 its first texel row, height, width, 1/height and
+    1/width (float32 of the float64 quotients, the JAX kernel's
+    constants).  A material has at most one texture, so one lookup by
+    material id stands for the JAX kernel's unrolled loops over the
+    checker and image lists."""
+    lut = np.zeros((MTEX_ROWS, int(t.mats.shape[1])), np.float32)
+    for mid, scale, r, g, b in t.checker:
         lut[:5, int(mid)] = (1.0, scale, r, g, b)
-    for mid, toff, th, tw in itex:
+    for mid, toff, th, tw in t.itex:
         lut[:, int(mid)] = (2.0, toff, th, tw, 1.0 / th, 1.0 / tw)
-    return torch.from_numpy(lut).to(device)
+    return torch.from_numpy(lut).to(t.mats.device)
 
 
 def sky_mode(sky: tuple) -> int:
@@ -350,98 +212,53 @@ def sky_mode(sky: tuple) -> int:
     return 2 if any(sky[9:12]) else 1
 
 
-def _check_records(records, device, cols: dict) -> None:
-    """Validate `records` (ops/pack.SceneRecords) against the column
-    tables `cols` ({field: table or None}) they stand for: each a
-    contiguous float32 tensor on `device` with one record a column."""
-    for name, kind in RECORD_KINDS:
-        col, rec = cols.get(name), getattr(records, name)
-        if col is None:
-            continue
-        want = (int(col.shape[1]), len(record_rows(kind, int(col.shape[0]))))
-        if rec is None or tuple(rec.shape) != want:
-            raise ValueError(f"records.{name}: want {want} for its "
-                             f"{tuple(col.shape)} table, got "
-                             f"{None if rec is None else tuple(rec.shape)}")
-        check_tensors(device, {f"records.{name}": rec}, {})
-
-
-def scene_arg(device, sph, quad, tri, sph_cl, quad_cl, tri_cl, mats, *,
-              t_min: float, t_max: float, sky, tri_live: bool,
-              rr_depth: int = 0, nee: bool = False, lights=None, inst=None,
-              checker=(), itex=(), itex_tab=None, stream=None, records=None):
-    """Validate the tables a kernel reads and pack their records
-    (`records`, or ``ops/pack.scene_records`` of the tables when it is
-    None) into the ``PrtScene`` struct of csrc/bounce.cuh.  The struct
-    holds raw device pointers: the records must outlive the launch; the
-    struct keeps them as its ``records`` attribute."""
+def scene_struct(t, cfg):
+    """The ``PrtScene`` struct of csrc/bounce.cuh for SceneTables `t` under
+    `cfg`'s t_min, t_max and russian_roulette_depth: made at the first
+    call for each such triple and kept on the table set (``t.structs``),
+    so a launch only fetches it.  The engines make theirs at init.  The
+    struct holds raw pointers to the table set's records and its texture
+    table (kept as the struct's ``texture_table``); it keeps the
+    records as its ``records``."""
+    key = (float(cfg.t_min), float(cfg.t_max),
+           max(int(cfg.russian_roulette_depth), 0))
+    scene = t.structs.get(key)
+    if scene is not None:
+        return scene
     from parallelraytracing_tpu_torch.ops import _build
-    sky = _check_sky(sky)
-    lights = _light_table(nee, lights)
-    inst_arg = _instance_tables(device, inst)
-    check_tensors(device, {"sph": sph, "quad": quad, "tri": tri,
-                           "sph_cl": sph_cl, "quad_cl": quad_cl,
-                           "tri_cl": tri_cl, "mats": mats,
-                           **({} if lights is None else {"lights": lights}),
-                           **({} if not itex else {"itex_tab": itex_tab}),
-                           **({} if stream is None else {"mini": stream.mini})},
-                  {})
-    if (sph.shape[0] != 6 or quad.shape[0] != 14
-            or tri.shape[0] not in (TRI_ROWS, TRI_UV_ROWS)
-            or mats.shape[0] != 5):
-        raise ValueError("tables: want sph (6,N), quad (14,N), tri (27,N) "
-                         "or (33,N), mats (5,N)")
-    _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
-    _check_stream(tri, tri_cl, stream)
-    # Each kind's linear table has one column per run of its own cluster
-    # size (TRI_CLUSTER for triangles) plus the root pretest column.
-    for name, cl, n, csize in (("sph_cl", sph_cl, sph.shape[1], CLUSTER),
-                               ("quad_cl", quad_cl, quad.shape[1], CLUSTER),
-                               ("tri_cl", tri_cl, tri.shape[1], TRI_CLUSTER)):
-        n_cl = max(1, -(-int(n) // csize))
-        if not (cl.shape[0] == 8
-                or (cl.shape[0] == 6 and cl.shape[1] == n_cl + 1)):
-            raise ValueError(f"{name} {tuple(cl.shape)}: want an (8, M) "
-                             f"tree or a (6, {n_cl + 1}) linear table")
-    tabs = (sph, quad, tri, sph_cl, quad_cl, tri_cl, mats)
-    cols = record_columns(*tabs, lights=lights, inst=inst, stream=stream)
-    if records is None:
-        records = scene_records(*tabs, lights=lights, inst=inst,
-                                stream=stream)
-    else:
-        _check_records(records, device, cols)
+    t_min, t_max, rr_depth = key
+    cols = record_columns(t)
 
     def rec(name):
-        return None if cols.get(name) is None else getattr(records,
+        return None if cols.get(name) is None else getattr(t.records,
                                                            name).data_ptr()
 
     def width(name):  # float4s a record
-        return 0 if cols.get(name) is None else getattr(records,
+        return 0 if cols.get(name) is None else getattr(t.records,
                                                         name).shape[1] // 4
 
-    textured = bool(checker) or bool(itex)
-    mtex = (texture_table(tuple(tuple(float(x) for x in c) for c in checker),
-                          tuple((float(m), int(o), int(h), int(w))
-                                for m, o, h, w in itex),
-                          int(mats.shape[1]), device) if textured else None)
+    sky, stream, inst = t.sky, t.stream, t.inst
+    mtex = texture_table(t) if t.checker or t.itex else None
     scene = _build.PrtScene(
-        rec("sph"), rec("sph_cl"), sph.shape[1], *sph_cl.shape,
-        rec("quad"), rec("quad_cl"), quad.shape[1], *quad_cl.shape,
+        rec("sph"), rec("sph_cl"), t.sph.shape[1], *t.sph_cl.shape,
+        rec("quad"), rec("quad_cl"), t.quad.shape[1], *t.quad_cl.shape,
         rec("tri"), rec("tri_tail"), rec("tri_cl"),
-        tri.shape[1] if tri_live else 0, *tri_cl.shape, width("tri_tail"),
-        rec("mats"), mats.shape[1], CLUSTER, TRI_CLUSTER,
-        float(t_min), _t_cap(t_max),
-        (ctypes.c_float * 13)(*(sky + (0.0,) * 10)[:13]),
-        sky_mode(sky), rec("lights"),
-        0 if lights is None else lights.shape[1], max(int(rr_depth), 0),
+        t.tri.shape[1] if t.tri_live else 0, *t.tri_cl.shape,
+        width("tri_tail"), rec("mats"), t.mats.shape[1], CLUSTER,
+        TRI_CLUSTER, t_min, _t_cap(t_max),
+        (ctypes.c_float * 13)(*(tuple(sky) + (0.0,) * 10)[:13]),
+        sky_mode(sky), rec("lights") if t.nee else None,
+        t.lights.shape[1] if t.nee else 0, rr_depth,
         rec("itri"), rec("itri_tail"), rec("iacc"), rec("ibox"), rec("inst"),
-        *inst_arg, width("itri_tail"),
-        None if mtex is None else mtex.data_ptr(),
-        itex_tab.data_ptr() if itex else None,
+        *((0, 0, 0) if inst is None else
+          (inst.itri.shape[1], inst.iacc.shape[1], inst.n_inst)),
+        width("itri_tail"), None if mtex is None else mtex.data_ptr(),
+        t.itex_tab.data_ptr() if t.itex else None,
         *((None, 0, 0, 0, 0) if stream is None else
           (rec("mini"), stream.mini.shape[1], int(stream.chunk),
            int(stream.node_rows), stream.shift)))
-    scene.records = records
+    scene.records, scene.texture_table = t.records, mtex
+    t.structs[key] = scene
     return scene
 
 
@@ -896,7 +713,7 @@ def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
     before it (1, or 2: emission was sampled by NEE at the previous vertex
     and is not added again).  `tri` is None when the scene has no
     hittable triangle, `lights` None when NEE is off, `inst` None without
-    instances.  `sky` is a spec of ``_check_sky``; the textures of
+    instances.  `sky` is a spec of ``ops/pack.check_sky``; the textures of
     `checker` and `itex` apply before emission, NEE and attenuation.
     `record` collects the NEE shadow walks (``_nee_direct``)."""
     nee = lights is not None
@@ -1050,29 +867,24 @@ def _bounce(state, alive, rng_d, depth: int, sph, quad, tri, mats, t_min,
     return (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb), cw
 
 
-def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
-                    tri_cl, mats, *, max_depth: int, t_min: float,
-                    t_max: float, sky, tri_live: bool, rr_depth: int = 0,
-                    nee: bool = False, lights=None, inst=None, checker=(),
-                    itex=(), itex_tab=None, stream=None,
-                    depth_out: bool = False,
-                    collect_stats: bool = False, records=None):
+def trace_reference(o, d, pix, seed: int, tables, cfg, *,
+                    depth_out: bool = False, collect_stats: bool = False):
     """Plain PyTorch version of ``trace`` (same signature and result; the
     records are the kernels' copy of the tables and are not read).
     Each bounce runs on the rays still alive: a dead ray's bounce leaves
     its state unchanged, as in the TPU kernel's dead-tile exit.  The
-    stream tables are validated and not walked by the radiance's fold,
-    which tests every slot column.  ``depth_out`` counts the bounces each
-    ray enters alive; ``collect_stats`` records every walk the kernel
-    makes (each alive ray's closest-hit walk per bounce, each NEE shadow
-    ray's any-hit walk) and replays them (ops/walk_stats.py)."""
-    lights = _light_table(nee, lights)
-    sky = _check_sky(sky)
-    _check_textures(checker, itex, itex_tab, tri, inst, int(mats.shape[1]))
-    _check_stream(tri, tri_cl, stream)
+    stream tables are not walked by the radiance's fold, which tests every
+    slot column.  ``depth_out`` counts the bounces each ray enters alive;
+    ``collect_stats`` records every walk the kernel makes (each alive
+    ray's closest-hit walk per bounce, each NEE shadow ray's any-hit walk)
+    and replays them (ops/walk_stats.py)."""
+    t = tables
+    lights = t.lights if t.nee else None
+    tri = t.tri if t.tri_live else None
+    t_min = cfg.t_min
     r = o.shape[0]
     dev = o.device
-    t_cap = _t_cap(t_max)
+    t_cap = _t_cap(cfg.t_max)
     ones = torch.ones(r, dtype=torch.float32, device=dev)
     zeros = torch.zeros(r, dtype=torch.float32, device=dev)
     state = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
@@ -1085,7 +897,7 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
     idx = torch.arange(r, device=dev)
     steps = torch.zeros(r, dtype=torch.int32, device=dev)
     walks = [] if collect_stats else None
-    for depth in range(max_depth):
+    for depth in range(cfg.max_depth):
         if idx.numel() == 0:
             break
         steps[idx] += 1
@@ -1095,10 +907,10 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
         if collect_stats:
             walks.append((idx, *ray[:6], torch.full_like(ray[0], BIG),
                           torch.full_like(ray[0], float(1 << 24)), False))
-        new, alive_out = _bounce(ray, alive[idx], rng_d,
-                                 depth, sph, quad, tri if tri_live else None,
-                                 mats, t_min, t_cap, sky, lights, rr_depth,
-                                 inst, checker, itex, itex_tab, shadows)
+        new, alive_out = _bounce(ray, alive[idx], rng_d, depth, t.sph,
+                                 t.quad, tri, t.mats, t_min, t_cap, t.sky,
+                                 lights, cfg.russian_roulette_depth, t.inst,
+                                 t.checker, t.itex, t.itex_tab, shadows)
         for sel, *shadow in shadows or ():
             walks.append((idx[sel], *shadow, True))
         for s, v in zip(state, new):
@@ -1111,8 +923,8 @@ def trace_reference(o, d, pix, seed: int, sph, quad, tri, sph_cl, quad_cl,
         from parallelraytracing_tpu_torch.ops import walk_stats
         stats = torch.zeros((r, 4), dtype=torch.int32, device=dev)
         stats[:, :3] = walk_stats.per_ray(
-            walks, r, sph, quad, tri if tri_live else None, sph_cl, quad_cl,
-            tri_cl, t_min=t_min, t_cap=t_cap, inst=inst, stream=stream)
+            walks, r, t.sph, t.quad, tri, t.sph_cl, t.quad_cl, t.tri_cl,
+            t_min=t_min, t_cap=t_cap, inst=t.inst, stream=t.stream)
         stats[:, 3] = steps
     return _with_probes(rad, steps.to(torch.float32), stats, depth_out,
                         collect_stats)

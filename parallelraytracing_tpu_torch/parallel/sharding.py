@@ -252,13 +252,13 @@ def _stream_rays(cfg, cam, ids, jseed: int, qpt):
 def fused_block(cfg, tables, cam, seed0: int, jseed0: int, ids, spp_i: int,
                 qpt=None) -> torch.Tensor:
     """Sample stream spp_i of the pixel ids `ids` through the trace kernel
-    (engines/tables.trace_tables; K1 on a card): (len(ids), 3) radiance.
-    The global pixel ids key the streams, so a pixel's result does not
-    depend on its block."""
-    from parallelraytracing_tpu_torch.engines.tables import trace_tables
+    (ops/trace.trace; K1 on a card): (len(ids), 3) radiance.  The global
+    pixel ids key the streams, so a pixel's result does not depend on its
+    block."""
+    from parallelraytracing_tpu_torch.ops.trace import trace
     seed, jseed = _spp_stream_offset(seed0, jseed0, spp_i)
     o, d = _stream_rays(cfg, cam, ids, jseed, qpt)
-    return trace_tables(tables, o, d, ids, seed, cfg)
+    return trace(o, d, ids, seed, tables, cfg)
 
 
 def segmented_block(cfg, n_slots: int, segment: int, schedule: tuple,

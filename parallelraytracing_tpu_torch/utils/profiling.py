@@ -1,8 +1,9 @@
 """Profiling hooks (the counterpart of
 ``parallelraytracing_tpu.utils.profiling``).
 
-- ``annotate(name)``: the program's one span.  The engines put one
-  around each stage of a frame (``prt.frame``, ``prt.seeds``,
+- ``annotate(name)``: the program's one span.  The engines (and
+  ``ops/trace.trace``, its own) put one around each stage of a frame
+  (``prt.frame``, ``prt.seeds``,
   ``prt.raygen``, ``prt.trace``, ``prt.segment``, ``prt.resort``,
   ``prt.film_add``, ``prt.set_camera``, ``prt.film_clear``,
   ``prt.gather_film``, ``prt.display``), and two around the set-up's

@@ -26,7 +26,7 @@ from parallelraytracing_tpu.engines import adaptive as jadaptive  # noqa: E402
 
 import parallelraytracing_tpu_torch as T  # noqa: E402
 from parallelraytracing_tpu_torch.engines import adaptive  # noqa: E402
-from parallelraytracing_tpu_torch.engines.tables import trace_tables  # noqa: E402
+from parallelraytracing_tpu_torch.ops.trace import trace  # noqa: E402
 
 
 def _jax_engine(w, h, budget):
@@ -110,7 +110,7 @@ def test_adaptive_frame_is_trace_reference_of_the_selection():
     sel = adaptive.select_slots(r._m1, r._m2, r._n, r._budget_slots)
     assert sel.numel() == 3072 and bool((sel[1:] > sel[:-1]).all())
     o, d, s0 = r._sample_rays(r._ids[sel], 1, 0)
-    rad = trace_tables(r._tables, o, d, r._ids[sel], s0, r.config)
+    rad = trace(o, d, r._ids[sel], s0, r._tables, r.config)
     r.progressive_render()
     want = T.Film(96, 64, "cpu")
     want.set_layout(r.film_layout())

@@ -34,6 +34,8 @@ profiler, and its film is bit-equal to the same sample buffers
 accumulated with a float32 weight tensor.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -99,12 +101,9 @@ def traced(r, fn, max_depth=None):
     (NEE, Russian roulette, instances and textures as the renderer runs
     them)."""
     t, cfg = r._tables, r.config
-    return lambda o, d, pix, seed: fn(
-        o, d, pix, seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl,
-        t.mats, max_depth=max_depth or cfg.max_depth, t_min=cfg.t_min,
-        t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=t.nee,
-        lights=t.lights, rr_depth=cfg.russian_roulette_depth, inst=t.inst,
-        checker=t.checker, itex=t.itex, itex_tab=t.itex_tab, stream=t.stream)
+    if max_depth:
+        cfg = cfg.replace(max_depth=max_depth)
+    return lambda o, d, pix, seed: fn(o, d, pix, seed, t, cfg)
 
 
 def ray_share(k, p):
@@ -139,6 +138,8 @@ def test_kernel_matches_plain(cuda, preset):
 
 @pytest.mark.cuda
 def test_engine_launches_kernel_and_wrapper_checks(cuda):
+    from parallelraytracing_tpu_torch import RenderConfig, Scene, ScenePreset
+    from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
     from parallelraytracing_tpu_torch.ops.trace import trace
     r, film = preset_renderer("material_test", 64, 48, max_depth=4)
     before = trace.launches
@@ -150,14 +151,16 @@ def test_engine_launches_kernel_and_wrapper_checks(cuda):
 
     o, d, pix, seed = frame_inputs(r, 0)
     t = r._tables
-    args = (seed, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(max_depth=4, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=False)
+    cfg = RenderConfig(max_depth=4, t_min=1e-3, t_max=1e16)
     with pytest.raises(TypeError):
-        trace(o, d, pix.to(torch.int64), *args, **kw)
+        trace(o, d, pix.to(torch.int64), seed, t, cfg)
     with pytest.raises(ValueError):
-        trace(o, d.t().contiguous().t(), pix, *args, **kw)
+        trace(o, d.t().contiguous().t(), pix, seed, t, cfg)
+    with pytest.raises(ValueError, match="tables.sph"):
+        trace(o, d, pix, seed, build_scene_tables(
+            Scene(ScenePreset.MATERIAL_TEST), "cpu")[0], cfg)
     with pytest.raises(ValueError, match="light table"):
-        trace(o, d, pix, *args, **{**kw, "nee": True})
+        dataclasses.replace(t, lights=t.lights[:-1].contiguous())
     assert trace.launches == before + 2
 
 
@@ -222,15 +225,13 @@ def queue_both(r, pix, state, count, seed, depth0, n_bounces, fns=None):
     state) with `count` live, through the kernel and the plain version
     (or `fns`): each one's (result, per-pixel outcomes), and the pixels
     of the live slots."""
-    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
-        _run_segment
     from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
     out = []
     for fn in fns or (segment, segment_reference):
         rad = torch.full((r.config.width * r.config.height, 3), float("nan"),
                          device="cuda")
-        res = _run_segment(r._tables, (state, pix), count, rad, seed, depth0,
-                           n_bounces, r.config, r.sort_rays, fn)
+        res = fn(pix, state, count, rad, r._tables, r.config, seed=seed,
+                 depth0=depth0, n_bounces=n_bounces, sort_rays=r.sort_rays)
         out.append((res, segment_outcomes(res, rad)))
     return out, pix[:int(count)].long()
 
@@ -292,16 +293,17 @@ def test_segment_kernel_matches_plain(cuda, mesh_ply):
 
 @pytest.mark.cuda
 def test_segment_wrapper_checks(cuda, mesh_ply):
+    from parallelraytracing_tpu_torch import RenderConfig
     from parallelraytracing_tpu_torch.ops.segment import PLANES, segment
     r, _ = mesh_renderer("wavefront_fused", mesh_ply, 16, 8)
     t = r._tables
+    assert t.tri_live
     pix = torch.arange(4, dtype=torch.int32, device="cuda")
     state = torch.zeros((PLANES, 4), device="cuda")
     count = torch.tensor([4], dtype=torch.int32, device="cuda")
     rad = torch.zeros((4, 3), device="cuda")
-    tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(seed=1, depth0=0, max_depth=4, n_bounces=1, t_min=1e-3,
-              t_max=1e16, sky=t.sky, tri_live=True)
+    tabs = (t, RenderConfig(max_depth=4, t_min=1e-3, t_max=1e16))
+    kw = dict(seed=1, depth0=0, n_bounces=1)
     before = segment.launches
     s, p, k, c = segment(pix, state, count, rad, *tabs, **kw)
     assert s.shape == (PLANES, 4) and k is None and c.shape == (1,)
@@ -312,11 +314,11 @@ def test_segment_wrapper_checks(cuda, mesh_ply):
     with pytest.raises(ValueError):
         segment(pix.cpu(), state, count, rad, *tabs, **kw)
     with pytest.raises(ValueError, match="light table"):
-        segment(pix, state, count, rad, *tabs, **kw, nee=True)
+        dataclasses.replace(t, lights=t.lights[:-1].contiguous())
     with pytest.raises(ValueError, match="sort_rays"):
         segment(pix, state, count, rad, *tabs, **kw, sort_rays="depth")
     with pytest.raises(ValueError, match="scene box"):
-        segment(pix, state, count, rad, *tabs, **kw, sort_rays="octant")
+        dataclasses.replace(t, bb=((0.0, 0.0, 0.0),))
     assert segment.launches == before + 1
 
 

@@ -95,16 +95,13 @@ def test_extension_presets_raise(preset):
     assert (preset == "sky_demo") == (len(t.sky) == 13)
     o = torch.zeros((2, 3))
     d = torch.tensor([[0.0, -1.0, 0.0], [0.0, 1.0, 0.0]])
-    args = (o, d, torch.arange(2, dtype=torch.int32), 1, t.sph, t.quad, t.tri,
-            t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(max_depth=2, t_min=1e-3, t_max=1e16, sky=t.sky,
-              tri_live=t.tri_live, checker=t.checker, itex=t.itex,
-              itex_tab=t.itex_tab)
-    assert trace(*args, **kw).shape == (2, 3)
+    args = (o, d, torch.arange(2, dtype=torch.int32), 1, t,
+            T.RenderConfig(max_depth=2, t_min=1e-3, t_max=1e16))
+    assert trace(*args).shape == (2, 3)
     for extra, shape, dtype in ((dict(depth_out=True), (2,), torch.float32),
                                 (dict(collect_stats=True), (2, 4),
                                  torch.int32)):
-        rad, probe = trace(*args, **kw, **extra)
+        rad, probe = trace(*args, **extra)
         assert rad.shape == (2, 3) and probe.shape == shape
         assert probe.dtype == dtype
 

@@ -46,7 +46,7 @@ from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # no
 from parallelraytracing_tpu_torch.ops.pack import (instance_ranges,  # noqa: E402
                                                    pack_instance_tables)
 from parallelraytracing_tpu_torch.ops.segment import PLANES, segment_slots  # noqa: E402
-from parallelraytracing_tpu_torch.ops.trace import (scene_arg, trace,  # noqa: E402
+from parallelraytracing_tpu_torch.ops.trace import (scene_struct, trace,  # noqa: E402
                                                     trace_reference)
 from torch_meshes import (ICO_F, ICO_V, make_mesh, tlas_scene,  # noqa: E402
                           two_mesh_scene)
@@ -183,10 +183,7 @@ def _trace_both(name, depth, jitter, nee):
         jt.sky, interpret=True, nee=jt.nee, inst=jt.inst,
         itri_vmem=jt.itri_vmem))
     got = trace(torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)),
-                torch.from_numpy(ids), SEED, t.sph, t.quad, t.tri, t.sph_cl,
-                t.quad_cl, t.tri_cl, t.mats, max_depth=depth, t_min=cfg.t_min,
-                t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=t.nee,
-                lights=t.lights, inst=t.inst).numpy()
+                torch.from_numpy(ids), SEED, t, cfg).numpy()
     return ref, got
 
 
@@ -228,10 +225,8 @@ def test_segment_matches_pallas_segment(nee):
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
     got = segment_slots(
         torch.from_numpy(ids), torch.from_numpy(state),
-        torch.tensor([SEED, 1, COUNT], dtype=torch.int32), t.sph, t.quad,
-        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
-        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-        nee=t.nee, lights=t.lights, inst=t.inst).numpy()
+        torch.tensor([SEED, 1, COUNT], dtype=torch.int32), t, cfg,
+        n_bounces=2).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     np.testing.assert_array_equal(got[12], ref[12])
     np.testing.assert_allclose(got[:12, :COUNT], ref[:12, :COUNT], rtol=0,
@@ -319,22 +314,20 @@ def test_tri_heavy_counts_instanced_triangles():
 
 
 def test_kernel_scene_struct_carries_instances():
-    """scene_arg packs the instance tables' widths and records (the
-    tables' own, made once with them) into PrtScene and refuses tables of
-    the wrong shape."""
+    """scene_struct packs the instance tables' widths and records (the
+    tables' own, made once with them) into PrtScene; the table set refuses
+    instance tables of the wrong shape when it is made."""
     t, _ = build_scene_tables(make_scene("two", T.Scene), "cpu")
-    tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=t.tri_live)
-    cpu = torch.device("cpu")
-    s = scene_arg(cpu, *tabs, **kw, inst=t.inst, records=t.records)
+    cfg = T.RenderConfig()
+    s = scene_struct(t, cfg)
     assert (s.n_itri, s.n_iacc, s.n_inst) == (100, t.inst.iacc.shape[1], 4)
     assert s.itri == t.records.itri.data_ptr() and s.n_tri == 0
-    assert scene_arg(cpu, *tabs, **kw).n_inst == 0
+    assert scene_struct(dataclasses.replace(t, inst=None), cfg).n_inst == 0
     bad = dataclasses.replace(t.inst, ibox=t.inst.ibox[:, :3].contiguous())
     with pytest.raises(ValueError, match="instance tables"):
-        scene_arg(cpu, *tabs, **kw, inst=bad)
+        dataclasses.replace(t, inst=bad)
     with pytest.raises(NotImplementedError, match="item 13"):
-        scene_arg(cpu, *tabs, **kw, inst=dataclasses.replace(
+        dataclasses.replace(t, inst=dataclasses.replace(
             t.inst, iacc=torch.zeros((10, 4))))
 
 
@@ -363,15 +356,15 @@ def test_remaining_refusals_raise():
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, -1.0, 0.0]]).repeat(4, 1)
     pix = torch.arange(4, dtype=torch.int32)
-    kw = dict(max_depth=2, t_min=1e-3, t_max=1e16, sky=t.sky,
-              tri_live=False, inst=t.inst)
+    t = dataclasses.replace(t, tri_live=False)
+    cfg = T.RenderConfig(max_depth=2, t_min=1e-3, t_max=1e16)
+    with pytest.raises(ValueError, match="texture coordinates"):
+        dataclasses.replace(t, itex=((0.0, 0, 4, 4),),
+                            itex_tab=torch.zeros((1, 128)))
     for fn in (trace, trace_reference):
-        assert fn(o, d, pix, 1, *args, **kw).shape == (4, 3)
-        assert fn(o, d, pix, 1, *args, **kw,
-                  checker=((0.0, 2.0, 0.1, 0.2, 0.3),)).shape == (4, 3)
-        with pytest.raises(ValueError, match="texture coordinates"):
-            fn(o, d, pix, 1, *args, **kw, itex=((0.0, 0, 4, 4),),
-               itex_tab=torch.zeros((1, 128)))
-        rad, depth = fn(o, d, pix, 1, *args, **kw, depth_out=True)
+        assert fn(o, d, pix, 1, t, cfg).shape == (4, 3)
+        assert fn(o, d, pix, 1, dataclasses.replace(
+            t, checker=((0.0, 2.0, 0.1, 0.2, 0.3),)), cfg).shape == (4, 3)
+        rad, depth = fn(o, d, pix, 1, t, cfg, depth_out=True)
         assert rad.shape == (4, 3) and depth.shape == (4,)
         assert depth.dtype == torch.float32

@@ -141,26 +141,27 @@ def test_each_walk_gets_its_table(tmp_path, name, cl_shape):
 
 @pytest.mark.parametrize("name", list(MESHES))
 def test_kernel_scene_struct_takes_each_walk(tmp_path, name):
-    """The kernels' scene struct (ops/trace.scene_arg) validates each
-    kind's linear table with its own cluster size: the octahedron's
-    (6, 3) table passes with TRI_CLUSTER and would be refused under the
-    sphere/quad CLUSTER; a table of the wrong width is refused."""
+    """The table set validates each kind's linear table with its own
+    cluster size when it is made: the octahedron's (6, 3) table passes
+    with TRI_CLUSTER and would be refused under the sphere/quad CLUSTER;
+    a table of the wrong width is refused.  The kernels' scene struct
+    (ops/trace.scene_struct) carries the triangle kind's walk."""
+    from parallelraytracing_tpu_torch import RenderConfig
     from parallelraytracing_tpu_torch.ops.pack import CLUSTER, TRI_CLUSTER
-    from parallelraytracing_tpu_torch.ops.trace import scene_arg
+    from parallelraytracing_tpu_torch.ops.trace import scene_struct
     got, _ = _scenes(mesh_ply(tmp_path, name))
     t, _ = build_scene_tables(got, "cpu")
-    tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=t.tri_live)
-    s = scene_arg(torch.device("cpu"), *tabs, **kw)
+    cfg = RenderConfig()
+    s = scene_struct(t, cfg)
     assert (s.n_tri, s.tri_csize, s.csize) == (t.tri.shape[1], TRI_CLUSTER,
                                                CLUSTER)
     assert (s.tri_cl_rows, s.tri_cl_cols) == tuple(t.tri_cl.shape)
     if t.tri_cl.shape[0] == 6:
         bad = torch.zeros((6, t.tri_cl.shape[1] + 1))
         with pytest.raises(ValueError, match="tri_cl"):
-            scene_arg(torch.device("cpu"), *tabs[:5], bad, t.mats, **kw)
-    assert scene_arg(torch.device("cpu"), *tabs,
-                     **{**kw, "tri_live": False}).n_tri == 0
+            dataclasses.replace(t, tri_cl=bad)
+    assert scene_struct(dataclasses.replace(t, tri_live=False),
+                        cfg).n_tri == 0
 
 
 # ----------------------------------------------- trace vs pallas_trace
@@ -184,9 +185,7 @@ def _trace_both(path, depth, jitter):
         depth, cfg.t_min, cfg.t_max, sky, interpret=True))
     t = convert.tables_from_numpy(*raw, sky, "cpu")
     got = trace(torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)),
-                torch.from_numpy(ids), SEED, t.sph, t.quad, t.tri, t.sph_cl,
-                t.quad_cl, t.tri_cl, t.mats, max_depth=depth, t_min=cfg.t_min,
-                t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live).numpy()
+                torch.from_numpy(ids), SEED, t, cfg).numpy()
     return ref, got
 
 

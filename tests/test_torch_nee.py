@@ -24,6 +24,8 @@ within 1e-5, and the rays with a direct term are the same rays.
 The kernel on the card is held to the plain version at 1e-5 per ray
 (chip_smoke.py, tests/test_torch_cuda.py): both round every step."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -96,10 +98,8 @@ def _both(preset, depth, jitter, nee, rr_depth=0):
     def port(rr):
         return trace(torch.from_numpy(np.array(o)),
                      torch.from_numpy(np.array(d)), torch.from_numpy(ids),
-                     SEED, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
-                     t.tri_cl, t.mats, max_depth=depth, t_min=cfg.t_min,
-                     t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-                     nee=t.nee, lights=t.lights, rr_depth=rr).numpy()
+                     SEED, t, dataclasses.replace(
+                         cfg, russian_roulette_depth=rr)).numpy()
     return ref, port(rr_depth), port
 
 
@@ -234,10 +234,8 @@ def test_segment_nee_rr_matches_pallas_segment(tmp_path, name):
     t = _port_tables(jt)
     got = segment_slots(
         torch.from_numpy(ids), torch.from_numpy(state),
-        torch.tensor([SEED, 2, COUNT], dtype=torch.int32), t.sph, t.quad,
-        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
-        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-        rr_depth=2, nee=True, lights=t.lights).numpy()
+        torch.tensor([SEED, 2, COUNT], dtype=torch.int32), t, cfg,
+        n_bounces=2).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     live = slice(0, COUNT)
     np.testing.assert_array_equal(got[12], ref[12])
@@ -266,10 +264,7 @@ def test_segmented_trace_nee_rr_bitmatches_trace(schedule):
                                                        sample_key)
     jseed, seed = frame_stream_seeds(sample_key(cfg.seed, 0, 0))
     o, d = raygen_ids(r._cam_params, r._ids, jseed, 24, 16, True)
-    want = trace(o, d, r._ids, seed, t.sph, t.quad, t.tri, t.sph_cl,
-                 t.quad_cl, t.tri_cl, t.mats, max_depth=8, t_min=cfg.t_min,
-                 t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=True,
-                 lights=t.lights, rr_depth=2)
+    want = trace(o, d, r._ids, seed, t, cfg)
     got = segmented_trace(t, o, d, r._ids, seed, cfg, schedule=schedule)
     assert torch.equal(got[r._ids.long()], want)
     assert want.mean() > 0

@@ -59,11 +59,11 @@ from parallelraytracing_tpu.ops.rays import \
 import parallelraytracing_tpu_torch as T  # noqa: E402
 from parallelraytracing_tpu_torch import convert  # noqa: E402
 from parallelraytracing_tpu_torch.benchmarks import micro, trace_stats  # noqa: E402
-from parallelraytracing_tpu_torch.engines.tables import (  # noqa: E402
-    build_scene_tables, trace_tables)
+from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # noqa: E402
 from parallelraytracing_tpu_torch.engines.wavefront_fused import \
     count_frame_rays  # noqa: E402
 from parallelraytracing_tpu_torch.ops import pack  # noqa: E402
+from parallelraytracing_tpu_torch.ops.trace import trace  # noqa: E402
 from torch_meshes import make_mesh, stream_scene, tlas_scene  # noqa: E402
 
 W, H = 32, 16  # 512 rays: one 4x128 Pallas tile
@@ -162,10 +162,10 @@ def _run(name: str) -> dict:
                               **cfg_kw)
         rays = (torch.from_numpy(o), torch.from_numpy(d),
                 torch.from_numpy(ids), SEED)
-        rad, depth, stats = trace_tables(t, *rays, tcfg, depth_out=True,
-                                         collect_stats=True)
+        rad, depth, stats = trace(*rays, t, tcfg, depth_out=True,
+                                  collect_stats=True)
         out = dict(t=t, cfg=tcfg, rays=rays, rad=rad, depth=depth,
-                   stats=stats, plain=trace_tables(t, *rays, tcfg))
+                   stats=stats, plain=trace(*rays, t, tcfg))
         order = np.argsort(-stats[:, 0].numpy(), kind="stable")
         sel = order[np.linspace(0, RANK_WINDOW, REPS).astype(int)]
         rows = W * H // 128 if frame else 1

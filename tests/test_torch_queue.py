@@ -34,6 +34,8 @@ up to 3.3e-3 after a bounce off its metal and glass spheres (measured;
 throughput and radiance within 1e-6), so its bound is 1e-3 on 97% of the
 survivors.  The queue-order tests are exact."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -171,15 +173,9 @@ def _port_segment(t, cfg, ids, state, depth0, n_bounces, mode, fn=segment):
     count_out as an int, rad), rad filled with NaN before it."""
     rad = torch.full((W * H, 3), float("nan"))
     s, p, k, c = fn(torch.from_numpy(ids), torch.from_numpy(state),
-                    torch.tensor([COUNT], dtype=torch.int32), rad, t.sph,
-                    t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats,
-                    seed=SEED, depth0=depth0, max_depth=cfg.max_depth,
-                    n_bounces=n_bounces, t_min=cfg.t_min, t_max=cfg.t_max,
-                    sky=t.sky, tri_live=t.tri_live, sort_rays=mode, bb=t.bb,
-                    rr_depth=cfg.russian_roulette_depth, nee=t.nee,
-                    lights=t.lights, inst=t.inst, checker=t.checker,
-                    itex=t.itex, itex_tab=t.itex_tab, stream=t.stream,
-                    records=t.records)
+                    torch.tensor([COUNT], dtype=torch.int32), rad, t, cfg,
+                    seed=SEED, depth0=depth0, n_bounces=n_bounces,
+                    sort_rays=mode)
     return s, p, k, int(c), rad
 
 
@@ -279,19 +275,17 @@ def test_queue_is_the_slot_step_compacted(tmp_path, count):
     radiance scattered to their pixels; at the frame's last depth every
     path ends and no survivor is left."""
     t, _, cfg, ids, state = _queue("cornell", tmp_path)
-    kw = dict(n_bounces=2, t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-              tri_live=t.tri_live, rr_depth=2, nee=True, lights=t.lights)
+    assert t.nee and cfg.russian_roulette_depth == 2
     slots = segment_slots(torch.from_numpy(ids), torch.from_numpy(state),
                           torch.tensor([SEED, 2, count], dtype=torch.int32),
-                          t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
-                          t.tri_cl, t.mats, **kw)
+                          t, cfg, n_bounces=2)
     for max_depth in (MAX_DEPTH, 4):  # 4: this segment is the frame's last
         rad = torch.full((W * H, 3), float("nan"))
         s, p, k, c = segment_reference(
             torch.from_numpy(ids), torch.from_numpy(state),
-            torch.tensor([count], dtype=torch.int32), rad, t.sph, t.quad,
-            t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, seed=SEED,
-            depth0=2, max_depth=max_depth, sort_rays="origin", bb=t.bb, **kw)
+            torch.tensor([count], dtype=torch.int32), rad, t,
+            dataclasses.replace(cfg, max_depth=max_depth), seed=SEED,
+            depth0=2, n_bounces=2, sort_rays="origin")
         live = torch.arange(W * H) < count
         keep = live & (slots[12] > 0) & (max_depth > 4)
         assert int(c) == int(keep.sum())

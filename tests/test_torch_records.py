@@ -10,7 +10,8 @@ texture_demo, textured instances, and the stream route at a low
 threshold, plain and textured): record j holds column j's bits, the pad
 words are zero, every record is 16-byte aligned, and the records unpack
 to the column tables bit for bit.  A fused renderer makes the records
-once, at init, and never per frame.
+once, at init, and never per frame; a fused and a wavefront_fused
+renderer make the kernels' scene struct once, at init.
 """
 
 import dataclasses
@@ -27,8 +28,8 @@ from parallelraytracing_tpu_torch import (Film, RenderConfig, Scene,  # noqa: E4
                                           ScenePreset, create_renderer,
                                           default_camera)
 from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # noqa: E402
-from parallelraytracing_tpu_torch.ops import pack  # noqa: E402
-from parallelraytracing_tpu_torch.ops.trace import scene_arg  # noqa: E402
+from parallelraytracing_tpu_torch.ops import _build, pack  # noqa: E402
+from parallelraytracing_tpu_torch.ops.trace import scene_struct  # noqa: E402
 
 #: the stream route's knobs for the streamed fixtures (tests/test_torch_
 #: stream.py's: ico2's 320 triangles in chunks of 32)
@@ -68,12 +69,6 @@ def _tables(name: str):
     return t
 
 
-def _columns(t) -> dict:
-    return pack.record_columns(t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
-                               t.tri_cl, t.mats, lights=t.lights, inst=t.inst,
-                               stream=t.stream)
-
-
 def _bits(x):
     return x.contiguous().view(torch.int32)
 
@@ -97,7 +92,7 @@ def test_records_hold_the_columns(fixture, field, kind):
     16-byte aligned; the records unpack to the column table.  A table the
     scene lacks (instances, mini-trees) has no records."""
     t = _tables(fixture)
-    col, rec = _columns(t).get(field), getattr(t.records, field)
+    col, rec = pack.record_columns(t).get(field), getattr(t.records, field)
     if col is None:
         assert rec is None
         return
@@ -142,31 +137,31 @@ def test_record_kinds_cover_the_row_counts():
 
 
 def test_scene_arg_takes_or_makes_records(monkeypatch):
-    """The wrapper's scene struct points at the tables' own records when
-    it is given them (no packing) and makes them when it is not (one
-    pack a table); records that do not match the tables are refused."""
+    """The table set makes its records when it is made, one pack a table,
+    and the kernels' scene struct points at them with no packing; a table
+    set made from another with its records passed on packs nothing, and
+    records that do not match the tables are refused."""
     t = _tables("tlas")
     calls = []
     real = pack.pack_records
     monkeypatch.setattr(pack, "pack_records",
                         lambda *a: calls.append(a[1]) or real(*a))
-    tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=t.tri_live,
-              nee=t.nee, lights=t.lights, inst=t.inst)
-    cpu = torch.device("cpu")
-    s = scene_arg(cpu, *tabs, **kw, records=t.records)
-    assert not calls
+    cfg = RenderConfig()
+    s = scene_struct(t, cfg)
     assert s.sph == t.records.sph.data_ptr() and s.records is t.records
     assert s.itri_tail == t.records.itri_tail.data_ptr()
     assert (s.tri_tail_w, s.itri_tail_w) == (3, 3)
-    s = scene_arg(cpu, *tabs, **kw)
+    assert scene_struct(t, cfg) is s
+    kept = dataclasses.replace(t, nee=False)
+    assert kept.records is t.records and not calls
+    made = dataclasses.replace(t, records=None)
     assert len(calls) == len([f for f, _ in pack.RECORD_KINDS
                               if getattr(t.records, f) is not None])
-    assert s.records is not t.records
-    assert torch.equal(s.records.inst, t.records.inst)
+    assert made.records is not t.records
+    assert torch.equal(made.records.inst, t.records.inst)
     bad = dataclasses.replace(t.records, sph=t.records.sph[:-1])
     with pytest.raises(ValueError, match="records.sph"):
-        scene_arg(cpu, *tabs, **kw, records=bad)
+        dataclasses.replace(t, records=bad)
 
 
 def test_fused_renderer_packs_records_once(monkeypatch):
@@ -188,3 +183,26 @@ def test_fused_renderer_packs_records_once(monkeypatch):
     for _ in range(2):
         r.progressive_render()
     assert len(calls) == at_init and film.sample_count == 2
+
+
+@pytest.mark.parametrize("engine", ["fused", "wavefront_fused"])
+def test_renderer_makes_scene_struct_once(monkeypatch, engine):
+    """A fused or wavefront_fused renderer on the CPU makes the kernels'
+    ``PrtScene`` struct once, at init, and never again over 5 frames."""
+    calls = []
+
+    class Counted(_build.PrtScene):
+        def __init__(self, *a):
+            calls.append(1)
+            super().__init__(*a)
+
+    monkeypatch.setattr(_build, "PrtScene", Counted)
+    w, h = 16, 12
+    film = Film(w, h, "cpu")
+    r = create_renderer(engine, "cpu")
+    r.init(film, Scene(ScenePreset.CORNELL), default_camera(w, h),
+           RenderConfig(width=w, height=h, max_depth=3, nee=True))
+    assert len(calls) == 1
+    for _ in range(5):
+        r.progressive_render()
+    assert len(calls) == 1 and film.sample_count == 5

@@ -6,6 +6,8 @@ The scenes are the mesh showcase scenes of tests/torch_meshes.py: the
 octahedron (a linear-scan triangle kind) and the icosahedron at level 2
 (320 triangles, the SAH tree).  Each test states its tolerance."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -93,10 +95,8 @@ def test_segment_matches_pallas_segment(tmp_path, name):
     t = convert.tables_from_numpy(*raw, sky, "cpu")
     got = segment_slots(
         torch.from_numpy(ids), torch.from_numpy(state),
-        torch.tensor([SEED, 0, COUNT], dtype=torch.int32), t.sph, t.quad,
-        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
-        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky,
-        tri_live=t.tri_live).numpy()
+        torch.tensor([SEED, 0, COUNT], dtype=torch.int32), t, cfg,
+        n_bounces=2).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     live = slice(0, COUNT)
     assert (got[12, live] == ref[12, live]).mean() >= 0.995
@@ -230,18 +230,19 @@ def test_wavefront_fused_runs_nee_and_rr(tmp_path):
         films[tuple(cfg_kw)] = got[0]
     base = films[()]
     assert all(not torch.equal(base, f) for k, f in films.items() if k)
-    t = r._tables
+    t = r._tables  # the last renderer's: NEE on
+    assert t.nee and t.tri_live
     args = (torch.zeros(4, dtype=torch.int32), torch.zeros((PLANES, 4)),
-            torch.tensor([4], dtype=torch.int32), torch.zeros((4, 3)), t.sph,
-            t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(seed=1, depth0=0, max_depth=6, n_bounces=1, t_min=1e-3,
-              t_max=1e16, sky=t.sky, tri_live=True)
+            torch.tensor([4], dtype=torch.int32), torch.zeros((4, 3)))
+    kw = dict(seed=1, depth0=0, n_bounces=1)
+    cfg = T.RenderConfig(max_depth=6, t_min=1e-3, t_max=1e16)
     for fn in (segment, segment_reference):
-        assert fn(*args, **kw)[0].shape == (PLANES, 4)
-        assert fn(*args, **kw, nee=True, lights=t.lights,
-                  rr_depth=2)[0].shape == (PLANES, 4)
-        with pytest.raises(ValueError, match="light table"):
-            fn(*args, **kw, nee=True)
+        assert fn(*args, dataclasses.replace(t, nee=False), cfg,
+                  **kw)[0].shape == (PLANES, 4)
+        assert fn(*args, t, cfg.replace(russian_roulette_depth=2),
+                  **kw)[0].shape == (PLANES, 4)
+    with pytest.raises(ValueError, match="light table"):
+        dataclasses.replace(t, lights=t.lights[:-1].contiguous())
 
 
 def test_schedule_follows_the_scene_on_reinit(tmp_path):

@@ -13,6 +13,8 @@ stores plain columns, so the tests unpack the JAX rows.  On the CPU the
 port's trace and segment run their plain versions, a brute-force fold
 over every slot column.  Each test states its tolerance."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -35,8 +37,7 @@ from parallelraytracing_tpu_torch.core.mesh import subdivide  # noqa: E402
 from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # noqa: E402
 from parallelraytracing_tpu_torch.ops import pack  # noqa: E402
 from parallelraytracing_tpu_torch.ops.segment import PLANES, segment_slots  # noqa: E402
-from parallelraytracing_tpu_torch.ops.trace import (scene_arg, trace,  # noqa: E402
-                                                    trace_reference)
+from parallelraytracing_tpu_torch.ops.trace import scene_struct, trace  # noqa: E402
 from parallelraytracing_tpu_torch.utils.png import read_png  # noqa: E402
 from torch_meshes import bench_image, make_mesh, stream_scene, write_ply  # noqa: E402
 
@@ -191,32 +192,31 @@ def test_convert_carries_jax_blocks(monkeypatch, case):
 
 
 def test_stream_tables_are_validated(monkeypatch):
-    """The wrappers refuse stream tables whose shapes disagree (a chunk
+    """The table set refuses stream tables whose shapes disagree (a chunk
     that does not divide the slots, a mini-tree table off its node_rows
-    stride) and pack the kernels' scene struct with the mini-trees,
-    chunk, node_rows and shift."""
+    stride) when it is made, through ``dataclasses.replace`` and through
+    ``convert.tables_from_numpy``; the kernels' scene struct carries the
+    mini-trees, chunk, node_rows and shift."""
     _port_stream(monkeypatch)
     t, _ = build_scene_tables(stream_scene(T.Scene, make_mesh("ico2")), "cpu")
     st = t.stream
-    tabs = (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats)
-    kw = dict(t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=t.tri_live)
-    s = scene_arg(torch.device("cpu"), *tabs, **kw, stream=st,
-                  records=t.records)
+    cfg = T.RenderConfig()
+    s = scene_struct(t, cfg)
     assert s.mini == t.records.mini.data_ptr()
     assert s.n_mini == st.mini.shape[1]
     assert (s.chunk, s.node_rows, s.stream_shift) == (CHUNK, 16, 6)
     assert s.n_tri == t.tri.shape[1] == st.mini.shape[1] // 16 * CHUNK
-    assert scene_arg(torch.device("cpu"), *tabs, **kw).mini is None
-    o = torch.zeros((2, 3))
-    d = torch.tensor([[0.0, -1.0, 0.0]] * 2)
+    assert scene_struct(dataclasses.replace(t, stream=None), cfg).mini is None
+    host = [a.numpy() for a in (t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
+                                t.tri_cl, t.mats)]
     bad = [pack.StreamTables(st.mini, CHUNK + 1, 16),
            pack.StreamTables(st.mini[:, :-1].contiguous(), CHUNK, 16)]
     for b in bad:
         with pytest.raises(ValueError, match="stream tables"):
-            trace_reference(o, d, torch.zeros(2, dtype=torch.int32), 1,
-                            *tabs, max_depth=1, **kw, stream=b)
+            dataclasses.replace(t, stream=b)
         with pytest.raises(ValueError, match="stream tables"):
-            scene_arg(torch.device("cpu"), *tabs, **kw, stream=b)
+            convert.tables_from_numpy(*host, t.sky, "cpu", stream=(
+                dataclasses.replace(b, mini=b.mini.numpy())))
 
 
 # ------------------------------------------- trace and segment vs Pallas
@@ -246,10 +246,7 @@ def test_trace_depth1_matches_pallas_stream(monkeypatch):
         jt, jnp.asarray(o), jnp.asarray(d), jnp.asarray(ids, jnp.float32),
         jnp.asarray([SEED], jnp.int32), 8, cfg, interpret=True))
     got = trace(torch.from_numpy(o), torch.from_numpy(d),
-                torch.from_numpy(ids), SEED, t.sph, t.quad, t.tri, t.sph_cl,
-                t.quad_cl, t.tri_cl, t.mats, max_depth=1, t_min=cfg.t_min,
-                t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-                stream=t.stream).numpy()
+                torch.from_numpy(ids), SEED, t, cfg).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
     assert (ref[:, 0] != ref[0, 0]).any()  # hits and misses both
 
@@ -273,10 +270,8 @@ def test_segment_matches_pallas_segment_stream(monkeypatch):
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
     got = segment_slots(
         torch.from_numpy(ids), torch.from_numpy(state),
-        torch.tensor([SEED, 0, r], dtype=torch.int32), t.sph, t.quad, t.tri,
-        t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=1, t_min=cfg.t_min,
-        t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-        stream=t.stream).numpy()
+        torch.tensor([SEED, 0, r], dtype=torch.int32), t, cfg,
+        n_bounces=1).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     np.testing.assert_array_equal(got[12], ref[12])
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

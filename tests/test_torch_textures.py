@@ -229,11 +229,7 @@ def _trace_both(name, depth, jitter, nee):
         itri_vmem=jt.itri_vmem, checker=jt.checker, itex=jt.itex,
         itex_tab=jt.itex_tab))
     got = trace(torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)),
-                torch.from_numpy(ids), SEED, t.sph, t.quad, t.tri, t.sph_cl,
-                t.quad_cl, t.tri_cl, t.mats, max_depth=depth, t_min=cfg.t_min,
-                t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live, nee=t.nee,
-                lights=t.lights, inst=t.inst, checker=t.checker, itex=t.itex,
-                itex_tab=t.itex_tab).numpy()
+                torch.from_numpy(ids), SEED, t, cfg).numpy()
     return ref, got
 
 
@@ -280,11 +276,8 @@ def test_segment_matches_pallas_segment():
     ref = np.stack([np.asarray(p) for p in planes] + [np.asarray(alive)])
     got = segment_slots(
         torch.from_numpy(ids), torch.from_numpy(state),
-        torch.tensor([SEED, 1, count], dtype=torch.int32), t.sph, t.quad,
-        t.tri, t.sph_cl, t.quad_cl, t.tri_cl, t.mats, n_bounces=2,
-        t_min=cfg.t_min, t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live,
-        nee=t.nee, lights=t.lights, checker=t.checker, itex=t.itex,
-        itex_tab=t.itex_tab).numpy()
+        torch.tensor([SEED, 1, count], dtype=torch.int32), t, cfg,
+        n_bounces=2).numpy()
     assert got.shape == ref.shape == (PLANES, r)
     np.testing.assert_array_equal(got[12], ref[12])
     np.testing.assert_allclose(got[:12, :count], ref[:12, :count], rtol=0,

@@ -12,6 +12,8 @@ and the mean radiance within 1e-3 relative: XLA on the CPU and PyTorch
 round sqrt, sin and cos (and XLA contracts multiply-adds) differently, and
 a last-bit difference at a grazing hit sends a few paths elsewhere."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -51,9 +53,7 @@ def _both(preset, depth, jitter):
                                   jt.quad_cl, jt.tri_cl, jt.mats)),
         jt.sky, "cpu")
     got = trace(torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)),
-                torch.from_numpy(ids), SEED, t.sph, t.quad, t.tri, t.sph_cl,
-                t.quad_cl, t.tri_cl, t.mats, max_depth=depth, t_min=cfg.t_min,
-                t_max=cfg.t_max, sky=t.sky, tri_live=t.tri_live).numpy()
+                torch.from_numpy(ids), SEED, t, cfg).numpy()
     return ref, got
 
 
@@ -72,30 +72,31 @@ def test_depth4_jittered_matches_pallas(preset):
 
 
 def test_features_outside_the_slice_raise():
-    from parallelraytracing_tpu_torch import Scene, ScenePreset
+    from parallelraytracing_tpu_torch import RenderConfig, Scene, ScenePreset
     from parallelraytracing_tpu_torch.engines.tables import build_scene_tables
     t, _ = build_scene_tables(Scene(ScenePreset.MATERIAL_TEST), "cpu")
+    assert not t.tri_live
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, -1.0, 0.0]]).repeat(4, 1)
     pix = torch.arange(4, dtype=torch.int32)
-    args = (o, d, pix, 1, t.sph, t.quad, t.tri, t.sph_cl, t.quad_cl,
-            t.tri_cl, t.mats)
-    kw = dict(max_depth=2, t_min=1e-3, t_max=1e16, sky=t.sky, tri_live=False)
+    args = (o, d, pix, 1)
+    cfg = RenderConfig(max_depth=2, t_min=1e-3, t_max=1e16)
     sun_sky = (1.0, 1.0, 1.0, 0.3, 0.5, 0.9, 0.0, 1.0, 0.0, 4.0, 3.0, 2.0, 8)
     for fn in (trace, trace_reference):
-        assert fn(*args, **kw).shape == (4, 3)
+        assert fn(*args, t, cfg).shape == (4, 3)
         # the checker and the directional sky run now
         for extra in (dict(checker=((1.0, 0.5, 0.1, 0.2, 0.3),)),
                       dict(sky=sun_sky)):
-            assert fn(*args, **{**kw, **extra}).shape == (4, 3)
+            assert fn(*args, dataclasses.replace(t, **extra),
+                      cfg).shape == (4, 3)
         # and so do the probes, in pallas_trace's order
-        rad, depth, stats = fn(*args, **kw, depth_out=True,
+        rad, depth, stats = fn(*args, t, cfg, depth_out=True,
                                collect_stats=True)
         assert rad.shape == (4, 3) and depth.shape == (4,)
         assert depth.dtype == torch.float32 and stats.dtype == torch.int32
         assert stats.shape == (4, 4)
         # malformed specs: an image texture without its texel rows, a sky
-        # of neither 3 nor 13 values
+        # of neither 3 nor 13 values; the table set refuses them when made
         for extra in (dict(itex=((1.0, 0, 4, 4),)), dict(sky=(0.1,) * 5)):
             with pytest.raises(ValueError):
-                fn(*args, **{**kw, **extra})
+                dataclasses.replace(t, **extra)
