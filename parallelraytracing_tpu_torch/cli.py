@@ -147,7 +147,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "the end, host and device ms of every span of the "
                         "frame (prt.seeds, prt.raygen, prt.trace, "
                         "prt.film_add, ...; utils/timing.py) and which "
-                        "raygen ran: kernel launches and plain-chain calls; "
+                        "raygen ran: kernel launches and plain-chain calls, "
+                        "and the seed table's frames served and blocks "
+                        "filled; "
                         "before the frames, the set-up's spans "
                         "(prt.build_tables, prt.pack_stream) in seconds "
                         "and, on the stream route, its tables' counters")
@@ -317,6 +319,8 @@ def main(argv=None) -> int:
             print(f"raygen: {generate_camera_rays_ids.launches - raygen_before[0]}"
                   f" kernel launches, "
                   f"{generate_camera_rays_ids.plain - raygen_before[1]} plain")
+            print(f"seeds: {renderer.seed_frames} frames served, "
+                  f"{renderer.seed_fills} blocks filled")
         if own_group:
             dist.destroy_process_group()
         return 0

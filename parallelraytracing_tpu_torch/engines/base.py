@@ -8,7 +8,7 @@ SetCamera).  Engines register by name; a renderer is made for one device.
 from __future__ import annotations
 
 import abc
-from typing import Dict, Optional, Type
+from typing import Dict, Optional, Tuple, Type
 
 import torch
 
@@ -16,6 +16,10 @@ from parallelraytracing_tpu_torch.config import RenderConfig
 from parallelraytracing_tpu_torch.core.camera import Camera
 from parallelraytracing_tpu_torch.core.film import Film
 from parallelraytracing_tpu_torch.core.scene import Scene, SceneData
+from parallelraytracing_tpu_torch.ops.rays import (SEED_BLOCK,
+                                                   frame_stream_seeds_block,
+                                                   halton_qpt,
+                                                   qmc_rotation_seed)
 from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
@@ -32,6 +36,12 @@ class Renderer(abc.ABC):
         self._config: Optional[RenderConfig] = None
         self._frame_index: int = 0
         self._qseed: Optional[int] = None
+        #: sample -> (first frame, jitter seeds, path seeds) of the block
+        #: of frames ``_frame_seeds`` serves from
+        self._seed_blocks: Dict[int, Tuple[int, list, list]] = {}
+        #: frames ``_frame_seeds`` served, and blocks it filled for them
+        self.seed_frames = 0
+        self.seed_fills = 0
 
     # ----------------------------------------------------------- lifecycle
     def init(self, film: Film, scene: Scene, camera: Camera,
@@ -44,9 +54,9 @@ class Renderer(abc.ABC):
         self._scene = scene
         # QMC camera sampling: the frame-independent rotation seed, shared
         # by every engine so their films stay bit-identical with QMC on
-        from parallelraytracing_tpu_torch.ops.rays import qmc_rotation_seed
         self._qseed = (qmc_rotation_seed(self._config.seed)
                        if self._config.qmc else None)
+        self._seed_blocks = {}
         self.set_camera(camera)
         self._frame_index = 0
         self._post_init()
@@ -54,6 +64,25 @@ class Renderer(abc.ABC):
 
     def _post_init(self) -> None:
         """Hook for engine-specific setup (e.g. table packing)."""
+
+    def _frame_seeds(self, frame_index: int, s: int) -> Tuple[int, int]:
+        """(jitter seed, path seed) of sample s of a frame:
+        ``frame_stream_seeds(sample_key(seed, frame_index, s))``, read
+        from the block of SEED_BLOCK frames that holds the frame, the
+        block drawn at once on a miss (``prt.seed_block``).  At rest one
+        fill serves SEED_BLOCK frames; after each camera move every frame
+        is frame 0 and the block stays."""
+        f0 = frame_index - frame_index % SEED_BLOCK
+        block = self._seed_blocks.get(s)
+        if block is None or block[0] != f0:
+            with annotate("prt.seed_block"):
+                jseed, path_seed = frame_stream_seeds_block(
+                    self.config.seed, f0, s)
+                block = (f0, jseed.tolist(), path_seed.tolist())
+            self._seed_blocks[s] = block
+            self.seed_fills += 1
+        self.seed_frames += 1
+        return block[1][frame_index - f0], block[2][frame_index - f0]
 
     def _pixel_seed(self, jseed: int) -> int:
         """The raygen's pixel seed: the frame's jitter seed, or under QMC
@@ -66,7 +95,6 @@ class Renderer(abc.ABC):
         accumulation walks the sequence in order."""
         if self._qseed is None:
             return None
-        from parallelraytracing_tpu_torch.ops.rays import halton_qpt
         return halton_qpt(frame_index * self.config.samples_per_frame + s)
 
     def film_layout(self):

@@ -1,11 +1,11 @@
 """Fused engine: every bounce of a frame in one trace-kernel launch.
 
 The counterpart of ``parallelraytracing_tpu.engines.fused``.  Per frame:
-derive the frame's seeds (threefry chain, ops/rays.frame_stream_seeds),
-generate pixel-keyed jittered camera rays straight from the Morton-
-permuted pixel ids, trace them (ops/trace.trace, the CUDA kernel on a
-card), and accumulate into the film in that same Morton order
-(film_layout), so no per-frame gather is needed.
+read the frame's seeds (threefry, from a block of frames drawn at once,
+Renderer._frame_seeds), generate pixel-keyed jittered camera rays
+straight from the Morton-permuted pixel ids, trace them (ops/trace.trace,
+the CUDA kernel on a card), and accumulate into the film in that same
+Morton order (film_layout), so no per-frame gather is needed.
 
 ``depth_sort`` (``PRT_DEPTH_SORT``, as the JAX class reads it) reorders
 the rays by the depth a probe frame measured (ops/trace.py's
@@ -28,9 +28,7 @@ import numpy as np
 import torch
 
 from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
-from parallelraytracing_tpu_torch.ops.rays import (frame_stream_seeds,
-                                                   generate_camera_rays_ids,
-                                                   sample_key)
+from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays_ids
 from parallelraytracing_tpu_torch.ops.trace import scene_struct, trace
 from parallelraytracing_tpu_torch.utils.profiling import annotate
 
@@ -140,7 +138,7 @@ class FusedRenderer(Renderer):
         the frame's."""
         cfg = self.config
         with annotate("prt.seeds"):
-            jseed, s0 = frame_stream_seeds(sample_key(cfg.seed, frame_index, s))
+            jseed, s0 = self._frame_seeds(frame_index, s)
         with annotate("prt.raygen"):
             o, d = raygen_ids(self._cam_params, ids, self._pixel_seed(jseed),
                               cfg.width, cfg.height, cfg.jitter, cfg.lens,

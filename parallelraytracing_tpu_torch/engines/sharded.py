@@ -24,7 +24,8 @@ called on every rank) makes the image whole before it is displayed or
 written.  With ``PRT_DEFER_GATHER=0`` every frame is gathered and every
 rank's film holds the whole image.
 
-The seeds derive from the frame key only and every stream is keyed on
+The seeds derive from the frame key only (each rank reads them from its
+own block of frames, Renderer._frame_seeds) and every stream is keyed on
 the global pixel id, so for a fixed spp-axis size the image does not
 depend on the number of ranks or the block layout: it is the fused
 engine's (or on the segmented route wavefront_fused's), bit for bit.
@@ -40,7 +41,6 @@ import torch
 from parallelraytracing_tpu_torch.engines.base import register_engine
 from parallelraytracing_tpu_torch.engines.fused import (FusedRenderer,
                                                         morton_pixel_perm)
-from parallelraytracing_tpu_torch.ops.rays import sample_key
 from parallelraytracing_tpu_torch.utils.profiling import annotate
 
 
@@ -128,18 +128,18 @@ class ShardedRenderer(FusedRenderer):
             [mperm, np.arange(r, n_slots)]).astype(np.int32)).to(self.device)
         self._sinv = torch.from_numpy(minv.copy()).to(self.device)
 
-    def _frame(self, key, qpt) -> torch.Tensor:
-        """One sample under `key` over the mesh, through this scene's
-        route."""
+    def _frame(self, seeds, qpt) -> torch.Tensor:
+        """One sample over the mesh under its (jitter seed, path seed)
+        pair, through this scene's route."""
         from parallelraytracing_tpu_torch.parallel.sharding import (
             render_frame_sharded_fused, render_frame_sharded_segmented)
         kw = dict(perm=self._sperm, inv=self._sinv,
-                  defer_gather=self.defer_gather, qpt=qpt)
+                  defer_gather=self.defer_gather, qpt=qpt, seeds=seeds)
         if self._use_seg:
             return render_frame_sharded_segmented(
-                self._tables, self._cam_params, key, self.config, self._mesh,
+                self._tables, self._cam_params, None, self.config, self._mesh,
                 schedule=self._schedule, sort_rays=self.sort_rays, **kw)
-        return render_frame_sharded_fused(self._tables, self._cam_params, key,
+        return render_frame_sharded_fused(self._tables, self._cam_params, None,
                                           self.config, self._mesh, **kw)
 
     def render_sample_buffer(self, frame_index: int) -> torch.Tensor:
@@ -147,7 +147,7 @@ class ShardedRenderer(FusedRenderer):
         acc = None
         for s in range(cfg.samples_per_frame):
             with annotate("prt.seeds"):
-                key = sample_key(cfg.seed, frame_index, s)
-            rad = self._frame(key, self._qpt(frame_index, s))
+                seeds = self._frame_seeds(frame_index, s)
+            rad = self._frame(seeds, self._qpt(frame_index, s))
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

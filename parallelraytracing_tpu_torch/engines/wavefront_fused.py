@@ -1,7 +1,7 @@
 """Wavefront-fused engine: bounce segments over a compacted, re-sorted queue.
 
 The counterpart of ``parallelraytracing_tpu.engines.wavefront_fused``.  Per
-frame: derive the frame's seeds (ops/rays.frame_stream_seeds), generate
+frame: read the frame's seeds (Renderer._frame_seeds), generate
 jittered camera rays straight from the Morton-permuted pixel ids, then
 trace them in segments of bounces (ops/segment.segment, the CUDA kernel
 on a card).  Each segment compacts the queue itself: a path that ends
@@ -35,7 +35,6 @@ import torch
 from parallelraytracing_tpu_torch.config import RenderConfig
 from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
 from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm, raygen_ids
-from parallelraytracing_tpu_torch.ops.rays import frame_stream_seeds, sample_key
 from parallelraytracing_tpu_torch.ops.segment import segment
 from parallelraytracing_tpu_torch.ops.trace import scene_struct
 from parallelraytracing_tpu_torch.utils.profiling import annotate
@@ -207,8 +206,7 @@ class WavefrontFusedRenderer(Renderer):
         acc = None
         for s in range(cfg.samples_per_frame):
             with annotate("prt.seeds"):
-                jseed, s0 = frame_stream_seeds(
-                    sample_key(cfg.seed, frame_index, s))
+                jseed, s0 = self._frame_seeds(frame_index, s)
             with annotate("prt.raygen"):
                 o, d = raygen_ids(self._cam_params, self._ids,
                                   self._pixel_seed(jseed), cfg.width,

@@ -54,6 +54,25 @@ def sample_key(seed: int, frame_index: int, sample: int):
     return rng.fold_in(rng.fold_in(rng.prng_key(seed), frame_index), sample)
 
 
+#: the frames of one ``frame_stream_seeds_block``
+SEED_BLOCK = 256
+
+
+def frame_stream_seeds_block(seed: int, f0: int, sample: int):
+    """``frame_stream_seeds(sample_key(seed, f, sample))`` for the
+    SEED_BLOCK frames f = f0 .. f0 + SEED_BLOCK - 1 in one pass: the same
+    steps on uint32 word arrays, one key an element.  Two (SEED_BLOCK,)
+    int64 arrays, the jitter seeds and the path seeds."""
+    # fold_in by frame (each index masked to 32 bits), then by sample
+    frames = ((int(f0) & rng.MASK32)
+              + np.arange(SEED_BLOCK, dtype=np.uint64)) & rng.MASK32
+    key = rng.threefry2x32(rng.prng_key(seed), 0, frames.astype(np.uint32))
+    key = rng.threefry2x32(key, 0, int(sample) & rng.MASK32)
+    # split into the jitter and the path keys, and draw from both at once
+    jseed, path_seed = rng.randint_keys(rng.split_keys(key), 0, 2**31 - 1)
+    return jseed, path_seed
+
+
 def radical_inverse(i: int, base: int) -> float:
     """Van der Corput radical inverse of the integer i in `base` (host,
     float64)."""

@@ -11,7 +11,9 @@ Two generators, neither with state:
   and ``randint`` reproduce ``jax.random.PRNGKey``, ``fold_in``, ``split``
   and ``randint(key, (), 0, 2**31 - 1, int32)`` exactly (threefry2x32
   with partitionable key derivation, JAX's default).  They derive the two
-  per-frame scalar seeds (``ops.rays.frame_stream_seeds``).
+  per-frame scalar seeds (``ops.rays.frame_stream_seeds``);
+  ``threefry2x32`` also takes keys as word arrays and ``randint_keys``
+  draws for many keys at once (``ops.rays.frame_stream_seeds_block``).
 - threefry2x32 on tensors, for the megakernel engine's streams (the JAX
   jnp engines draw from threefry per element): ``fold_in`` and ``split``
   also take keys as (..., 2) tensors, and ``random_bits``, ``uniform``
@@ -70,9 +72,10 @@ def _rotl(x: np.ndarray, r: int) -> np.ndarray:
 
 def threefry2x32(key, x0, x1) -> Tuple[np.ndarray, np.ndarray]:
     """The Threefry-2x32 block cipher (20 rounds) of counter words
-    (x0, x1) under key (k0, k1); uint32 in, uint32 out."""
+    (x0, x1) under key (k0, k1); uint32 in, uint32 out.  The key words
+    may be arrays, one key an element, broadcast against the counters."""
     with np.errstate(over="ignore"):
-        k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+        k0, k1 = np.asarray(key[0], np.uint32), np.asarray(key[1], np.uint32)
         ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
         x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
         for i in range(5):
@@ -116,17 +119,38 @@ def as_key(key, device=None) -> torch.Tensor:
                         dtype=torch.int64, device=device)
 
 
-def randint(key, minval: int, maxval: int) -> int:
-    """``jax.random.randint(key, (), minval, maxval, int32)`` for
-    0 <= minval < maxval <= 2**31 - 1: JAX's two-word modular draw, with
-    its uint32 wrap-around in the multiplier."""
-    hi_key, lo_key = split(key)
-    higher, lower = _random_bits32(hi_key), _random_bits32(lo_key)
+def _modular_draw(higher, lower, minval: int, maxval: int):
+    """JAX's two-word modular draw in [minval, maxval) of 32-bit words
+    `higher` and `lower` (ints, or uint64 arrays: no product passes
+    2**62), with its uint32 wrap-around in the multiplier."""
     span = maxval - minval
     multiplier = (1 << 16) % span
     multiplier = ((multiplier * multiplier) & MASK32) % span
     offset = (((higher % span) * multiplier) & MASK32) + lower % span
     return minval + (offset & MASK32) % span
+
+
+def randint(key, minval: int, maxval: int) -> int:
+    """``jax.random.randint(key, (), minval, maxval, int32)`` for
+    0 <= minval < maxval <= 2**31 - 1."""
+    hi_key, lo_key = split(key)
+    return _modular_draw(_random_bits32(hi_key), _random_bits32(lo_key),
+                         minval, maxval)
+
+
+def split_keys(key) -> Tuple[np.ndarray, np.ndarray]:
+    """``split(key, 2)`` of (k0, k1) uint32 word arrays: word arrays of
+    shape (2, *k0.shape), [0] the first keys, [1] the second."""
+    i = np.arange(2, dtype=np.uint32).reshape((2,) + (1,) * np.ndim(key[0]))
+    return threefry2x32(key, 0, i)  # key i hashes (0, i)
+
+
+def randint_keys(key, minval: int, maxval: int) -> np.ndarray:
+    """``randint`` of each key of (k0, k1) uint32 word arrays at once:
+    int64 draws, element i that of key (k0[i], k1[i])."""
+    a, b = threefry2x32(split_keys(key), 0, 0)  # both halves at once
+    words = (a ^ b).astype(np.uint64)
+    return _modular_draw(words[0], words[1], minval, maxval).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

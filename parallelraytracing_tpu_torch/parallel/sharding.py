@@ -188,10 +188,12 @@ def render_frame_sharded(scene, cam_params: torch.Tensor, key, cfg,
 
 
 def _sharded_pallas_frame(trace_block, cfg, mesh: RenderMesh, perm, inv,
-                          defer_gather: bool, tables, cam_params, key, qpt):
+                          defer_gather: bool, tables, cam_params, key, qpt,
+                          seeds=None):
     """The frame both kernel routes share (the JAX package's name, kept;
     no Pallas here): the block math, the seeds derived once from the
-    frame key, the 1x1 path (no collective), the spp all-reduce, and the
+    frame key (or given: `seeds`, the pair ``frame_stream_seeds(key)``
+    gives), the 1x1 path (no collective), the spp all-reduce, and the
     output.  Parameterized only by trace_block(tables, cam, seed0, jseed0,
     ids, spp_i, qpt) -> (len(ids), 3), so the fused and segmented routes
     cannot drift apart.
@@ -212,7 +214,7 @@ def _sharded_pallas_frame(trace_block, cfg, mesh: RenderMesh, perm, inv,
     # the seeds of the frame, the same on every rank: spp stream i offsets
     # them by i (_spp_stream_offset), px blocks share them
     with annotate("prt.seeds"):
-        jseed0, seed0 = frame_stream_seeds(key)
+        jseed0, seed0 = frame_stream_seeds(key) if seeds is None else seeds
         if cfg.qmc:
             # QMC: the frame-independent rotation seed of every engine (so
             # the 1x1 mesh keeps the fused engine's bits) and this sample's
@@ -284,16 +286,17 @@ def segmented_block(cfg, n_slots: int, segment: int, schedule: tuple,
 def render_frame_sharded_fused(tables, cam_params: torch.Tensor, key, cfg,
                                mesh: RenderMesh, perm=None, inv=None,
                                defer_gather: bool = False,
-                               qpt=None) -> torch.Tensor:
+                               qpt=None, seeds=None) -> torch.Tensor:
     """One sample of a frame over the mesh through the trace kernel, with
     every feature of the fused engine (NEE, roulette, instances, the scene
     extensions, the stream route): each rank traces its block of `perm`
     (``_sharded_pallas_frame`` says what comes back).  `key` is the
-    sample's key (ops/rays.sample_key); `tables` the scene's
+    sample's key (ops/rays.sample_key), unread when `seeds` gives its
+    (jitter seed, path seed) pair; `tables` the scene's
     (engines/tables.build_scene_tables), on every rank."""
     return _sharded_pallas_frame(functools.partial(fused_block, cfg), cfg,
                                  mesh, perm, inv, defer_gather, tables,
-                                 cam_params, key, qpt)
+                                 cam_params, key, qpt, seeds)
 
 
 def render_frame_sharded_segmented(tables, cam_params: torch.Tensor, key,
@@ -301,7 +304,7 @@ def render_frame_sharded_segmented(tables, cam_params: torch.Tensor, key,
                                    schedule: tuple = (),
                                    sort_rays: str = "octant", perm=None,
                                    inv=None, defer_gather: bool = False,
-                                   qpt=None) -> torch.Tensor:
+                                   qpt=None, seeds=None) -> torch.Tensor:
     """``render_frame_sharded_fused`` through the segment kernel: each rank
     runs the wavefront_fused engine's bounce segments on its block, the
     queue compacted and re-sorted between segments on the rank (no
@@ -312,4 +315,4 @@ def render_frame_sharded_segmented(tables, cam_params: torch.Tensor, key,
         segmented_block, cfg, mesh.shape["px"] * shard_block_size(cfg, mesh),
         segment, schedule, sort_rays)
     return _sharded_pallas_frame(block, cfg, mesh, perm, inv, defer_gather,
-                                 tables, cam_params, key, qpt)
+                                 tables, cam_params, key, qpt, seeds)

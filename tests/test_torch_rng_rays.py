@@ -1,7 +1,8 @@
 """The port's random streams and camera rays against the JAX package's.
 
 PCG words and the threefry-derived frame seeds are integers: bit-equal
-(tolerance 0).  Ray origins and directions are float32 from the same
+(tolerance 0), and the seeds of a block of frames drawn at once equal
+the per-frame chain's.  Ray origins and directions are float32 from the same
 formula; XLA on the CPU contracts multiply-adds into FMAs and rounds its
 rsqrt differently, so directions agree within 2e-7 absolute (under two
 float32 ulps of a unit vector's largest component)."""
@@ -51,6 +52,30 @@ def test_frame_stream_seeds_bit_equal(seed):
             jseed, path_seed = jax_frame_stream_seeds(key)
             got = rays.frame_stream_seeds(rays.sample_key(seed, frame, sample))
             assert got == (int(jseed), int(path_seed)), (seed, frame, sample)
+
+
+@pytest.mark.parametrize("sample", [0, 1, 3])
+@pytest.mark.parametrize("frame", [0, 1, 77, 255, 256, 257, 10**6, 2**32 - 2,
+                                   2**32 - 1, 2**32, 2**32 + 1])
+@pytest.mark.parametrize("seed", [0, 1, 1337, 2**31 + 5, -1])
+def test_frame_stream_seeds_block_equals_the_chain(seed, frame, sample):
+    """The block of SEED_BLOCK frames drawn at once against the per-frame
+    chain: the aligned block the renderers read, and the block that
+    starts at the frame (past 2**32 the frame index wraps, as fold_in
+    masks it)."""
+    def chain(f):
+        return rays.frame_stream_seeds(rays.sample_key(seed, f, sample))
+
+    def entry(block, i):
+        return int(block[0][i]), int(block[1][i])
+
+    f0 = frame - frame % rays.SEED_BLOCK
+    aligned = rays.frame_stream_seeds_block(seed, f0, sample)
+    assert entry(aligned, frame - f0) == chain(frame)
+    block = rays.frame_stream_seeds_block(seed, frame, sample)
+    assert block[0].shape == block[1].shape == (rays.SEED_BLOCK,)
+    for i in (0, 2, rays.SEED_BLOCK - 1):
+        assert entry(block, i) == chain(frame + i), i
 
 
 @pytest.mark.parametrize("jitter", [True, False])

@@ -7,7 +7,8 @@ recorded into a ``FrameTimer`` (``record_into``) and under the profiler.
   work and changes none of it;
 - a recorder counts each stage of a frame as often as the frame runs it
   (``wavefront_fused``'s segments and re-sorts by its schedule, the
-  sharded engine's two seed spans), the camera move's spans, and the
+  sharded engine's two seed spans, one ``prt.seed_block`` for frames of
+  one seed block), the camera move's spans, and the
   children's host time sums to no more than ``prt.frame``'s;
 - the profiler's Chrome trace holds the stages inside ``prt.frame``, and
   ``device_busy`` gives each span its idle time and the device time it
@@ -106,7 +107,9 @@ def test_recorder_counts_each_stage_of_a_fused_frame():
     profiling.record_into(timer)
     _frames(r)
     totals = timer.take()
-    assert set(totals) == {"prt.frame", *STAGES}
+    assert set(totals) == {"prt.frame", "prt.seed_block", *STAGES}
+    # the frames' seeds come from one block, filled inside the first's
+    assert totals.pop("prt.seed_block")[1] == 1
     assert all(calls == FRAMES for _, calls in totals.values())
     children = sum(totals[name][0] for name in STAGES)
     assert 0.0 < children <= totals["prt.frame"][0]
@@ -121,8 +124,8 @@ def test_recorder_counts_segments_and_resorts_by_the_schedule(tmp_path):
     profiling.record_into(timer)
     _frames(r, 2)
     calls = {name: n for name, (_, n) in timer.totals().items()}
-    assert calls == {"prt.frame": 2, "prt.seeds": 2, "prt.raygen": 2,
-                     "prt.segment": 2 * len(lens),
+    assert calls == {"prt.frame": 2, "prt.seeds": 2, "prt.seed_block": 1,
+                     "prt.raygen": 2, "prt.segment": 2 * len(lens),
                      "prt.resort": 2 * (len(lens) - 1), "prt.film_add": 2}
 
 
@@ -137,10 +140,11 @@ def test_recorder_counts_the_sharded_seeds_and_the_camera_move():
         r.reset_progressive()
         r.progressive_render()
     calls = {name: n for name, (_, n) in timer.totals().items()}
-    # the sample's key in the engine, the frame's seeds in the mesh's frame
+    # the sample's seeds in the engine (one block: every frame is frame
+    # 0), the frame's seeds in the mesh's frame
     assert calls == {"prt.set_camera": 2, "prt.film_clear": 2, "prt.frame": 2,
-                     "prt.seeds": 4, "prt.raygen": 2, "prt.trace": 2,
-                     "prt.film_add": 2}
+                     "prt.seeds": 4, "prt.seed_block": 1, "prt.raygen": 2,
+                     "prt.trace": 2, "prt.film_add": 2}
 
 
 def test_chrome_trace_holds_the_stages_inside_the_frame(tmp_path):
