@@ -62,6 +62,20 @@ TRACE_FROM_DISPLAY = 8
 TRACE_DISPLAYS = 2
 
 
+#: render settings the reference follows at one value only
+FOLLOWED_ONLY = {"samples_per_frame": 1, "jitter": True}
+
+
+def check_render(rnd: dict) -> None:
+    """Refuse a configuration's render setting that the reference does
+    not follow (``FOLLOWED_ONLY``): a run of it could only read as not
+    correct."""
+    for key, value in FOLLOWED_ONLY.items():
+        if rnd[key] != value:
+            raise ValueError(f"render setting {key}={rnd[key]!r}: the "
+                             f"reference follows only {key}={value!r}")
+
+
 def forbidden_modules() -> list:
     """Top-level names of loaded modules that the benchmark's processes
     may not hold (compared whole: the renderer's own name only begins
@@ -150,6 +164,7 @@ def run_rank(plan: dict, seed: int, seconds: float, trace: bool,
 
     cfg, tr = plan["config"], plan["traffic"]
     rnd = cfg["render"]
+    check_render(rnd)
     w, h = frame_size(plan)
     rcfg = RenderConfig(width=w, height=h, max_depth=rnd["max_depth"],
                         samples_per_frame=rnd["samples_per_frame"],
@@ -355,9 +370,12 @@ def reference_share(plan: dict, seed: int, pixels: np.ndarray, frames: int,
     """This rank's share of the reference: at its pixels, the film's mean
     after each display's frames and after the window's (at rest), or each
     display's and the last frame's single frame under its camera (in
-    orbit), and the tally of the paths for the roofline's floor."""
+    orbit), and the tally of the paths for the roofline's floor.  The
+    paths follow the configuration's NEE and Russian roulette; a render
+    setting the reference does not follow raises ValueError."""
     cfg, tr = plan["config"], plan["traffic"]
     rnd = cfg["render"]
+    check_render(rnd)
     mats, objs = scenes.expand(cfg["scene"])
     sc = reference.RefScene.build(cfg["scene"]["sky"], mats, objs, dev, dtype)
     step = float(tr.get("yaw_deg_per_frame", 0.0))
@@ -368,7 +386,8 @@ def reference_share(plan: dict, seed: int, pixels: np.ndarray, frames: int,
         return reference.pixel_radiance(
             sc, reference.camera_params(eye, view, w, h), w, h, pixels,
             frame_list, seed, rnd["max_depth"], rnd["t_min"],
-            reference.t_cap(rnd["t_max"]), dev, dtype, counts)
+            reference.t_cap(rnd["t_max"]), dev, dtype, counts,
+            nee=rnd["nee"], rr_depth=rnd["russian_roulette_depth"])
 
     if tr["motion"] == "orbit":
         disp = np.stack([radiance(k, [0])[0] for k in disp_cams])

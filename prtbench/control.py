@@ -5,7 +5,8 @@ float32 (bfloat16), read by the same numbers as a run.
     python3 -m prtbench.control --workload <name> --frames <n> \\
         --displays <d> --seeds <s> [<s> ...]
 
-For each seed it draws the run's pixels, takes `n` progressive frames at
+For each seed it draws the run's pixels (as many as a run of these
+frames and displays compares), takes `n` progressive frames at
 rest (the displays after evenly spaced frame counts) or `d` orbit
 displays and a last frame, computes the reference in float32 and in
 bfloat16 on the card (the CPU with ``--device cpu``), and prints the
@@ -30,9 +31,11 @@ from prtbench.run import ROOT
 def control_numbers(plan: dict, seed: int, frames: int, displays: int,
                     device: str = "cuda") -> dict:
     w, h = cell.frame_size(plan)
-    pixels = cell.sample_pixels(seed, w, h, plan["sample"]["pixels"])
-    dev = torch.device(device)
     orbit = plan["traffic"]["motion"] == "orbit"
+    # the pixels a run of these frames and displays compares
+    pixels = cell.sample_pixels(seed, w, h, plan["sample"]["pixels"])[
+        :cell.checked_pixels(plan["sample"], frames, displays, orbit)]
+    dev = torch.device(device)
     if orbit:
         cams = list(range(1, displays + 1))
         disp_frames = [1] * displays

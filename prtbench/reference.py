@@ -9,8 +9,10 @@ host: ``fold_in(fold_in(PRNGKey(seed), frame), 0)``, split, one randint
 each), the pixel-keyed jittered camera rays (a PCG hash of the pixel id
 and the frame's jitter seed), the paths (closest hit over spheres, quads
 and triangles; Lambertian, metal, dielectric and emissive materials; the
-constant sky; streams keyed on the pixel id and the absolute depth), the
-film's per-pixel sum and its tonemap (Reinhard, gamma 1/2.2, 8 bits).
+constant sky; streams keyed on the pixel id and the absolute depth;
+optionally next-event estimation toward the emissive spheres and quads
+and Russian roulette), the film's per-pixel sum and its tonemap
+(Reinhard, gamma 1/2.2, 8 bits).
 The arithmetic is written to round as the renderer's kernels round
 (sqrt and the transcendentals taken in float64 and rounded once), so the
 two agree ray by ray except where a path grazes a primitive.
@@ -57,7 +59,8 @@ def t_cap(t_max: float) -> float:
 
 
 # --------------------------------------------------------------------------
-# seeds: threefry2x32 on the host, as jax.random derives them
+# seeds: threefry2x32 on the host, as jax.random derives them, for every
+# frame at once (a key is a pair of uint32 arrays, an element a frame)
 # --------------------------------------------------------------------------
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -68,8 +71,10 @@ def _rotl(x, r):
 
 
 def threefry2x32(key, x0, x1):
+    """threefry2x32 of the words (x0, x1) under key (k0, k1), elementwise
+    over arrays of any matching shape."""
     with np.errstate(over="ignore"):
-        k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+        k0, k1 = np.asarray(key[0], np.uint32), np.asarray(key[1], np.uint32)
         ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
         x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
         for i in range(5):
@@ -81,37 +86,41 @@ def threefry2x32(key, x0, x1):
     return x[0], x[1]
 
 
-def _fold_in(key, data: int):
-    a, b = threefry2x32(key, np.uint32(0), np.uint32(int(data) & MASK32))
-    return int(a), int(b)
+def _fold_in(key, data):
+    return threefry2x32(key, np.zeros_like(data), data)
 
 
 def _split(key):
-    a, b = threefry2x32(key, np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
-    return [(int(a[i]), int(b[i])) for i in range(2)]
+    zero = np.zeros_like(key[0])
+    return [threefry2x32(key, zero, zero + np.uint32(i)) for i in range(2)]
 
 
-def _bits32(key) -> int:
-    a, b = threefry2x32(key, np.uint32(0), np.uint32(0))
-    return int(a ^ b)
+def _bits32(key):
+    zero = np.zeros_like(key[0])
+    a, b = threefry2x32(key, zero, zero)
+    return a ^ b
 
 
-def _randint(key, maxval: int = 2**31 - 1) -> int:
+def _randint(key, maxval: int = 2**31 - 1):
     """randint(key, (), 0, maxval, int32): the two-word modular draw."""
     hi_key, lo_key = _split(key)
-    higher, lower = _bits32(hi_key), _bits32(lo_key)
+    higher = _bits32(hi_key).astype(np.int64)
+    lower = _bits32(lo_key).astype(np.int64)
     multiplier = (1 << 16) % maxval
     multiplier = ((multiplier * multiplier) & MASK32) % maxval
     offset = (((higher % maxval) * multiplier) & MASK32) + lower % maxval
     return (offset & MASK32) % maxval
 
 
-def frame_seeds(seed: int, frame: int):
-    """(jitter seed, path seed) of sample 0 of progressive frame `frame`
-    under the run's seed."""
-    key = _fold_in(_fold_in((0, int(seed) & MASK32), frame), 0)
+def frame_seeds(seed: int, frames) -> np.ndarray:
+    """(len(frames), 2) int64: the (jitter seed, path seed) of sample 0 of
+    each progressive frame in `frames` under the run's seed, all frames
+    at once."""
+    f = (np.asarray(frames, np.int64).reshape(-1) & MASK32).astype(np.uint32)
+    key = (np.zeros_like(f), np.full_like(f, int(seed) & MASK32))
+    key = _fold_in(_fold_in(key, f), np.zeros_like(f))
     k_jit, k_path = _split(key)
-    return _randint(k_jit), _randint(k_path)
+    return np.stack([_randint(k_jit), _randint(k_path)], 1)
 
 
 # --------------------------------------------------------------------------
@@ -206,7 +215,11 @@ class RefScene:
     the triangles' clusters: boxes (C, 6), members (C, CLUSTER) with -1
     pads.  An ordinal numbers spheres, then quads, then triangles, in the
     order the scene lists them: the closest hit takes the lowest one on
-    equal distances."""
+    equal distances.  lights (18, Nl), None without an emitter: the
+    emissive spheres and then the emissive quads, each in the scene's
+    order, as kind (0 sphere, 1 quad), ordinal, center, radius, u, v,
+    unit normal, emission; a -0.0 entry stored as +0.0.  Emissive
+    triangles are no lights."""
     sph: torch.Tensor
     quad: torch.Tensor
     tri: Optional[torch.Tensor]
@@ -217,6 +230,7 @@ class RefScene:
     #: bytes of the scene as its description gives it (the roofline's
     #: floor reads them once)
     scene_bytes: int = 0
+    lights: Optional[torch.Tensor] = None
 
     @classmethod
     def build(cls, sky, mats, objs, device, dtype=torch.float32) -> "RefScene":
@@ -299,6 +313,22 @@ class RefScene:
                           for m in mats], np.float64).astype(f32)
         mats_t = np.concatenate([mt[None], color.T, extra[None]])
 
+        lights = None
+        s_em = [i for i, s in enumerate(sph) if mt[s[2]] == EMISSIVE]
+        q_em = [i for i, q in enumerate(quad) if mt[q[4]] == EMISSIVE]
+        if s_em or q_em:
+            zero = np.zeros((len(s_em), 3), f32)
+            lights = np.concatenate([
+                np.array([[0.0] * len(s_em) + [1.0] * len(q_em)], f32),
+                np.array([s_em + [ns + i for i in q_em]], f32),
+                np.concatenate([c[s_em], qc[q_em]]).T,
+                np.concatenate([r[s_em], np.zeros(len(q_em), f32)])[None],
+                np.concatenate([zero, qu[q_em]]).T,
+                np.concatenate([zero, qv[q_em]]).T,
+                np.concatenate([zero, qn[q_em]]).T,
+                color[[sph[i][2] for i in s_em]
+                      + [quad[i][4] for i in q_em]].T]) + f32(0.0)
+
         def dev(a):
             return None if a is None else torch.from_numpy(
                 np.ascontiguousarray(a)).to(device=device, dtype=dtype)
@@ -306,7 +336,7 @@ class RefScene:
         sky32 = tuple(float(np.float32(s)) for s in sky)
         return cls(dev(sph_t), dev(quad_t), dev(tri_t), dev(boxes),
                    None if members is None else torch.from_numpy(members).to(device),
-                   dev(mats_t), sky32, nbytes)
+                   dev(mats_t), sky32, nbytes, dev(lights))
 
 
 # --------------------------------------------------------------------------
@@ -476,7 +506,7 @@ def closest_hit(ray, sc: RefScene, t_min: float, t_cap: float):
     """Closest hit of B rays: (t (BIG on a miss), geometry gx, gy, gz
     (sphere center, quad normal, or the triangle's blended vertex
     normal), front flag, the hit's kind (0 sphere, 1 quad, 2 triangle;
-    any on a miss), material id)."""
+    any on a miss), material id, ordinal (inf on a miss))."""
     ox, oy, oz, dx, dy, dz = ray
     sph, quad = sc.sph, sc.quad
     ns, nq = sph.shape[1], quad.shape[1]
@@ -498,12 +528,11 @@ def closest_hit(ray, sc: RefScene, t_min: float, t_cap: float):
         cols.append(col)
         fronts.append(torch.cat([fr_s, fr_q], 1).gather(1, col[:, None])[:, 0])
     t, o, col, front = (torch.cat(x) for x in (ts, os_, cols, fronts))
-    is_sph = col < ns
-    cs = col.clamp(max=ns - 1)
-    cq = (col - ns).clamp(min=0, max=nq - 1)
-    g = [torch.where(is_sph, sph[k, cs], quad[k, cq]) for k in range(3)]
-    mid = torch.where(is_sph, sph[4, cs], quad[12, cq])
-    kind = (~is_sph).long()
+    # a sphere's center or a quad's normal, and the material, by column
+    geo = torch.cat([sph[0:3], quad[0:3]], 1)
+    g = [geo[k, col] for k in range(3)]
+    mid = torch.cat([sph[4], quad[12]])[col]
+    kind = (col >= ns).long()
     if sc.tri is not None:
         tt, to = _tri_closest(ray, sc, t_min, t_cap)
         win = (tt < t) | ((tt == t) & (to < o))
@@ -522,21 +551,112 @@ def closest_hit(ray, sc: RefScene, t_min: float, t_cap: float):
         mid = torch.where(is_tri, rows[16], mid)
         kind = torch.where(is_tri, 2, kind)
         t = torch.where(is_tri, tt, t)
+        o = torch.where(is_tri, to, o)
     t = torch.where(t < BIG, t, torch.tensor(BIG, dtype=dt, device=t.device))
     # ids come back exact in float32; a lower precision may round them
-    return t, g, front, kind, mid.long().clamp(0, sc.mats.shape[1] - 1)
+    return t, g, front, kind, mid.long().clamp(0, sc.mats.shape[1] - 1), o
 
 
 # --------------------------------------------------------------------------
 # one bounce, and whole paths
 # --------------------------------------------------------------------------
 
-def bounce(state, rng_d, sc: RefScene, t_min: float, t_cap: float, counts):
-    """One bounce of B live paths: (new state, continue mask).  state =
-    [ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb]."""
+def light_sample(px, py, pz, nx, ny, nz, cand, rng_d, sc: RefScene,
+                 t_min: float, t_cap: float, counts):
+    """Next-event estimation at B shading points, of which the `cand`
+    ones (Lambertian hits) sample: pick a light from salt 5, a direction
+    toward it from salts 6 and 7 (a uniform cone toward a sphere, with
+    its pdf 1 / (2 pi (1 - cos theta_max)), none from inside it; a
+    uniform point on a quad, its pdf dist^2 / (cos_l area) in solid
+    angle, none where cos_l <= 1e-6), the pdf divided by the number of
+    lights.  The light is seen where the closest hit along the shadow
+    ray is its own primitive.  Returns the (B,) mask of the seen samples,
+    their weights cos / (pi pdf), and the light's emission (3 x (B,))."""
+    lights = sc.lights
+    nl = lights.shape[1]
+    u_l = uniform01(rng_d, 5, px.dtype)
+    u_a = uniform01(rng_d, 6, px.dtype)
+    u_b = uniform01(rng_d, 7, px.dtype)
+    li = torch.clamp_max((u_l * nl).long(), nl - 1)
+    (kind, lord, lcx, lcy, lcz, lr, lux, luy, luz, lvx, lvy, lvz,
+     lqx, lqy, lqz, le0, le1, le2) = lights[:, li]
+
+    # sphere light: a uniform cone toward it
+    tox = lcx - px
+    toy = lcy - py
+    toz = lcz - pz
+    dc2 = tox * tox + toy * toy + toz * toz
+    inv_dc = _rsqrt(torch.clamp_min(dc2, 1e-20))
+    axx, axy, axz = tox * inv_dc, toy * inv_dc, toz * inv_dc
+    sin2m = torch.clamp(lr * lr / torch.clamp_min(dc2, 1e-20), 0.0, 1.0)
+    cosm = _sqrt(torch.clamp_min(1.0 - sin2m, 0.0))
+    cost = 1.0 - u_a * (1.0 - cosm)
+    sint = _sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+    phi = TWO_PI * u_b
+    hy = (torch.abs(axx) > 0.9).to(px.dtype)
+    hx = 1.0 - hy
+    t1x = axy * 0.0 - axz * hy
+    t1y = axz * hx - axx * 0.0
+    t1z = axx * hy - axy * hx
+    t_il = _rsqrt(torch.clamp_min(t1x * t1x + t1y * t1y + t1z * t1z, 1e-20))
+    t1x, t1y, t1z = t1x * t_il, t1y * t_il, t1z * t_il
+    t2x = axy * t1z - axz * t1y
+    t2y = axz * t1x - axx * t1z
+    t2z = axx * t1y - axy * t1x
+    cp = _cos(phi) * sint
+    sp = _sin(phi) * sint
+    wsx = axx * cost + t1x * cp + t2x * sp
+    wsy = axy * cost + t1y * cp + t2y * sp
+    wsz = axz * cost + t1z * cp + t2z * sp
+    pdf_s = 1.0 / torch.clamp_min(TWO_PI * (1.0 - cosm), 1e-12)
+    ok_s = dc2 > lr * lr
+
+    # quad light: a uniform point on it
+    a2 = 2.0 * u_a - 1.0
+    b2 = 2.0 * u_b - 1.0
+    qpx = lcx + a2 * lux + b2 * lvx - px
+    qpy = lcy + a2 * luy + b2 * lvy - py
+    qpz = lcz + a2 * luz + b2 * lvz - pz
+    dist2 = qpx * qpx + qpy * qpy + qpz * qpz
+    inv_dq = _rsqrt(torch.clamp_min(dist2, 1e-20))
+    wqx, wqy, wqz = qpx * inv_dq, qpy * inv_dq, qpz * inv_dq
+    crx = luy * lvz - luz * lvy
+    cry = luz * lvx - lux * lvz
+    crz = lux * lvy - luy * lvx
+    area = 4.0 * _sqrt(torch.clamp_min(crx * crx + cry * cry + crz * crz, 0.0))
+    cosl = torch.abs(wqx * lqx + wqy * lqy + wqz * lqz)
+    pdf_q = dist2 / torch.clamp_min(cosl * area, 1e-12)
+    ok_q = cosl > 1e-6
+
+    is_s = kind == 0.0
+    wx = torch.where(is_s, wsx, wqx)
+    wy = torch.where(is_s, wsy, wqy)
+    wz = torch.where(is_s, wsz, wqz)
+    pdf = torch.where(is_s, pdf_s, pdf_q) / float(nl)
+    cos_s = wx * nx + wy * ny + wz * nz
+    cand = cand & (cos_s > 0.0) & torch.where(is_s, ok_s, ok_q)
+    seen = torch.zeros_like(cand)
+    sel = torch.nonzero(cand)[:, 0]
+    if sel.numel():
+        sh_t, _, _, _, _, sh_o = closest_hit(
+            tuple(v[sel] for v in (px, py, pz, wx, wy, wz)), sc, t_min, t_cap)
+        seen[sel] = (sh_t < BIG) & (sh_o == lord[sel])
+    if counts is not None:
+        counts["shadow"] += int(sel.numel())
+    w = cos_s / (math.pi * torch.clamp_min(pdf, 1e-12))
+    return seen, w, (le0, le1, le2)
+
+
+def bounce(state, alive, rng_d, depth: int, sc: RefScene, t_min: float,
+           t_cap: float, counts, nee: bool = False, rr_depth: int = 0):
+    """One bounce of B live paths at absolute depth `depth`: (new state,
+    alive values).  state = [ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg,
+    rb]; an alive value is 0 for a path that ended, 1 for one that goes
+    on, 2 for one that goes on from a Lambertian vertex under NEE (the
+    light was sampled there, so the next vertex adds no emission)."""
     ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb = state
     dt = ox.dtype
-    best_t, (gx, gy, gz), fr, kind, mid = closest_hit(
+    best_t, (gx, gy, gz), fr, kind, mid, _ = closest_hit(
         (ox, oy, oz, dx, dy, dz), sc, t_min, t_cap)
     hit = best_t < BIG
     is_sph_k = hit & (kind == 0)
@@ -566,6 +686,8 @@ def bounce(state, rng_d, sc: RefScene, t_min: float, t_cap: float, counts):
     rg = rg + mw * tg * sc.sky[1]
     rb = rb + mw * tb * sc.sky[2]
     lw = hit.to(dt) * (m_type == EMISSIVE).to(dt)
+    if nee:
+        lw = lw * (alive != 2).to(dt)
     rr = rr + lw * tr * m_c0
     rg = rg + lw * tg * m_c1
     rb = rb + lw * tb * m_c2
@@ -573,6 +695,12 @@ def bounce(state, rng_d, sc: RefScene, t_min: float, t_cap: float, counts):
     is_lam = m_type == LAMBERTIAN
     is_met = m_type == METAL
     is_die = m_type == DIELECTRIC
+    if nee:  # the throughput before the BSDF's attenuation
+        seen, w, le = light_sample(px, py, pz, nx, ny, nz, hit & is_lam,
+                                   rng_d, sc, t_min, t_cap, counts)
+        rr = torch.where(seen, rr + tr * m_c0 * w * le[0], rr)
+        rg = torch.where(seen, rg + tg * m_c1 * w * le[1], rg)
+        rb = torch.where(seen, rb + tb * m_c2 * w * le[2], rb)
     u1 = uniform01(rng_d, 1, dt)
     u2 = uniform01(rng_d, 2, dt)
     u3 = uniform01(rng_d, 3, dt)
@@ -625,6 +753,15 @@ def bounce(state, rng_d, sc: RefScene, t_min: float, t_cap: float, counts):
     tr = tr * (ncw + cw * torch.where(is_die, 1.0, m_c0))
     tg = tg * (ncw + cw * torch.where(is_die, 1.0, m_c1))
     tb = tb * (ncw + cw * torch.where(is_die, 1.0, m_c2))
+    live = cont
+    if 0 < rr_depth <= depth:
+        # Russian roulette: a path goes on with p = clamp(max channel,
+        # 0.05, 1) of its attenuated throughput, divided by p
+        p = torch.clamp(torch.maximum(tr, torch.maximum(tg, tb)), 0.05, 1.0)
+        survive = ~(uniform01(rng_d, 4, dt) >= p)
+        boost = torch.where(cont & survive, 1.0 / p, 1.0)
+        tr, tg, tb = tr * boost, tg * boost, tb * boost
+        live = cont & survive
     if counts is not None:
         counts["segments"] += int(hit.shape[0])
         for k, name in enumerate(("sphere", "quad", "triangle")):
@@ -636,13 +773,19 @@ def bounce(state, rng_d, sc: RefScene, t_min: float, t_cap: float, counts):
     dx = torch.where(cont, sx, dx)
     dy = torch.where(cont, sy, dy)
     dz = torch.where(cont, sz, dz)
-    return [ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb], cont
+    alive = live.long()
+    if nee:
+        alive = alive * torch.where(is_lam, 2, 1)
+    return [ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb], alive
 
 
 def trace_paths(o, d, pix, path_seed, sc: RefScene, max_depth: int,
-                t_min: float, t_cap: float, counts=None) -> torch.Tensor:
+                t_min: float, t_cap: float, counts=None, nee: bool = False,
+                rr_depth: int = 0) -> torch.Tensor:
     """(R, 3) radiance of R camera rays: pixel ids `pix` and per-ray path
-    seeds `path_seed` (int64) key each bounce's stream."""
+    seeds `path_seed` (int64) key each bounce's stream.  `nee`: sample a
+    light at each Lambertian vertex (where the scene has one); `rr_depth`:
+    Russian roulette from that absolute depth on (0: none)."""
     r = o.shape[0]
     dt = o.dtype
     ones = torch.ones(r, dtype=dt, device=o.device)
@@ -652,24 +795,28 @@ def trace_paths(o, d, pix, path_seed, sc: RefScene, max_depth: int,
              ones.clone(), ones.clone(), ones.clone(),
              zeros.clone(), zeros.clone(), zeros.clone()]
     rng_base = pcg_hash((pix & MASK32) ^ (path_seed & MASK32))
+    nee = nee and sc.lights is not None
+    alive = torch.ones(r, dtype=torch.long, device=o.device)
     idx = torch.arange(r, device=o.device)
     for depth in range(max_depth):
         if idx.numel() == 0:
             break
         rng_d = (rng_base[idx] + depth * DEPTH_STEP) & MASK32
-        new, cont = bounce([s[idx] for s in state], rng_d, sc, t_min, t_cap,
-                           counts)
+        new, alive_d = bounce([s[idx] for s in state], alive[idx], rng_d,
+                              depth, sc, t_min, t_cap, counts, nee, rr_depth)
         for s, v in zip(state, new):
             s[idx] = v
-        idx = idx[cont]
+        alive[idx] = alive_d
+        idx = idx[alive_d > 0]
     return torch.stack(state[9:12], 1)
 
 
 def new_counts() -> dict:
     """The paths' tally for the roofline's floor: ray segments traced,
-    hits by the kind of the primitive hit, and scatters."""
+    hits by the kind of the primitive hit, scatters, and NEE's shadow
+    rays traced."""
     return {"segments": 0, "sphere": 0, "quad": 0, "triangle": 0,
-            "scatter": 0}
+            "scatter": 0, "shadow": 0}
 
 
 # --------------------------------------------------------------------------
@@ -689,14 +836,16 @@ def tonemap(hdr: torch.Tensor) -> torch.Tensor:
 def pixel_radiance(sc: RefScene, cam: np.ndarray, width: int, height: int,
                    pixels: np.ndarray, frames, seed: int, max_depth: int,
                    t_min: float, t_cap: float, device, dtype=torch.float32,
-                   counts=None, rays_per_call: int = 1 << 21) -> np.ndarray:
+                   counts=None, rays_per_call: int = 1 << 21,
+                   nee: bool = False, rr_depth: int = 0) -> np.ndarray:
     """(len(frames), len(pixels), 3) float64 radiance of sample 0 of each
     progressive frame in `frames` at each pixel id of `pixels`, under the
-    camera parameters `cam` (``camera_params``)."""
+    camera parameters `cam` (``camera_params``); `nee` and `rr_depth` as
+    ``trace_paths`` takes them."""
     frames = list(frames)
     pix = torch.from_numpy(np.asarray(pixels, np.int64)).to(device)
     cam_t = torch.from_numpy(cam).to(device=device, dtype=dtype)
-    seeds = np.array([frame_seeds(seed, f) for f in frames], np.int64)
+    seeds = frame_seeds(seed, frames)
     out = np.empty((len(frames), len(pixels), 3), np.float64)
     per = max(1, rays_per_call // max(1, len(pixels)))
     for lo in range(0, len(frames), per):
@@ -706,6 +855,7 @@ def pixel_radiance(sc: RefScene, cam: np.ndarray, width: int, height: int,
         jseed = s[:, 0].repeat_interleave(len(pixels))
         pseed = s[:, 1].repeat_interleave(len(pixels))
         o, d = camera_rays(cam_t, width, height, idx, jseed, dtype)
-        rad = trace_paths(o, d, idx, pseed, sc, max_depth, t_min, t_cap, counts)
+        rad = trace_paths(o, d, idx, pseed, sc, max_depth, t_min, t_cap,
+                          counts, nee, rr_depth)
         out[lo:lo + nf] = rad.double().reshape(nf, len(pixels), 3).cpu().numpy()
     return out

@@ -9,9 +9,11 @@ kernels, so that a change of tree, layout or kernel cannot move it:
   read once by each card (``reference.RefScene.scene_bytes``);
 - operations: the ray segments that the benchmark's own reference traces
   on the same inputs, each with one test against the primitive it hits
-  and, where the path scatters, one BSDF sample, at the float32
-  operations ``OPS`` counts in ``reference.py``'s arithmetic (a
-  transcendental or a square root as one).
+  and, where the path scatters, one BSDF sample, and under NEE each
+  shadow ray it traces, with its light sample and one test against the
+  light's primitive, at the float32 operations ``OPS`` counts in
+  ``reference.py``'s arithmetic (a transcendental or a square root as
+  one).
 
 Tree nodes, rejected primitives and every re-read are left out, so no
 correct implementation can go under the floor, and a share of it cannot
@@ -33,8 +35,15 @@ RAY_BYTES = 28 + 12
 #: quad: d.n 5, o.n 5, 1/d.n 1, t 2, a 13, b 13, a^2 and b^2 2, side 1;
 #: triangle: o x d 9, div 6, 1/div 1, t 7, b1 12, b2 12, b1 + b2 1;
 #: scatter (a Lambertian bounce, the cheapest): hit point 6, normal 13,
-#: direction 11, l = n + u 3, normalise 10, throughput 9.
-OPS = {"sphere": 21, "quad": 42, "triangle": 48, "scatter": 52}
+#: direction 11, l = n + u 3, normalise 10, throughput 9;
+#: shadow (a quad light, the cheaper kind; adds, multiplies, divisions
+#: and square roots, no compare, clamp or select; the light's edge cross
+#: product and area left out, a table could hold them): pick 1, the
+#: point's a and b 4, to the point 15, dist^2 5, 1 / dist 2, direction 3,
+#: cos at the light 5, pdf 2, / lights 1, cos at the surface 5 (43), and
+#: the quad test 42.  A sphere light's sample and test count 89.
+OPS = {"sphere": 21, "quad": 42, "triangle": 48, "scatter": 52,
+       "shadow": 85}
 
 
 def frame_floor(counts: dict, paths: int, rays_per_frame: int,

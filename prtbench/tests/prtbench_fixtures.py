@@ -12,14 +12,15 @@ import torch
 from prtbench import registry, run
 
 
-def small_plan(workload: str, pixels: int = 64, level: int = 2) -> dict:
+def small_plan(workload: str, pixels: int = 64, level: int = 2,
+               depth: int = 4) -> dict:
     """`workload`'s plan at a size the CPU renders in well under a second
-    a frame: 48x27 (96x54 before a preview's scale), depth 4, the mesh a
-    level-`level` icosphere, displays every 100 ms."""
+    a frame: 48x27 (96x54 before a preview's scale), depth `depth`, the
+    mesh a level-`level` icosphere, displays every 100 ms."""
     plan = copy.deepcopy(registry.plan(run.ROOT, workload))
     scale = int(plan["traffic"].get("scale", 1))
     plan["config"]["render"].update(width=48 * scale, height=27 * scale,
-                                    max_depth=4)
+                                    max_depth=depth)
     for o in plan["config"]["scene"].get("objects", []):
         if o["kind"] == "mesh":
             o["mesh"] = {"icosphere": level}

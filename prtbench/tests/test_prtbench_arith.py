@@ -99,10 +99,10 @@ def test_tail_covers_every_frame_and_the_slowest_rank():
 
 def test_floor_and_binding_bound():
     counts = {"segments": 300, "sphere": 100, "quad": 50, "triangle": 0,
-              "scatter": 120}
+              "scatter": 120, "shadow": 30}
     floor = roofline.frame_floor(counts, paths=100, rays_per_frame=1000,
                                  scene_bytes=500, cards=4)
-    ops = 10 * (100 * 21 + 50 * 42 + 120 * 52)
+    ops = 10 * (100 * 21 + 50 * 42 + 120 * 52 + 30 * 85)
     assert floor == {"ops": ops, "bytes": 1000 * 40 + 4 * 500}
     seconds, bound = roofline.floor_seconds(floor)
     assert bound == "bytes"
@@ -113,7 +113,7 @@ def test_floor_and_binding_bound():
 
 def test_roofline_share_never_passes_100_when_the_kernel_is_at_the_floor():
     counts = {"segments": 10, "sphere": 10, "quad": 0, "triangle": 0,
-              "scatter": 10}
+              "scatter": 10, "shadow": 10}
     raw = {"counts": counts, "paths": 10, "width": 100, "height": 10,
            "scene_bytes": 0, "slice_frames": 4, "slice_displays": 1,
            "host_s": [], "trace": None}

@@ -34,9 +34,12 @@ def _altered(out):
     return out.roll(1, dims=1)
 
 
-@pytest.mark.parametrize("workload", ["balls_rest_1080p",
-                                      "icosphere_rest_1080p",
-                                      "balls_orbit_360p"])
+#: the one-card cells (the four-card one runs below, over gloo)
+ONE_CARD = ["balls_rest_1080p", "icosphere_rest_1080p", "balls_orbit_360p",
+            "cornell_nee_rest_1080p", "balls_nee_rest_1080p"]
+
+
+@pytest.mark.parametrize("workload", ONE_CARD)
 def test_sound_run_is_correct(workload):
     out = _run(small_plan(workload))
     assert out["correct"], out["checks"]
@@ -46,9 +49,7 @@ def test_sound_run_is_correct(workload):
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
                                    "answer_altered"])
-@pytest.mark.parametrize("workload", ["balls_rest_1080p",
-                                      "icosphere_rest_1080p",
-                                      "balls_orbit_360p"])
+@pytest.mark.parametrize("workload", ONE_CARD)
 def test_fault_is_not_correct(workload, fault, monkeypatch):
     from parallelraytracing_tpu_torch.engines.base import Renderer
     from parallelraytracing_tpu_torch.engines.fused import FusedRenderer
@@ -96,10 +97,7 @@ def test_four_ranks_sound_and_without_the_gather(tmp_path):
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("workload", ["balls_rest_1080p",
-                                      "icosphere_rest_1080p",
-                                      "balls_orbit_360p",
-                                      "balls_4card_rest_1080p"])
+@pytest.mark.parametrize("workload", ONE_CARD + ["balls_4card_rest_1080p"])
 def test_control_fails_the_limits(workload):
     plan = small_plan(workload, pixels=256)
     nums = control.control_numbers(plan, SEED, frames=12, displays=3,

@@ -36,6 +36,14 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert not bad, f"{path} imports {bad}"
 
 
+def test_the_reference_imports_nothing_of_the_renderer():
+    # plain torch and numpy beside the standard library, at any depth of
+    # the file (a function's import counts too)
+    names = _top_level_imports(BASE / "reference.py")
+    assert "torch" in names and "numpy" in names
+    assert not names - {"torch", "numpy"} - set(sys.stdlib_module_names), names
+
+
 def test_the_renderer_is_not_taken_for_the_jax_package():
     # names are compared whole: the port's name begins with the JAX one's
     assert "parallelraytracing_tpu_torch".split(".")[0] not in cell.FORBIDDEN

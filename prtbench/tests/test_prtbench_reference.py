@@ -11,12 +11,20 @@ from prtbench import cell, reference, scenes
 from prtbench.tests.prtbench_fixtures import _few_threads, small_plan  # noqa: F401
 
 
+#: the NEE cells' depth here: Russian roulette from depth 3 then ends
+#: paths that would go on, and boosts the throughput of those that do
+NEE_DEPTH = 6
+
+
 @pytest.mark.parametrize("workload", ["balls_rest_1080p",
                                       "icosphere_rest_1080p",
-                                      "balls_orbit_360p"])
+                                      "balls_orbit_360p",
+                                      "cornell_nee_rest_1080p",
+                                      "balls_nee_rest_1080p"])
 def test_reference_matches_a_cpu_render(workload):
     from parallelraytracing_tpu_torch import Film, RenderConfig, create_renderer
-    plan = small_plan(workload, level=3)
+    plan = small_plan(workload, level=3,
+                      depth=NEE_DEPTH if "nee" in workload else 4)
     cfg, rnd = plan["config"], plan["config"]["render"]
     w, h = cell.frame_size(plan)
     seed, frames, step = 2**31 + 77, 3, 7.5
@@ -27,7 +35,8 @@ def test_reference_matches_a_cpu_render(workload):
     r.init(film, scenes.build_program_scene(cfg["scene"], mats, objs),
            scenes.program_camera(eye, view, w, h),
            RenderConfig(width=w, height=h, max_depth=rnd["max_depth"],
-                        seed=seed))
+                        seed=seed, nee=rnd["nee"],
+                        russian_roulette_depth=rnd["russian_roulette_depth"]))
     for _ in range(frames):
         r.progressive_render()
     hdr = film.hdr_average().reshape(-1, 3).double().numpy()
@@ -37,7 +46,8 @@ def test_reference_matches_a_cpu_render(workload):
     rad = reference.pixel_radiance(
         sc, reference.camera_params(eye, view, w, h), w, h, np.arange(w * h),
         range(frames), seed, rnd["max_depth"], rnd["t_min"],
-        reference.t_cap(rnd["t_max"]), "cpu")
+        reference.t_cap(rnd["t_max"]), "cpu", nee=rnd["nee"],
+        rr_depth=rnd["russian_roulette_depth"])
     mean = rad.sum(0) / frames
     assert mean.max() > 0.1
     np.testing.assert_allclose(hdr, mean, rtol=1e-5, atol=1e-6)

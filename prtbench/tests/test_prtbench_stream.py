@@ -47,7 +47,7 @@ def _raws(tmp_path, with_kernel: bool) -> list:
         for name, cat, ts, dur in events]}))
     red = tracefile.reduce(str(path), registry.layer_maps())
     counts = {"segments": 300, "sphere": 10, "quad": 100, "triangle": 150,
-              "scatter": 200}
+              "scatter": 200, "shadow": 0}
     return [{"trace": red, "slice_frames": 4, "counts": counts,
              "paths": 100, "width": 960, "height": 540,
              "scene_bytes": 24_000_000}]
