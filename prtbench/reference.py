@@ -4,10 +4,11 @@ worked out again from the benchmark's own inputs.
 Plain PyTorch and numpy, importing nothing of the renderer.  From a
 configuration's expanded scene (``scenes.expand``) and a camera it
 derives everything the renderer derives: the scene baked to world space
-and packed into per-kind tables, the per-frame seeds (threefry2x32 on the
-host: ``fold_in(fold_in(PRNGKey(seed), frame), 0)``, split, one randint
-each), the pixel-keyed jittered camera rays (a PCG hash of the pixel id
-and the frame's jitter seed), the paths (closest hit over spheres, quads
+(each instance of a mesh as its own copy) and packed into per-kind
+tables, the per-frame seeds (threefry2x32 on the host:
+``fold_in(fold_in(PRNGKey(seed), frame), 0)``, split, one randint each),
+the pixel-keyed jittered camera rays (a PCG hash of the pixel id and the
+frame's jitter seed), the paths (closest hit over spheres, quads
 and triangles; Lambertian, metal, dielectric and emissive materials; the
 constant sky; streams keyed on the pixel id and the absolute depth;
 optionally next-event estimation toward the emissive spheres and quads
@@ -192,6 +193,20 @@ def _normal(inv, n):
     return out / np.linalg.norm(out)
 
 
+def _baked(mesh, m, material) -> tuple:
+    """A mesh's triangles under the affine `m`, in world space: the three
+    vertices, the three vertex normals (through the inverse transpose,
+    renormalised) and the material, each (F, 3) or (F,)."""
+    verts, idx, nrm = mesh
+    inv = np.linalg.inv(m)
+    w = verts.astype(np.float64) @ m[:3, :3].T + m[:3, 3]
+    n = nrm.astype(np.float64) @ inv[:3, :3]
+    n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    f = idx.reshape(-1, 3).astype(np.int64)
+    return (w[f[:, 0]], w[f[:, 1]], w[f[:, 2]], n[f[:, 0]], n[f[:, 1]],
+            n[f[:, 2]], np.full(len(f), material))
+
+
 def _morton(points: np.ndarray) -> np.ndarray:
     """30-bit Morton codes of points quantised to 1024 cells an axis of
     their bounding box."""
@@ -214,12 +229,17 @@ class RefScene:
     (emission for an emitter, else albedo), extra (roughness, ior or 1);
     the triangles' clusters: boxes (C, 6), members (C, CLUSTER) with -1
     pads.  An ordinal numbers spheres, then quads, then triangles, in the
-    order the scene lists them: the closest hit takes the lowest one on
-    equal distances.  lights (18, Nl), None without an emitter: the
-    emissive spheres and then the emissive quads, each in the scene's
-    order, as kind (0 sphere, 1 quad), ordinal, center, radius, u, v,
-    unit normal, emission; a -0.0 entry stored as +0.0.  Emissive
-    triangles are no lights."""
+    order the scene lists them, the triangles of ``mesh`` objects before
+    those of ``instances`` objects: the closest hit takes the lowest one
+    on equal distances.  Each instance is baked to world space like a
+    ``mesh`` object (the renderer walks it in the mesh's space instead);
+    its transforms rotate and scale uniformly, so the baked vertex
+    normals and the renderer's local normal taken to world space agree
+    to rounding, and its hits count as triangle hits.  lights (18, Nl),
+    None without an emitter: the emissive spheres and then the emissive
+    quads, each in the scene's order, as kind (0 sphere, 1 quad),
+    ordinal, center, radius, u, v, unit normal, emission; a -0.0 entry
+    stored as +0.0.  Emissive triangles are no lights."""
     sph: torch.Tensor
     quad: torch.Tensor
     tri: Optional[torch.Tensor]
@@ -228,15 +248,18 @@ class RefScene:
     mats: torch.Tensor
     sky: tuple
     #: bytes of the scene as its description gives it (the roofline's
-    #: floor reads them once)
+    #: floor reads them once): each sphere 5 float32, quad 13, material
+    #: 5, triangle 19, an instanced mesh's triangles once, and each
+    #: instance 13 (a 3x4 affine and a material)
     scene_bytes: int = 0
     lights: Optional[torch.Tensor] = None
 
     @classmethod
     def build(cls, sky, mats, objs, device, dtype=torch.float32) -> "RefScene":
-        sph, quad, tri = [], [], []
+        sph, quad, tri, inst = [], [], [], []
+        unique = {}  # an instanced mesh's triangle count, by its arrays
         for o in objs:
-            m = _matrix(o["transform"])
+            m = _matrix(o.get("transform"))
             if o["kind"] == "sphere":
                 lens = np.linalg.norm(m[:3, :3], axis=0)
                 sph.append((_point(m, (0, 0, 0)), o["radius"] * float(lens[0]),
@@ -247,16 +270,14 @@ class RefScene:
                 u = _point(m, (o["width"] / 2.0, 0, 0)) - c
                 v = _point(m, (0, 0, o["height"] / 2.0)) - c
                 quad.append((c, u, v, _normal(inv, (0, 1, 0)), o["material"]))
+            elif o["kind"] == "mesh":
+                tri.append(_baked(o["mesh"], m, o["material"]))
             else:
-                verts, idx, nrm = o["mesh"]
-                inv = np.linalg.inv(m)
-                w = verts.astype(np.float64) @ m[:3, :3].T + m[:3, 3]
-                n = nrm.astype(np.float64) @ inv[:3, :3]
-                n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
-                f = idx.reshape(-1, 3).astype(np.int64)
-                tri.append((w[f[:, 0]], w[f[:, 1]], w[f[:, 2]], n[f[:, 0]],
-                            n[f[:, 1]], n[f[:, 2]],
-                            np.full(len(f), o["material"])))
+                unique[id(o["mesh"])] = len(o["mesh"][1]) // 3
+                inst += [_baked(o["mesh"], make_transform(*t), o["material"])
+                         for t in o["transforms"]]
+        n_flat = sum(len(p[0]) for p in tri)
+        tri += inst
         f32 = np.float32
         ns, nq = len(sph), len(quad)
 
@@ -302,7 +323,8 @@ class RefScene:
                 lo[sel] = np.minimum(lo[sel], vv[mem].min(1))
                 hi[sel] = np.maximum(hi[sel], vv[mem].max(1))
             boxes = np.concatenate([lo - BOX_PAD, hi + BOX_PAD], 1)
-            nbytes += nt * (9 + 9 + 1) * 4
+            nbytes += (n_flat + sum(unique.values())) * (9 + 9 + 1) * 4
+            nbytes += len(inst) * (12 + 1) * 4
 
         mt = np.array([MAT_CODES[m["type"]] for m in mats], f32)
         color = np.array([m.get("emission") if m["type"] == "emissive"

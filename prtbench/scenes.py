@@ -10,13 +10,19 @@ materials, objects and optional generators:
 - an object is a sphere (``radius``), a quad (``width``, ``height``) or a
   mesh (``{"icosphere": level}``), each with a material id and a
   transform ``[scale(3), euler degrees(3), translation(3)]`` or null;
+- an ``instances`` object is one mesh (``{"icosphere": level}``) under a
+  material and a list of such transforms (``transforms``): the renderer
+  keeps the mesh once and traces each copy through its instance block
+  (``Scene.add_mesh_instances``), where a ``mesh`` object is baked to
+  world space; objects with equal mesh specs share one mesh;
 - the generator ``random_balls`` lays out the upstream RANDOM_BALLS
   presets (src/scene.cpp:62-170): balls drawn by an mt19937 stream with
   libstdc++'s float mapping, then the emissive spheres.
 
 ``expand`` turns a description into lists of materials and objects (the
-meshes as numpy arrays); ``build_program_scene`` hands them to the
-renderer's ``Scene`` API, and ``reference.RefScene`` bakes them itself.
+meshes as numpy arrays, one set for each distinct mesh spec);
+``build_program_scene`` hands them to the renderer's ``Scene`` API, and
+``reference.RefScene`` bakes them itself.
 The camera of frame k of an orbit is ``orbit_camera``: the eye and the
 view direction turned about the world's Y axis through the origin, as
 the viewer's orbit turns them.  Nothing here imports the renderer except
@@ -25,6 +31,7 @@ the viewer's orbit turns them.  Nothing here imports the renderer except
 
 from __future__ import annotations
 
+import json
 import math
 from typing import List, Tuple
 
@@ -163,8 +170,9 @@ def _mesh_arrays(spec: dict):
 
 def expand(desc: dict) -> Tuple[List[dict], List[dict]]:
     """(materials, objects) of a scene description, generators expanded
-    after the listed ones (their material ids offset), each mesh object's
-    ``mesh`` replaced by its (vertices, indices, normals) arrays."""
+    after the listed ones (their material ids offset), each mesh and
+    instances object's ``mesh`` replaced by its (vertices, indices,
+    normals) arrays: the same tuple object for equal specs."""
     mats = [dict(m) for m in desc.get("materials", [])]
     objs = [dict(o) for o in desc.get("objects", [])]
     for gen in desc.get("generators", []):
@@ -177,9 +185,13 @@ def expand(desc: dict) -> Tuple[List[dict], List[dict]]:
     for m in mats:
         if m["type"] not in MATERIAL_TYPES:
             raise ValueError(f"material type {m['type']!r}")
+    meshes = {}
     for o in objs:
-        if o["kind"] == "mesh":
-            o["mesh"] = _mesh_arrays(o["mesh"])
+        if o["kind"] in ("mesh", "instances"):
+            key = json.dumps(o["mesh"], sort_keys=True)
+            if key not in meshes:
+                meshes[key] = _mesh_arrays(o["mesh"])
+            o["mesh"] = meshes[key]
         elif o["kind"] not in ("sphere", "quad"):
             raise ValueError(f"object kind {o['kind']!r}")
     return mats, objs
@@ -223,7 +235,8 @@ def orbit_camera(camera: dict, frame: int, step_deg: float):
 
 def build_program_scene(desc: dict, mats, objs):
     """The renderer's ``Scene`` for an expanded description, through its
-    builder API (materials first, in id order; then the objects)."""
+    builder API (materials first, in id order; then the objects), one
+    ``Mesh`` for each distinct set of instanced mesh arrays."""
     from parallelraytracing_tpu_torch.core.mesh import Mesh
     from parallelraytracing_tpu_torch.core.scene import Scene
     scene = Scene(preset=None)
@@ -238,7 +251,16 @@ def build_program_scene(desc: dict, mats, objs):
             scene.add_dielectric(float(m["ior"]))
         else:
             scene.add_emissive(tuple(m["emission"]))
+    inst_meshes = {}
     for o in objs:
+        if o["kind"] == "instances":
+            key = id(o["mesh"])
+            if key not in inst_meshes:
+                inst_meshes[key] = Mesh(*o["mesh"])
+            scene.add_mesh_instances(inst_meshes[key], o["material"],
+                                     [transform_spec(t)
+                                      for t in o["transforms"]])
+            continue
         tf = transform_spec(o["transform"])
         if o["kind"] == "sphere":
             scene.add_sphere(float(o["radius"]), o["material"], tf)

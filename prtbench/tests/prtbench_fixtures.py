@@ -16,7 +16,8 @@ def small_plan(workload: str, pixels: int = 64, level: int = 2,
                depth: int = 4) -> dict:
     """`workload`'s plan at a size the CPU renders in well under a second
     a frame: 48x27 (96x54 before a preview's scale), depth `depth`, the
-    mesh a level-`level` icosphere, displays every 100 ms."""
+    mesh a level-`level` icosphere and an instanced mesh one of at most
+    that level, displays every 100 ms."""
     plan = copy.deepcopy(registry.plan(run.ROOT, workload))
     scale = int(plan["traffic"].get("scale", 1))
     plan["config"]["render"].update(width=48 * scale, height=27 * scale,
@@ -24,6 +25,8 @@ def small_plan(workload: str, pixels: int = 64, level: int = 2,
     for o in plan["config"]["scene"].get("objects", []):
         if o["kind"] == "mesh":
             o["mesh"] = {"icosphere": level}
+        elif o["kind"] == "instances":
+            o["mesh"] = {"icosphere": min(level, o["mesh"]["icosphere"])}
     plan["sample"] = {"pixels": pixels, "max_paths": 50 * pixels}
     plan["traffic"]["display_ms"] = 100
     return plan

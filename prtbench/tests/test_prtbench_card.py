@@ -14,7 +14,8 @@ from prtbench import control, registry, run
 from prtbench.tests.prtbench_fixtures import card  # noqa: F401
 
 ONE_CARD = ["balls_rest_1080p", "icosphere_rest_1080p", "balls_orbit_360p",
-            "cornell_nee_rest_1080p", "balls_nee_rest_1080p"]
+            "cornell_nee_rest_1080p", "balls_nee_rest_1080p",
+            "instanced_tlas_rest_1080p"]
 
 
 @pytest.mark.cuda

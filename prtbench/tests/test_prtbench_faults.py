@@ -36,7 +36,8 @@ def _altered(out):
 
 #: the one-card cells (the four-card one runs below, over gloo)
 ONE_CARD = ["balls_rest_1080p", "icosphere_rest_1080p", "balls_orbit_360p",
-            "cornell_nee_rest_1080p", "balls_nee_rest_1080p"]
+            "cornell_nee_rest_1080p", "balls_nee_rest_1080p",
+            "instanced_tlas_rest_1080p"]
 
 
 @pytest.mark.parametrize("workload", ONE_CARD)

@@ -20,7 +20,8 @@ NEE_DEPTH = 6
                                       "icosphere_rest_1080p",
                                       "balls_orbit_360p",
                                       "cornell_nee_rest_1080p",
-                                      "balls_nee_rest_1080p"])
+                                      "balls_nee_rest_1080p",
+                                      "instanced_tlas_rest_1080p"])
 def test_reference_matches_a_cpu_render(workload):
     from parallelraytracing_tpu_torch import Film, RenderConfig, create_renderer
     plan = small_plan(workload, level=3,
