@@ -71,7 +71,8 @@ non-zero):
    5's bounds), each segment's bound; then 2
    warm-up frames and >= 8 timed with CUDA events; ms/frame,
    Msamples/s, Mrays/s over count_frame_rays, segment launches per
-   frame, a finite film that is neither black nor sky, and a PNG; then
+   frame and the re-sort's kernel launches (two a boundary), a finite
+   film that is neither black nor sky, and a PNG; then
    the fused engine: frame 0's trace kernel against the plain version
    (per ray within 1e-5 on >= 99.9% of rays), and the same frames timed
    the same way;
@@ -194,8 +195,11 @@ non-zero):
     960x540, wavefront_fused under sort_rays "octant", "origin" and ""
     renders the fused engine's sample buffers bit for bit (frames 0 and
     1), each segment boundary timed in the frame (CUDA events between the
-    segment launches) and its argsort and two gathers alone, and each
-    mode's frame timed beside the fused engine's;
+    segment launches), and on frame 0's pushed queues the re-sort kernel
+    (ops/segment.resort) against resort_reference at tolerance 0 (each
+    bucket's slot range, the rows matched by pixel id, nothing past the
+    survivors written) and timed alone beside it; each mode's frame
+    timed beside the fused engine's;
 28. (after phase 11) the segment kernel's queue at its edges: on the
     mesh and CORNELL --nee --rr-depth 3 at 1920x1080, the first segment
     over 0, 1, 31, 33, 4101 live slots and the persistent grid's threads
@@ -316,7 +320,8 @@ instantiations ("trace[stream]", "segment[stream]": phases 20-22), of
 the probe kernel ("trace[probe]": phases 23-24) and of the micro
 ("fp32_peak": phase 25) and of the raygen kernel ("raygen": phase 39's
 times and cases, its launches over phase 4's and each timed path's
-frames); each trace entry names the launch of its
+frames) and of the queue re-sort ("resort": phase 27's comparisons and
+times, its launches over phase 7's timed frames); each trace entry names the launch of its
 scene's instantiation ("launch": grid, block, registers, local and
 shared memory, whether tables were staged in shared memory; likewise
 each segment entry), the trace and segment entries list all 48
@@ -851,13 +856,61 @@ def check_segments(r, tag: str) -> list:
     return segs
 
 
+def resort_vs_plain(state, pix, key, count) -> dict:
+    """The re-sort kernel (ops/segment.resort) against resort_reference on
+    a pushed queue of the card, tolerance 0: the survivors' buckets in
+    slot order equal (each bucket's slot range), the rows matched by
+    pixel id equal bit for bit, the slots past count untouched (NaN and
+    -1 before), the tally count; the kernel's time a call (CUDA events,
+    mean of 5) and the plain version's on CPU copies."""
+    import torch
+    from parallelraytracing_tpu_torch.ops.segment import (BUCKET_SHIFT,
+                                                          resort,
+                                                          resort_reference)
+    n, r = int(count), state.shape[1]
+    bucket_of = torch.full((r,), -1, dtype=torch.int64, device=state.device)
+    bucket_of[pix[:n].long()] = (key[:n] >> BUCKET_SHIFT).long()
+    cpu = [x.cpu() for x in (state, pix, key, count)]
+    rows, untouched, tallies = [], True, []
+    for fn, args in ((resort, (state, pix, key, count)),
+                     (resort_reference, cpu)):
+        out = (torch.full_like(args[0], float("nan")),
+               torch.full_like(args[1], -1))
+        tally = torch.zeros((1,), dtype=torch.int64, device=args[0].device)
+        fn(*args, out, tally)
+        s_out, p_out = (x.to(state.device) for x in out)
+        tallies.append(int(tally))
+        untouched &= bool(torch.isnan(s_out[:, n:]).all()
+                          and (p_out[n:] == -1).all())
+        b = bucket_of[p_out[:n].long().clamp(0, r - 1)]
+        order = torch.argsort(b * r + p_out[:n].long())
+        rows.append((b, p_out[:n][order], s_out[:, :n][:, order]))
+    (kb, kp, ks), (pb, pp, ps) = rows
+    rec = dict(survivors=n, buckets=int(torch.unique(kb).numel()),
+               ascending=bool((kb[1:] >= kb[:-1]).all()),
+               ranges_equal=bool(torch.equal(kb, pb)),
+               pixels_equal=bool(torch.equal(kp, pp)), untouched=untouched,
+               tally=tallies == [n, n],
+               max_abs_err=float((ks - ps).abs().max()) if n else 0.0,
+               bits_equal=bool(torch.equal(ks.view(torch.int32),
+                                           ps.view(torch.int32))))
+    rec["agrees"] = all(rec[k] for k in ("ascending", "ranges_equal",
+                                         "pixels_equal", "untouched",
+                                         "tally", "bits_equal"))
+    out = (torch.empty_like(state), torch.empty_like(pix))
+    rec["ms"] = cuda_ms(lambda: resort(state, pix, key, count, out), 5)
+    _, rec["plain_ms"] = timed_ms(lambda: resort_reference(
+        *cpu, (torch.empty_like(cpu[0]), torch.empty_like(cpu[1]))))
+    return rec
+
+
 def boundary_times(w, frames: int = 3) -> dict:
     """wavefront_fused renderer w's segment boundaries as its sort_rays
     runs them: each boundary's time in the frame (CUDA events from the end
     of one segment launch to the start of the next, mean over frames
-    0..frames-1: the argsort and the two gathers, or nothing under ""),
-    and, with a sort, each boundary's argsort and two gathers alone on
-    frame 0's pushed queues (mean of 5)."""
+    0..frames-1: the re-sort, or nothing under ""), and, with a sort,
+    each boundary's re-sort against the plain version on frame 0's
+    pushed queues (resort_vs_plain)."""
     import torch
     from parallelraytracing_tpu_torch.engines.wavefront_fused import \
         segmented_trace
@@ -875,7 +928,7 @@ def boundary_times(w, frames: int = 3) -> dict:
     def keep(*a, **kw):
         res = segment(*a, **kw)
         if res[2] is not None:
-            kept.append(tuple(x.clone() for x in res[:3]))
+            kept.append(tuple(x.clone() for x in res))
         return res
 
     def frame(f, fn):
@@ -889,17 +942,11 @@ def boundary_times(w, frames: int = 3) -> dict:
         frame(f, marked)
         gaps.append([marks[i][1].elapsed_time(marks[i + 1][0])
                      for i in range(len(marks) - 1)])
-    alone = []
     if w.sort_rays:
         frame(0, keep)
-        for state, pix, key in kept:
-            def boundary():
-                order = torch.argsort(key, stable=True)
-                return state.index_select(1, order), pix.index_select(0, order)
-            alone.append(cuda_ms(boundary, 5))
     return dict(in_frame_ms=[sum(g[i] for g in gaps) / frames
                              for i in range(len(gaps[0]))],
-                sort_gather_ms=alone)
+                resort=[resort_vs_plain(*q) for q in kept])
 
 
 #: the sort modes' records by scene (sort_modes_phase), and the frames
@@ -947,8 +994,13 @@ def sort_modes_phase(w, f, tag: str) -> dict:
               f"sort_rays {mode!r}: frames 0-{BIT_FRAMES - 1} bit-equal to "
               f"fused {equal}; boundaries in the frame " + " + ".join(
                   f"{x:.3f}" for x in times["in_frame_ms"]) + " ms"
-              + ("; argsort + 2 gathers alone " + " + ".join(
-                  f"{x:.3f}" for x in times["sort_gather_ms"]) + " ms"
+              + ("; re-sort alone " + " + ".join(
+                  f"{x['ms']:.3f}" for x in times["resort"]) + " ms (plain "
+                 + " + ".join(f"{x['plain_ms']:.3f}" for x in times["resort"])
+                 + " ms), survivors " + " + ".join(
+                  str(x["survivors"]) for x in times["resort"])
+                 + ", agree with the plain version "
+                 + str(all(x["agrees"] for x in times["resort"]))
                  if mode else "") + f"; {ms:.3f} ms/frame over {TIMED}")
     w.sort_rays = default
     for _ in range(WARMUP):
@@ -959,6 +1011,10 @@ def sort_modes_phase(w, f, tag: str) -> dict:
     if not all(rec[m or "none"]["bit_equal"] for m in SORT_MODES):
         raise AssertionError(f"{tag}: a sort mode's frame differs from "
                              f"the fused engine's")
+    if not all(x["agrees"] for m in SORT_MODES
+               for x in rec[m or "none"]["resort"]):
+        raise AssertionError(f"{tag}: the re-sort kernel disagrees with "
+                             f"the plain version: {rec}")
     SORTS[tag] = rec
     return rec
 
@@ -3701,6 +3757,9 @@ RAYGEN_PX, RAYGEN_REPS = 7, 20
 #: bytes a camera ray moves through the raygen kernel: its pixel id read,
 #: o and d written
 RAYGEN_RAY_BYTES = 4 + 24
+#: the queue re-sort's bytes a survivor: its 13 planes and pixel id read
+#: and written, its key read by each of the two kernels
+RESORT_SURVIVOR_BYTES = 2 * 14 * 4 + 2 * 4
 
 
 def raygen_phase(peaks) -> dict:
@@ -3788,6 +3847,43 @@ def raygen_phase(peaks) -> dict:
                 rays=n)
 
 
+def resort_kernel_record(launches: int, peaks) -> dict:
+    """The kernels line's record of the queue re-sort: phase 27's
+    comparisons with the plain version on every scene and sort mode, and
+    the 1080p mesh's first boundary under "octant" timed, with its bound
+    (RESORT_SURVIVOR_BYTES a survivor at the measured read rate)."""
+    from parallelraytracing_tpu_torch.benchmarks.roofline import PEAK_BYTES
+    recs = [x for rec in SORTS.values() for mode in ("octant", "origin")
+            for x in rec[mode]["resort"]]
+    first = SORTS["mesh"]["octant"]["resort"]
+    nbytes = RESORT_SURVIVOR_BYTES * first[0]["survivors"]
+    return {
+        "name": "resort", "route": "cuda", "source": SEG_SOURCE,
+        "replaces": "parallelraytracing_tpu/engines/wavefront_fused.py:190",
+        "launches": launches,
+        "max_abs_err": max(x["max_abs_err"] for x in recs),
+        "agrees": all(x["agrees"] for x in recs), "compared": len(recs),
+        "ms": first[0]["ms"], "plain_ms": first[0]["plain_ms"],
+        "in_frame_ms": SORTS["mesh"]["octant"]["in_frame_ms"],
+        "boundaries": first, "bound_ms": nbytes / peaks["bytes"] * 1e3,
+        "bound_by": "bytes",
+        "datasheet_bound_ms": nbytes / PEAK_BYTES * 1e3,
+        "library_ms": None,
+        "size": f"ms, plain_ms: the {MAIN_W}x{MAIN_H} mesh's first "
+                f"boundary under \"octant\" ({first[0]['survivors']} "
+                f"survivors; CUDA events, a call of ops/segment.resort with "
+                f"its memset, mean of 5, host included; plain_ms "
+                f"resort_reference on CPU copies); in_frame_ms: each "
+                f"boundary's gap between segment launches in the frame; "
+                f"launches: its kernels over phase 7's {TIMED} "
+                f"timed frames, two a boundary; max_abs_err, agrees: every "
+                f"boundary of phase 27 under \"octant\" and \"origin\", "
+                f"rows matched by pixel id; bound_ms "
+                f"{RESORT_SURVIVOR_BYTES} B a survivor at the measured read "
+                f"rate; library_ms null: the parent's torch.argsort and "
+                f"two index_selects move every slot, timed in PERF.md"}
+
+
 def _seconds(fn):
     """(fn(), its host seconds)."""
     t0 = time.perf_counter()
@@ -3816,7 +3912,8 @@ def main(argv=None) -> int:
         count_frame_rays, segmented_trace)
     from parallelraytracing_tpu_torch.ops import _build
     from parallelraytracing_tpu_torch.ops.rays import generate_camera_rays_ids
-    from parallelraytracing_tpu_torch.ops.segment import segment, segment_reference
+    from parallelraytracing_tpu_torch.ops.segment import (resort, segment,
+                                                          segment_reference)
     from parallelraytracing_tpu_torch.ops.trace import trace, trace_reference
 
     # 1. probe
@@ -3994,18 +4091,23 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         trace.launches = 0
         segment.launches = 0
+        resort.launches = 0
         wf_ms = cuda_ms(mw_r.progressive_render, TIMED)
-        seg_launches = segment.launches
+        seg_launches, resort_launches = segment.launches, resort.launches
         phase("mesh-main-path", f"wavefront_fused {MAIN_W}x{MAIN_H} depth "
               f"{MAIN_DEPTH}, schedule {tuple(mw_r.segment_lengths())}: "
               f"{wf_ms:.3f} ms/frame, {samples / wf_ms / 1e3:.3f} Msamples/s, "
               f"{rays / wf_ms / 1e3:.3f} Mrays/s ({rays} rays in frame 0) over "
               f"{TIMED} frames; segment launches {seg_launches} "
-              f"({seg_launches / TIMED:g} per frame), trace launches "
-              f"{trace.launches}")
-        if seg_launches != per_frame * TIMED or trace.launches:
-            raise AssertionError(f"{seg_launches} segment launches in {TIMED} "
-                                 f"frames of {per_frame} segments, "
+              f"({seg_launches / TIMED:g} per frame), re-sort kernel "
+              f"launches {resort_launches}, trace launches {trace.launches}")
+        # two re-sort kernels at each boundary between segments
+        want_resort = 2 * (per_frame - 1) * TIMED if mw_r.sort_rays else 0
+        if seg_launches != per_frame * TIMED or trace.launches \
+                or resort_launches != want_resort:
+            raise AssertionError(f"{seg_launches} segment launches and "
+                                 f"{resort_launches} re-sort kernels in "
+                                 f"{TIMED} frames of {per_frame} segments, "
                                  f"{trace.launches} trace launches")
         phase("mesh-main-path", check_film(mw_film, mw_r._tables.sky,
                                            "mesh_wavefront_fused",
@@ -4290,6 +4392,7 @@ def main(argv=None) -> int:
          "paths": {k: paths[k] for k in "CD"},
          "instances": {"paths": {k: v for k, v in inst_paths.items()
                                  if "wavefront" in k}}},
+        resort_kernel_record(resort_launches, mic["peaks"]),
         ext_kernel_record("trace", ext), ext_kernel_record("segment", ext),
         stream_kernel_record("trace", stream),
         stream_kernel_record("segment", stream),

@@ -321,6 +321,11 @@ def main(argv=None) -> int:
                   f"{generate_camera_rays_ids.plain - raygen_before[1]} plain")
             print(f"seeds: {renderer.seed_frames} frames served, "
                   f"{renderer.seed_fills} blocks filled")
+            if hasattr(renderer, "resort_stats"):
+                n, moved, slots = renderer.resort_stats()
+                print(f"resort: {n} boundaries, {moved} slots moved, "
+                      f"{100.0 * moved / max(slots, 1):.2f}% of {slots} "
+                      f"queue slots")
         if own_group:
             dist.destroy_process_group()
         return 0

@@ -7,12 +7,12 @@ trace them in segments of bounces (ops/segment.segment, the CUDA kernel
 on a card).  Each segment compacts the queue itself: a path that ends
 writes its radiance to the frame's buffer in pixel order, a survivor is
 pushed to the next queue with its coherence key (direction octant over
-origin Morton code, by default).  Between segments one stable argsort of
-the keys re-sorts the queue (the slots past the survivors key last) and
-one gather moves the (13, R) state and one the pixel ids; with
-``sort_rays=""`` the next segment reads the queue as it is.  The live
-count stays a device tensor that the next segment reads, so a frame has
-no host sync.
+origin Morton code, by default).  Between segments ops/segment.resort
+moves only the survivors to the other queue, in ascending order of their
+key's top 12 bits (two kernels on a card); with ``sort_rays=""`` the
+next segment reads the queue as it is.  The live count stays a device
+tensor that the segments and the re-sort read, so a frame has no host
+sync.
 
 Streams are keyed on (pixel id, absolute depth) and both engines share
 the bounce (csrc/bounce.cuh; ops/trace._bounce on the CPU), so the image
@@ -35,7 +35,7 @@ import torch
 from parallelraytracing_tpu_torch.config import RenderConfig
 from parallelraytracing_tpu_torch.engines.base import Renderer, register_engine
 from parallelraytracing_tpu_torch.engines.fused import morton_pixel_perm, raygen_ids
-from parallelraytracing_tpu_torch.ops.segment import segment
+from parallelraytracing_tpu_torch.ops.segment import resort, segment
 from parallelraytracing_tpu_torch.ops.trace import scene_struct
 from parallelraytracing_tpu_torch.utils.profiling import annotate
 
@@ -81,7 +81,7 @@ def _initial_state(o, d) -> torch.Tensor:
 def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
                     segment_len: int = 3, sort_rays: str = "octant",
                     first_segment: int = 0, schedule: Tuple[int, ...] = (),
-                    seg_fn=None, rad=None) -> torch.Tensor:
+                    seg_fn=None, rad=None, tally=None) -> torch.Tensor:
     """(R, 3) radiance in pixel order for camera rays (o, d) of pixel ids
     `pix` ((R,) int32, a permutation of range(R), rays in any order),
     written to `rad` when given (else to new zeros): each pixel once.
@@ -91,8 +91,9 @@ def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
     schedule)``.  `seg_fn` is ops/segment.segment by default; passing
     ``segment_reference`` runs the plain version on any device.  Two
     queues take turns: a segment reads one and pushes to the other; a
-    re-sort gathers the pushed queue back into the first (the caller's
-    `pix` is read, never written)."""
+    re-sort moves the survivors back into the first (the caller's `pix`
+    is read, never written), adding their count to `tally` ((1,) int64)
+    when given."""
     if sort_rays not in SORT_MODES:
         raise ValueError(f"sort_rays {sort_rays!r}: want one of {SORT_MODES}")
     seg_fn = seg_fn or segment
@@ -122,9 +123,7 @@ def segmented_trace(tables, o, d, pix, seed: int, cfg: RenderConfig,
             a, b = (state, ids), (*a, None)
         else:
             with annotate("prt.resort"):
-                order = torch.argsort(key, stable=True)
-                torch.index_select(state, 1, order, out=a[0])
-                torch.index_select(ids, 0, order, out=a[1])
+                resort(state, ids, key, count, a, tally)
         queue = a
     return rad
 
@@ -195,11 +194,23 @@ class WavefrontFusedRenderer(Renderer):
         scene_struct(self._tables, cfg)  # the kernels' struct, made once
         perm, _ = morton_pixel_perm(cfg.width, cfg.height)
         self._ids = torch.from_numpy(perm.copy()).to(self.device)
+        # the boundaries re-sorted (host) and the survivors the re-sorts
+        # moved (summed on the device), since init: resort_stats()
+        self.resort_boundaries = 0
+        self._resort_tally = torch.zeros((1,), dtype=torch.int64,
+                                         device=self.device)
 
     def segment_lengths(self) -> list:
         """The bounces of each segment of a frame: the knobs set on the
         renderer, else the scene's default."""
         return list(self._lens)
+
+    def resort_stats(self) -> tuple:
+        """(boundaries re-sorted, slots moved, queue slots offered) since
+        init; reads the device tally (a host sync: not for a frame)."""
+        r = self.config.width * self.config.height
+        return (self.resort_boundaries, int(self._resort_tally),
+                self.resort_boundaries * r)
 
     def render_sample_buffer(self, frame_index: int) -> torch.Tensor:
         cfg = self.config
@@ -214,6 +225,9 @@ class WavefrontFusedRenderer(Renderer):
                                   self._qpt(frame_index, s))
             rad = segmented_trace(self._tables, o, d, self._ids, s0, cfg,
                                   sort_rays=self.sort_rays,
-                                  schedule=tuple(self._lens))
+                                  schedule=tuple(self._lens),
+                                  tally=self._resort_tally)
+            if self.sort_rays:
+                self.resort_boundaries += len(self._lens) - 1
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

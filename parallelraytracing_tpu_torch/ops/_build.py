@@ -67,30 +67,36 @@ class PrtScene(ctypes.Structure):
 
 SCENE = ctypes.POINTER(PrtScene)
 
-#: C signature of each kernel library's launch function
+#: each launch function: {name: (its kernel library, its C name,
+#: argtypes)}; a library's own launch function bears the library's name
 SIGNATURES = {
-    "trace": ("prt_trace_launch", [
+    "trace": ("trace", "prt_trace_launch", [
         I, P, SCENE,           # device, stream, scene
         P, P, P, P, P, I,      # o, d, pix, out, next (ray counter), n_rays
         U, I,                  # seed, max_depth
     ]),
-    "segment": ("prt_segment_launch", [
+    "segment": ("segment", "prt_segment_launch", [
         I, P, SCENE,           # device, stream, scene
         P, P, P,               # input queue: pix, state, count
         P, P, P, P, P,         # pix_out, out, key_out, rad, counters
         I, U, I, I, I, I,      # n_rays, seed, depth0, n_bounces, max_depth, key_mode
         ctypes.POINTER(F),     # bb: the scene box's low corner, 1 / extent
     ]),
-    "probe": ("prt_probe_launch", [
+    "resort": ("segment", "prt_resort_launch", [
+        I, P,                  # device, stream
+        P, P, P, P,            # pushed queue: state, pix, key, count
+        P, P, P, P, I, I,      # state_out, pix_out, work, tally, n_rays, shift
+    ]),
+    "probe": ("probe", "prt_probe_launch", [
         I, P, SCENE,           # device, stream, scene
         P, P, P, P, P, P, I,   # o, d, pix, out, depth, stats, n_rays
         U, I,                  # seed, max_depth
     ]),
-    "micro": ("prt_fp32_peak_launch", [
+    "micro": ("micro", "prt_fp32_peak_launch", [
         I, P,                  # device, stream
         P, P, I, I, I,         # x, out, n, loops, mix
     ]),
-    "raygen": ("prt_raygen_launch", [
+    "raygen": ("raygen", "prt_raygen_launch", [
         I, P,                  # device, stream
         P, P, P, P, I,         # cam, idx, o, d, n_rays
         I, U, I,               # width, pixel seed, flags
@@ -181,20 +187,20 @@ def build(name: str) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str):
-    """The launch function of kernel library `name`, built if needed, with
-    its ctypes signature declared.  Raises if a library that reads the
-    scene has a ``sizeof(PrtScene)`` other than the ctypes mirror's: a
-    field added on one side only would otherwise shift every pointer after
-    it."""
-    fn_name, argtypes = SIGNATURES[name]
-    lib = ctypes.CDLL(str(build(name)))
+    """Launch function `name` of SIGNATURES, its kernel library built if
+    needed, with its ctypes signature declared.  Raises if a library that
+    reads the scene has a ``sizeof(PrtScene)`` other than the ctypes
+    mirror's: a field added on one side only would otherwise shift every
+    pointer after it."""
+    lib_name, fn_name, argtypes = SIGNATURES[name]
+    lib = ctypes.CDLL(str(build(lib_name)))
     if SCENE in argtypes:
         lib.prt_scene_size.restype = ctypes.c_int
         lib.prt_scene_size.argtypes = []
         size = lib.prt_scene_size()
         if size != ctypes.sizeof(PrtScene):
             raise RuntimeError(
-                f"lib{name}: sizeof(PrtScene) is {size} in csrc/bounce.cuh "
+                f"lib{lib_name}: sizeof(PrtScene) is {size} in csrc/bounce.cuh "
                 f"but {ctypes.sizeof(PrtScene)} in the ctypes mirror "
                 f"(ops/_build.py)")
     fn = getattr(lib, fn_name)

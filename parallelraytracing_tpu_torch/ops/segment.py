@@ -3,7 +3,8 @@
 The counterpart of ``pallas_segment`` (``parallelraytracing_tpu/ops/
 pallas_trace.py``), the wavefront_fused engine's kernel, on the same
 subset as ``ops/trace.py``, together with the compaction the JAX engine
-does after it (``_segmented_body``'s argsort).  Three functions:
+does after it (``_segmented_body``'s argsort).  Three functions, and
+the queue re-sort between segments:
 
 - ``segment``: the wrapper.  On a CUDA tensor it launches the hand-written
   kernel ``csrc/segment.cu`` (built at first use, ops/_build.py) or
@@ -16,6 +17,12 @@ does after it (``_segmented_body``'s argsort).  Three functions:
   ``pallas_segment`` slot for slot (the JAX parity tests hold it there).
   Its bounce is ``ops/trace._bounce``, the plain version of the trace
   kernel's bounce, as the kernels share ``csrc/bounce.cuh``.
+- ``resort`` and ``resort_reference``: the survivors a segment pushed,
+  moved to the next segment's queue in ascending order of their key's
+  bucket (the top BUCKET_BITS of the key), each bucket's slots
+  contiguous.  On a CUDA tensor ``resort`` launches the segment library's
+  two re-sort kernels; on a CPU tensor it runs ``resort_reference``, a
+  stable sort of the buckets.
 
 Inputs of ``segment``: the input queue, ``pix`` (R,) int32 pixel ids
 keying the PCG streams and ``state`` (13, R) float32 planes [ox oy oz dx
@@ -67,6 +74,12 @@ KEY_MODES = {"": 0, "origin": 1, "octant": 2}
 #: the key past the survivors: 0x7f in every byte (the kernel's memset),
 #: above every live key (< 2^30)
 DEAD_KEY = 0x7F7F7F7F
+#: the re-sort's bucket is the top BUCKET_BITS of the 30-bit key: under
+#: "octant" the direction octant and 3 Morton bits an axis, under
+#: "origin" 4 bits an axis (the kernels take the shift; they hold at
+#: most 12 bits)
+BUCKET_BITS = 12
+BUCKET_SHIFT = 30 - BUCKET_BITS
 
 
 def _part1by2(v: torch.Tensor) -> torch.Tensor:
@@ -214,6 +227,64 @@ def segment_reference(pix, state, count, rad, tables, cfg, *, seed: int,
         key_out[:c] = sort_key(new[:, keep], tables.bb, sort_rays)
     return (state_out, pix_out, key_out,
             torch.tensor([c], dtype=torch.int32, device=dev))
+
+
+def resort(state, pix, key, count, out, tally=None):
+    """Move the survivors [0, `count`) of a pushed queue (`state` (13, R),
+    `pix` and `key` (R,) int32, `count` a (1,) int32 tensor on their
+    device) into `out` = (state_out, pix_out) in ascending order of
+    ``key >> BUCKET_SHIFT``, each bucket's slots contiguous (in the
+    atomics' order inside a bucket on the card); the slots past `count`
+    are neither read nor written.  `tally`, a (1,) int64 tensor, gets
+    `count` added.  Returns `out`.  No host sync.  ``resort.launches``
+    counts the kernels launched, two a call."""
+    if state.device.type == "cpu":
+        return resort_reference(state, pix, key, count, out, tally)
+    if state.device.type != "cuda":
+        raise ValueError(f"resort runs on cpu or cuda tensors, not {state.device}")
+    r = int(state.shape[1])
+    state_out, pix_out = out
+    for name, t in (("state", state), ("state_out", state_out)):
+        if tuple(t.shape) != (PLANES, r):
+            raise ValueError(f"{name} {tuple(t.shape)}: want ({PLANES}, {r})")
+    check_tensors(state.device, {"state": state, "state_out": state_out},
+                  {"pix": (pix, (r,)), "key": (key, (r,)),
+                   "count": (count, (1,)), "pix_out": (pix_out, (r,))})
+    if tally is not None and (tally.dtype != torch.int64
+                              or tally.device != state.device
+                              or tuple(tally.shape) != (1,)):
+        raise ValueError(f"tally: want a (1,) int64 tensor on {state.device}")
+    # the histogram and the slots claimed in each bucket; the launch
+    # zeroes both
+    work = torch.empty((2 << BUCKET_BITS,), dtype=torch.int32,
+                       device=state.device)
+
+    from parallelraytracing_tpu_torch.ops import _build
+    ptr = torch.Tensor.data_ptr
+    err = _build.load("resort")(
+        *stream_of(state.device), ptr(state), ptr(pix), ptr(key), ptr(count),
+        ptr(state_out), ptr(pix_out), ptr(work),
+        ptr(tally) if tally is not None else None, r, BUCKET_SHIFT)
+    if err != 0:
+        raise RuntimeError(f"resort kernel launch failed: cudaError_t {err}")
+    resort.launches += 2
+    return out
+
+
+resort.launches = 0
+
+
+def resort_reference(state, pix, key, count, out, tally=None):
+    """Plain PyTorch version of ``resort``: a stable sort of the buckets
+    of [0, count), the survivors gathered in that order."""
+    n = min(int(count.reshape(-1)[0]), state.shape[1])
+    state_out, pix_out = out
+    order = torch.argsort(key[:n] >> BUCKET_SHIFT, stable=True)
+    state_out[:, :n] = state[:, order]
+    pix_out[:n] = pix[order]
+    if tally is not None:
+        tally += n
+    return out
 
 
 def segment_slots(pix, state, scalars, tables, cfg, *,

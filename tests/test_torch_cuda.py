@@ -414,6 +414,105 @@ def test_queue_edge_cases(cuda, mesh_ply, scene):
     assert not torch.isnan(rad).any()
 
 
+#: the re-sort grid's threads a SM (csrc/segment.cu: kResortBlocksPerSm
+#: blocks of kResortThreads)
+RESORT_THREADS_PER_SM = 512
+
+
+def resort_agrees(state, pix, key, n):
+    """The re-sort kernel against resort_reference on the first n slots
+    of a pushed queue (their pixel ids distinct, below its length): each
+    bucket's slot range equal, its rows equal bit for bit matched by
+    pixel id, nothing past n written, the tally n."""
+    from parallelraytracing_tpu_torch.ops.segment import (BUCKET_SHIFT,
+                                                          resort,
+                                                          resort_reference)
+    r = state.shape[1]
+    count = torch.tensor([n], dtype=torch.int32, device="cuda")
+    bucket_of = torch.full((r,), -1, dtype=torch.int64, device="cuda")
+    bucket_of[pix[:n].long()] = (key[:n] >> BUCKET_SHIFT).long()
+    rows = []
+    for fn in (resort, resort_reference):
+        out = (torch.full_like(state, float("nan")), torch.full_like(pix, -1))
+        tally = torch.zeros((1,), dtype=torch.int64, device="cuda")
+        fn(state, pix, key, count, out, tally)
+        s_out, p_out = out
+        assert int(tally) == n
+        assert bool(torch.isnan(s_out[:, n:]).all()), n
+        assert bool((p_out[n:] == -1).all()), n
+        assert bool(((p_out[:n] >= 0) & (p_out[:n] < r)).all()), n
+        b = bucket_of[p_out[:n].long()]
+        assert bool((b >= 0).all()), n  # a survivor's pixel
+        assert bool((b[1:] >= b[:-1]).all()), n  # ascending: contiguous
+        order = torch.argsort(b * r + p_out[:n].long())
+        rows.append((b, p_out[:n][order], s_out[:, :n][:, order]))
+    (kb, kp, ks), (pb, pp, ps) = rows
+    assert torch.equal(kb, pb), n  # each bucket's slot range
+    assert torch.equal(kp, pp), n  # each bucket's pixels
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32)), n
+
+
+@pytest.mark.cuda
+def test_resort_kernel_matches_plain(cuda, tmp_path):
+    """The queue re-sort's two kernels against resort_reference
+    (resort_agrees): on the 1080p level-5 mesh's first boundary (the
+    survivors of its first segment, 2 bounces), then on a full queue of
+    live keys (origins over the scene box, every octant) under "octant"
+    and "origin" for each live count of EDGE_COUNTS, the re-sort grid's
+    threads + 1 and the whole queue, and the whole queue in one bucket;
+    then the wrapper's checks."""
+    from parallelraytracing_tpu_torch.core.mesh import subdivide
+    from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+        _initial_state
+    from parallelraytracing_tpu_torch.ops.segment import (PLANES, resort,
+                                                          segment, sort_key)
+    ply = write_ply(tmp_path / "icosphere5.ply",
+                    subdivide(make_mesh("ico2"), 3))
+    r, _ = mesh_renderer("wavefront_fused", ply, 1920, 1080, max_depth=20)
+    assert r.segment_lengths() == [2, 4, 14] and r.sort_rays == "octant"
+    o, d, pix, seed = frame_inputs(r, 0)
+    n = o.shape[0]
+    rad = torch.zeros((n, 3), device="cuda")
+    state, p_out, key, c = segment(
+        pix, _initial_state(o, d), torch.tensor([n], dtype=torch.int32,
+                                                device="cuda"),
+        rad, r._tables, r.config, seed=seed, depth0=0, n_bounces=2,
+        sort_rays="octant")
+    c = int(c)
+    assert 0 < c < n // 4
+    before = resort.launches
+    resort_agrees(state, p_out, key, c)
+    assert resort.launches == before + 2  # two kernels a call
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    counts = EDGE_COUNTS + (sms * RESORT_THREADS_PER_SM + 1, n)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lo, ie = (torch.tensor(x, device="cuda") for x in r._tables.bb)
+    full = torch.cat([
+        lo[:, None] + torch.rand((3, n), generator=gen, device="cuda")
+        / ie[:, None],
+        torch.randn((3, n), generator=gen, device="cuda"),
+        torch.rand((PLANES - 6, n), generator=gen, device="cuda")])
+    ids = torch.randperm(n, generator=gen, device="cuda").to(torch.int32)
+    for mode in ("octant", "origin"):
+        keys = sort_key(full, r._tables.bb, mode)
+        assert bool((keys < 2 ** 30).all())
+        for m in counts:
+            resort_agrees(full, ids, keys, m)
+    resort_agrees(full, ids, torch.zeros_like(keys), n)  # one bucket
+
+    cnt = torch.tensor([4], dtype=torch.int32, device="cuda")
+    out = (torch.empty_like(full), torch.empty_like(ids))
+    with pytest.raises(TypeError):
+        resort(full, ids.long(), keys, cnt, out)
+    with pytest.raises(ValueError):
+        resort(full[:12].contiguous(), ids, keys, cnt, out)
+    with pytest.raises(ValueError):
+        resort(full, ids, keys, cnt.cpu(), out)
+    with pytest.raises(ValueError, match="tally"):
+        resort(full, ids, keys, cnt, out, torch.zeros((1,), device="cuda"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("attrs", [{}, dict(sort_rays=""),
                                    dict(schedule=(1, 2, 4))])

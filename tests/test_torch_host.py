@@ -182,6 +182,8 @@ def test_probe_and_micro_libraries():
                                                            "bounce.cuh"]
     assert _build.LIBRARIES == ("trace", "segment", "probe", "micro",
                                 "raygen")
-    assert set(_build.SIGNATURES) == set(_build.LIBRARIES)
-    assert _build.SCENE in _build.SIGNATURES["probe"][1]
-    assert _build.SCENE not in _build.SIGNATURES["micro"][1]
+    assert {lib for lib, _, _ in _build.SIGNATURES.values()} \
+        == set(_build.LIBRARIES)
+    assert all(_build.SIGNATURES[lib][0] == lib for lib in _build.LIBRARIES)
+    assert _build.SCENE in _build.SIGNATURES["probe"][2]
+    assert _build.SCENE not in _build.SIGNATURES["micro"][2]

@@ -63,10 +63,16 @@ from parallelraytracing_tpu_torch.core.scene import ply_showcase_scene  # noqa: 
 from parallelraytracing_tpu_torch.engines.tables import build_scene_tables  # noqa: E402
 from parallelraytracing_tpu_torch.engines.wavefront_fused import \
     segmented_trace  # noqa: E402
-from parallelraytracing_tpu_torch.ops.segment import (DEAD_KEY,  # noqa: E402
+from parallelraytracing_tpu_torch.engines.wavefront_fused import \
+    count_depth_rays  # noqa: E402
+from parallelraytracing_tpu_torch.ops.segment import (BUCKET_SHIFT,  # noqa: E402
+                                                      DEAD_KEY, PLANES,
+                                                      resort,
+                                                      resort_reference,
                                                       segment,
                                                       segment_reference,
-                                                      segment_slots)
+                                                      segment_slots,
+                                                      sort_key)
 
 W = H = 32  # 1024 slots: one 8x128 Pallas tile
 ROWS = 8
@@ -319,3 +325,71 @@ def test_segmented_trace_reads_but_never_writes_pix(tmp_path, sort_rays):
     want = segmented_trace(t, o, d, ids, SEED, cfg, schedule=(6,),
                            sort_rays="")
     assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
+def _pushed_queue(mode, r=W * H):
+    """A pushed queue of r slots, every slot a survivor with a live key:
+    origins spread over the box [-4, 4]^3, directions in every octant,
+    keys ``sort_key`` of the planes in that box."""
+    rng = np.random.default_rng(11)
+    state = np.concatenate([
+        rng.uniform(-4.0, 4.0, (3, r)), rng.normal(size=(3, r)),
+        rng.uniform(0.05, 1.0, (7, r))]).astype(np.float32)
+    state = torch.from_numpy(state)
+    bb = ((-4.0, -4.0, -4.0), (0.125, 0.125, 0.125))
+    key = sort_key(state, bb, mode)
+    pix = torch.from_numpy(rng.permutation(r).astype(np.int32))
+    return state, pix, key
+
+
+@pytest.mark.parametrize("mode", ["octant", "origin"])
+@pytest.mark.parametrize("count", [0, 1, 31, 33, COUNT, W * H])
+def test_resort_reference_buckets_the_survivors(mode, count):
+    """Tolerance 0: the re-sort moves the survivors [0, count) into
+    ascending, contiguous buckets (the key's top bits), the same rows
+    matched by pixel id, stable inside a bucket; no slot past count is
+    written; the tally gains count."""
+    state, pix, key = _pushed_queue(mode)
+    assert (key < 2 ** 30).all() and len(torch.unique(key >> BUCKET_SHIFT)) > 64
+    out = (torch.full((PLANES, W * H), float("nan")),
+           torch.full((W * H,), -1, dtype=torch.int32))
+    tally = torch.tensor([5], dtype=torch.int64)
+    got = resort(state, pix, key, torch.tensor([count], dtype=torch.int32),
+                 out, tally)
+    assert got is out and int(tally) == 5 + count
+    s_out, p_out = out
+    assert torch.isnan(s_out[:, count:]).all() and (p_out[count:] == -1).all()
+    key_of = dict(zip(pix.tolist(), key.tolist()))
+    bucket = torch.tensor([key_of[p] >> BUCKET_SHIFT
+                           for p in p_out[:count].tolist()], dtype=torch.int64)
+    assert (bucket[1:] >= bucket[:-1]).all()  # ascending, so contiguous
+    want = torch.argsort(key[:count] >> BUCKET_SHIFT, stable=True)
+    assert torch.equal(p_out[:count], pix[want])
+    g_pix, g_state = _by_pixel(p_out[:count].numpy(), s_out[:, :count].numpy())
+    w_pix, w_state = _by_pixel(pix[:count].numpy(), state[:, :count].numpy())
+    np.testing.assert_array_equal(g_pix, w_pix)
+    np.testing.assert_array_equal(g_state.view(np.int32),
+                                  w_state.view(np.int32))
+
+
+@pytest.mark.parametrize("sort_rays", ["octant", "origin", ""])
+def test_segmented_trace_tally_counts_the_survivors_moved(tmp_path,
+                                                          sort_rays):
+    """The tally gains the survivors entering each re-sorted boundary:
+    the rays entering bounces 1 and 3 of the schedule (1, 2, 3), as
+    count_depth_rays counts them; nothing without a sort."""
+    scene, _, _ = ply_showcase_scene(mesh_ply(tmp_path, "ico2"))
+    t, _ = build_scene_tables(scene, "cpu")
+    cfg = T.RenderConfig(width=24, height=16, max_depth=6)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.permutation(24 * 16).astype(np.int32))
+    o = torch.from_numpy(rng.uniform(-0.5, 0.5, (24 * 16, 3))
+                         .astype(np.float32)) + torch.tensor([0.0, 1.0, 6.0])
+    d = torch.from_numpy(rng.normal(size=(24 * 16, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    tally = torch.zeros((1,), dtype=torch.int64)
+    segmented_trace(t, o, d, ids, SEED, cfg, schedule=(1, 2, 3),
+                    sort_rays=sort_rays, tally=tally)
+    rays = count_depth_rays(t, o, d, ids, SEED, cfg)
+    assert 0 < rays[3] < rays[1] < 24 * 16
+    assert int(tally) == (rays[1] + rays[3] if sort_rays else 0)

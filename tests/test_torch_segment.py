@@ -126,7 +126,8 @@ def _render(engine, path, w, h, depth, frames=2, **attrs):
 
 @pytest.mark.parametrize("attrs", [
     dict(sort_rays="origin"), dict(sort_rays=""), dict(schedule=(2,)),
-    dict(schedule=(1, 2, 4)), dict(segment=3, segment_first=1)])
+    dict(schedule=(1, 2, 4)), dict(segment=3, segment_first=1),
+    dict(schedule=(1,)), dict(sort_rays="origin", schedule=(1, 2, 4))])
 def test_wavefront_fused_is_bit_invariant(tmp_path, attrs):
     """Tolerance 0: the film does not depend on the sort key or the
     segment schedule, and equals the fused engine's film (streams keyed on
